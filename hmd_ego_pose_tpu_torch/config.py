@@ -1,7 +1,7 @@
-"""Model, anchor and serving configuration for the PyTorch port.
+"""Model, anchor, evaluation and serving configuration for the PyTorch port.
 
 A copy of the configuration dataclasses and per-phi tables of
-``hmd_ego_pose_tpu/config.py`` that inference needs.  The port keeps its own
+``hmd_ego_pose_tpu/config.py`` that inference and evaluation need.  The port keeps its own
 copy so it never imports the JAX package; the values must stay identical
 (tests/test_torch_model.py compares the derived quantities).
 """
@@ -132,6 +132,27 @@ class ModelConfig:
     @property
     def total_anchors(self) -> int:
         return self.anchors.num_anchors(self.image_size)
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    score_threshold: float = 0.5
+    nms_threshold: float = 0.5
+    max_detections: int = 100
+    iou_threshold: float = 0.5
+    diameter_threshold: float = 0.1
+    pixel_threshold: float = 5.0  # 2-D reprojection metric
+    adds_max_points: int = 1000
+    # frames per forward of the evaluator (the tail chunk is padded)
+    eval_batch_size: int = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """The parts of the JAX package's ``Config`` that evaluation reads."""
+
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,8 +2,8 @@
 
 Each kernel wrapper adds one to its count where it launches its kernel, and
 nowhere else, so a run can show that a path really went through the kernel
-(``chip_smoke.py`` resets the counts before the serving path and reads them
-after).
+(``chip_smoke.py`` resets the counts just before the serving and the
+evaluation paths and reads them just after each).
 """
 
 from __future__ import annotations

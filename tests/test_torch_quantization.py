@@ -4,7 +4,7 @@ The plain version (``dequantize_reference``), which the CPU path runs, must be
 bit-equal to the JAX package's numpy and Pallas (interpret mode) versions;
 the port's ``restore_checkpoint`` must give the JAX restore's leaves bit for
 bit on both shipped artifacts.  The CUDA kernel itself is held to the plain
-version by the ``cuda``-marked test, on the card.
+version by ``tests/test_torch_cuda.py``, on the card.
 """
 
 import os
@@ -24,13 +24,6 @@ from hmd_ego_pose_tpu_torch.train import checkpoint as torch_checkpoint
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARTIFACTS = ("syn1000_phi0_576ep_handrel_int8", "syn1000_phi0_448ep_int8")
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    return torch.device("cuda")
 
 
 def _random_int8(rows, cols, seed):
@@ -83,10 +76,13 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_build_hash_tracks_the_source():
-    assert build.sources() == ["dequantize"]
-    path = build.library_path("dequantize")
-    assert path.startswith(build.BUILD_DIR) and path.endswith(".so")
-    assert path == build.library_path("dequantize")
+    assert build.sources() == ["dequantize", "min_distances"]
+    assert sorted(build.SIGNATURES) == build.sources()
+    for name in build.sources():
+        path = build.library_path(name)
+        assert path.startswith(build.BUILD_DIR) and path.endswith(".so")
+        assert path == build.library_path(name)
+    assert build.library_path("dequantize") != build.library_path("min_distances")
 
 
 @pytest.mark.parametrize("name", ARTIFACTS)
@@ -122,17 +118,3 @@ def test_restore_checkpoint_refuses_cuda_without_a_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         torch_checkpoint.restore_checkpoint(os.path.join(REPO, "trained", ARTIFACTS[0] + ".npz"))
 
-
-@pytest.mark.cuda
-def test_dequantize_kernel_bit_equal_to_plain_on_the_card(cuda_device):
-    shapes = [(1, 1), (1, 300), (5, 33), (130, 97), (1152, 320)]
-    LAUNCHES.reset()
-    for i, (rows, cols) in enumerate(shapes):
-        values, scales = _random_int8(rows, cols, i)
-        v, s = torch.from_numpy(values).to(cuda_device), torch.from_numpy(scales).to(cuda_device)
-        got = dequantize(v, s)
-        torch.cuda.synchronize()
-        assert torch.equal(got, dequantize_reference(v, s))
-    assert LAUNCHES.get("dequantize") == len(shapes)
-    with pytest.raises(ValueError):
-        dequantize(v.float(), s)

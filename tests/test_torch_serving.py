@@ -231,6 +231,10 @@ def test_png_reader_all_filters_and_rgba(tmp_path):
     path = str(tmp_path / "x.png")
     Image.fromarray(rgba, "RGBA").save(path, optimize=True)
     np.testing.assert_array_equal(read_png(path), rgba[..., :3])
-    Image.fromarray(rgba, "RGBA").convert("L").save(path)
+    # 8-bit gray (the synthetic masks) reads as gray replicated to RGB, as PIL converts it
+    Image.fromarray(rgba, "RGBA").convert("L").save(path, optimize=True)
+    with Image.open(path) as im:
+        np.testing.assert_array_equal(read_png(path), np.asarray(im.convert("RGB")))
+    Image.fromarray(rgba, "RGBA").convert("P").save(path)  # palette: outside the supported formats
     with pytest.raises(ValueError):
         read_png(path)
