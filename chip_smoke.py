@@ -17,7 +17,15 @@ Phases, each printing one JSON line of its own:
                and at seeded odd shapes, with duplicate points: bit equality
                required; kernel, plain and ``torch.cdist(...).amin`` times at
                the evaluation's shape, beside the operations bound.
-5. predict  -- restore of ``trained/syn1000_phi0_576ep_handrel_int8.npz`` on the
+5. kernel_iou -- the anchor-IoU kernel of target assignment against its plain
+               version at the train step's shape (16 images, the 12,276
+               anchors at 256 px shared by the batch, one box) and at K = 4,
+               N off every block, a single anchor and more boxes than one
+               shared-memory chunk, with degenerate boxes, for shared and
+               per-image anchors: bit equality required; kernel and plain
+               times at the train shape beside the bytes bound (no single
+               PyTorch call computes it: library time null).
+6. predict  -- restore of ``trained/syn1000_phi0_576ep_handrel_int8.npz`` on the
                card, then ``predict`` (phi-0, 256 px, bf16, score threshold
                0.1) of the six committed golden frames, held to
                ``tests/goldens/handrel_ckpt_expected.npz``
@@ -25,12 +33,12 @@ Phases, each printing one JSON line of its own:
                and the device preprocess of a seeded 300x300 frame, which must
                equal the CPU's bit for bit, with its time and that of a
                1080x1920 frame (to 256 px).
-6. serve    -- the serving path as ``cli serve`` builds it (restore, BN fold,
+7. serve    -- the serving path as ``cli serve`` builds it (restore, BN fold,
                engine warm-up) behind a ``PoseServer`` on 127.0.0.1, port 0; a
                ``PoseClient`` sends the six frames as RGB8 and the pose packets
                are held to the goldens.  Kernel launch counts are reset just
                before this phase and read just after it.
-7. evaluate -- ``cli make-synthetic`` writes the 1000-frame, 256 px, seed-0,
+8. evaluate -- ``cli make-synthetic`` writes the 1000-frame, 256 px, seed-0,
                hand-render-v3 set into a temporary directory, whose
                ``gt_0.yml`` must hash as the JAX generator's did; then
                ``cli evaluate`` of the shipped artifact on its 200 val frames
@@ -39,7 +47,25 @@ Phases, each printing one JSON line of its own:
                once (one class), and every scalar must lie within the stated
                tolerances of ``hmd_ego_pose_tpu_torch/eval/references/handrel_v3_val.json``
                (the JAX package's evaluation, ``scripts/make_eval_reference.py``).
-8. shutdown -- server and engine stopped, every thread joined with a timeout.
+9. train    -- on the same set: first four fixed training steps (augmentation
+               and drop-connect off) of ``cli train``'s trainer from the
+               artifact, whose six loss terms must lie within the stated
+               tolerance of ``hmd_ego_pose_tpu_torch/train/references/
+               handrel_v3_train_steps.json`` (the JAX package's steps,
+               ``scripts/make_train_reference.py``); then, with the launch
+               counts reset just before and read just after, ``cli train``'s
+               trainer (``cli.build_trainer``: phi-0, 256 px, fp32, batch 16,
+               Adam 1e-4, frozen backbone, oversample 1) for one epoch over the
+               600 train frames and validation on the 200 val frames.  Every
+               loss finite, ``iou`` launched once per step, ``dequantize`` 137
+               times at the restore, ``min_distances`` once; the backbone's
+               parameters bit-identical and its BN statistics moved; the best
+               and ``last`` checkpoints written and restored to the trained
+               model, ``last`` with the optimizer's leaves.  Times: step p50 and
+               max (synchronised) and its parts, images/s, epoch, validation
+               and start-up seconds, and a torch.profiler sample of four more
+               steps (device time per step, busy share).
+10. shutdown -- server and engine stopped, every thread joined with a timeout.
 
 Then the ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -76,6 +102,12 @@ MIN_DIST_EVAL_SHAPE = (200, 600, 600)
 MIN_DIST_SHAPES = (MIN_DIST_EVAL_SHAPE, (1, 1, 1), (3, 700, 513), (2, 5000, 4999), (64, 1000, 1000))
 # the card's evaluation against the JAX package's (fp32 on both sides)
 EVAL_TOLERANCES = {"count": 0.0, "accuracy": 0.005, "mm": 0.05, "deg": 0.01}
+TRAIN_REFERENCE = os.path.join(HERE, "hmd_ego_pose_tpu_torch", "train", "references",
+                               "handrel_v3_train_steps.json")
+# (B, N, K) of the IoU kernel besides the train step's (16, 12,276 anchors at
+# 256 px, 1): four boxes, N off every block size, a single anchor, and more
+# boxes than one shared-memory chunk (256)
+IOU_SHAPES = ((16, 12276, 4), (3, 4097, 2), (2, 1, 3), (2, 1000, 300))
 
 
 def emit(phase: str, **fields) -> None:
@@ -203,6 +235,283 @@ def phase_min_distances(dev) -> dict:
     }
 
 
+def iou_inputs(rng, dev, b: int, n: int, k: int, image_size: int = 256):
+    """Seeded (N, 4) anchors (the 256 px pyramid's first N, tiled) and (B, K, 4)
+    boxes inside the image, with exact copies of anchors, zero-area, inverted
+    and far-away boxes among them (union <= 0 and disjoint pairs)."""
+    import numpy as np
+    import torch
+
+    from hmd_ego_pose_tpu_torch.config import AnchorConfig
+    from hmd_ego_pose_tpu_torch.ops.anchors import anchors_for_shape
+
+    pyramid = anchors_for_shape((image_size, image_size), AnchorConfig())[0]
+    anchors = np.resize(pyramid, (n, 4)).astype(np.float32)
+    xy = rng.uniform(0, image_size - 8, size=(b, k, 2))
+    wh = rng.uniform(4, image_size / 2, size=(b, k, 2))
+    boxes = np.concatenate([xy, xy + wh], axis=-1).astype(np.float32)
+    if k > 1:
+        boxes[:, 0] = anchors[rng.integers(0, n, size=b)]  # IoU exactly 1 somewhere
+        boxes[:, -1, 2:] = boxes[:, -1, :2]  # zero area
+    if k > 2:
+        boxes[:, 1] = boxes[:, 1, [2, 3, 0, 1]]  # inverted: negative area, union can be <= 0
+    if n > 2:
+        anchors[1, 2:] = anchors[1, :2]  # a zero-area anchor
+        anchors[2] = [1e4, 1e4, 1e4 + 8, 1e4 + 8]  # disjoint from every box
+    return torch.from_numpy(anchors).to(dev), torch.from_numpy(boxes).to(dev)
+
+
+def phase_iou(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from hmd_ego_pose_tpu_torch.config import ModelConfig
+    from hmd_ego_pose_tpu_torch.kernels import bounds
+    from hmd_ego_pose_tpu_torch.ops.iou import iou_matrix, iou_matrix_reference
+
+    cfg = ModelConfig()
+    main_shape = (16, cfg.total_anchors, 1)
+    rng = np.random.default_rng(6)
+    max_err, checked = 0.0, []
+    for b, n, k in (main_shape,) + IOU_SHAPES:
+        anchors, boxes = iou_inputs(rng, dev, b, n, k)
+        for a in (anchors, anchors.expand(b, n, 4).contiguous()):  # shared and per-image anchors
+            got, want = iou_matrix(a, boxes), iou_matrix_reference(a, boxes)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"iou_matrix differs from its plain version at {(b, n, k)}: "
+                                     f"max |diff| {(got - want).abs().max().item()}")
+            max_err = max(max_err, (got - want).abs().max().item())
+        checked.append([b, n, k])
+        if (b, n, k) == main_shape:
+            main_inputs = (anchors, boxes)
+    anchors, boxes = main_inputs
+    ms = cuda_time_ms(lambda: iou_matrix(anchors, boxes), reps=200)
+    plain_ms = cuda_time_ms(lambda: iou_matrix_reference(anchors, boxes), reps=200)
+    return {
+        "shapes": checked, "bit_equal": True, "max_abs_err": max_err, "train_shape": list(main_shape),
+        "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        "library": "none (no single torch call computes a box IoU matrix)",
+        **bounds.bound(*bounds.iou_work(main_shape[1], main_shape[2], main_shape[0], shared_anchors=True)),
+    }
+
+
+class TimedStep:
+    """Wraps a trainer's step: synchronised times of its parts (gather + augment
+    + preprocess; forward + targets + loss; backward; optimizer update) and
+    each step's losses, read after the step."""
+
+    PARTS = ("prepare", "forward", "backward", "optimizer")
+
+    def __init__(self, step):
+        self.step, self.step_ms, self.losses = step, [], []
+        self.part_ms = {k: [] for k in self.PARTS}
+        update = step.optimizer.step
+
+        def timed_update():
+            import torch
+
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            update()
+            torch.cuda.synchronize()
+            self.part_ms["optimizer"].append((time.perf_counter() - t) * 1e3)
+
+        step.optimizer.step = timed_update
+
+    def __call__(self, data, idx, draws=None, generator=None):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = self.step.prepare(data, idx, draws)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bundle = self.step.losses(batch, generator)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        metrics = self.step.update(bundle)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        self.part_ms["prepare"].append((t1 - t0) * 1e3)
+        self.part_ms["forward"].append((t2 - t1) * 1e3)
+        self.part_ms["backward"].append((t3 - t2) * 1e3 - self.part_ms["optimizer"][-1])
+        self.step_ms.append((t3 - t0) * 1e3)
+        self.losses.append({k: float(v) for k, v in metrics.items()})
+        return metrics
+
+
+def profile_steps(trainer, steps: int = 4) -> dict:
+    """Device busy share of a few more (unsynchronised) train steps under
+    torch.profiler, and the kernels that take the most device time; None
+    where the profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = trainer.pipeline.epoch_indices(1)[:steps]
+    step = trainer.step_fn.step if isinstance(trainer.step_fn, TimedStep) else trainer.step_fn
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for row in rows:
+            step(trainer.data, torch.from_numpy(row).to(trainer.device), trainer.draws(), trainer.generator)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+
+    def device_us(e):
+        return float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)) or 0.0)
+
+    busy = sum(device_us(e) for e in events)
+    top = sorted(events, key=device_us, reverse=True)[:6]
+    return {
+        "profiled_steps": len(rows), "wall_ms_per_step": wall_us / 1e3 / len(rows),
+        "device_ms_per_step": busy / 1e3 / len(rows) if busy else None,
+        "device_busy_share": busy / wall_us if busy else None,
+        "top_kernels_ms_per_step": {e.key[:80]: device_us(e) / 1e3 / len(rows) for e in top} if busy else None,
+    }
+
+
+def phase_train(card: str, data: str, work: str) -> dict:
+    import numpy as np
+    import torch
+
+    from hmd_ego_pose_tpu_torch import cli
+    from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
+    from hmd_ego_pose_tpu_torch.models.hmd_ego_pose import HMDEgoPose
+    from hmd_ego_pose_tpu_torch.models.weights import from_jax_params
+    from hmd_ego_pose_tpu_torch.train.checkpoint import restore_checkpoint, restore_opt_leaves
+    from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES
+    from hmd_ego_pose_tpu_torch.utils.logging import MetricLogger
+
+    with open(TRAIN_REFERENCE) as f:
+        reference = json.load(f)
+    args = cli.build_parser().parse_args(["train", "--dataset-path", data, "--ckpt", ARTIFACT, "--epo", "1"])
+    quiet = io.StringIO()
+
+    # 1. reference check: four steps from the artifact, augmentation and
+    # drop-connect off, fixed batches, against the JAX package's losses
+    with contextlib.redirect_stdout(quiet):
+        ref_trainer = cli.build_trainer(args, logger=MetricLogger(os.path.join(work, "runs"), stdout=False),
+                                        checkpoint_dir=os.path.join(work, "ref_ckpt"))
+    batch = ref_trainer.config.train.batch_size
+    terms = dict(zip(("total", "classification", "regression", "rotation", "translation", "hand"), METRIC_NAMES))
+    ref_gaps, off = [], []
+    for s, want in enumerate(reference["steps"]):
+        idx = torch.arange(batch * s, batch * (s + 1), device=ref_trainer.device)
+        got = ref_trainer.step_fn(ref_trainer.data, idx, None, None)
+        tol = reference["tolerance_rel"]["0" if s == 0 else "3"]
+        gap = 0.0
+        for term, name in terms.items():
+            g = abs(float(got[name]) - want[term]) / max(abs(want[term]), 1e-12)
+            gap = max(gap, g)
+            if not g <= tol:
+                off.append(f"step {s} {term}: card {float(got[name])!r}, JAX {want[term]!r}, rel gap {g:.3g} > {tol}")
+        ref_gaps.append(gap)
+    if off:
+        raise AssertionError("the card's training losses are off the JAX reference:\n" + "\n".join(off))
+    del ref_trainer
+    torch.cuda.empty_cache()
+
+    # 2. the main path: cli train's trainer, one epoch over the 800 train frames
+    # (oversample 1: 50 steps of 16), validation on the 200 val frames, the checkpoints
+    ckpt_dir = os.path.join(work, "ckpt")
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(quiet):
+        trainer = cli.build_trainer(args, logger=MetricLogger(os.path.join(work, "runs"), stdout=False),
+                                    oversample=1, checkpoint_dir=ckpt_dir)
+    torch.cuda.synchronize()
+    t_startup = time.perf_counter() - t0
+    launches_restore = LAUNCHES.snapshot()
+    backbone = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()
+                if k.startswith("backbone_net.")}
+    timed = TimedStep(trainer.step_fn)
+    trainer.step_fn = timed
+    validate, val_s = trainer.validate, []
+
+    def timed_validate(*a, **kw):
+        t = time.perf_counter()
+        out = validate(*a, **kw)
+        val_s.append(time.perf_counter() - t)
+        return out
+
+    trainer.validate = timed_validate
+    epochs = []
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(quiet):
+        best = trainer.fit(on_epoch_end=lambda e, m, r: epochs.append((m, r.scalars())))
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t1
+    launches = LAUNCHES.snapshot()
+
+    steps = len(timed.step_ms)
+    frames = len(trainer.train_dataset)
+    if steps != frames // batch:
+        raise AssertionError(f"{steps} steps for {frames} frames at batch {batch}")
+    bad = [i for i, m in enumerate(timed.losses) if not all(np.isfinite(v) for v in m.values())]
+    if bad:
+        raise AssertionError(f"non-finite losses at steps {bad}: {[timed.losses[i] for i in bad]}")
+    if launches.get("iou", 0) != steps:
+        raise AssertionError(f"the IoU kernel must launch once per step ({steps}), got {launches}")
+    if launches_restore.get("dequantize", 0) != 137 or launches.get("dequantize", 0) != 137:
+        raise AssertionError(f"the restore must launch dequantize 137 times, got {launches_restore}")
+    if launches.get("min_distances", 0) != 1:
+        raise AssertionError(f"validation must launch min_distances once, got {launches}")
+    state = trainer.model.state_dict()
+    moved = [k for k, v in backbone.items() if not torch.equal(state[k], v)]
+    params_moved = [k for k in moved if not k.endswith(("running_mean", "running_var"))]
+    if params_moved:
+        raise AssertionError(f"frozen backbone parameters changed: {params_moved[:5]}")
+    stats_moved = [k for k in moved if k.endswith(("running_mean", "running_var"))]
+    if not stats_moved:
+        raise AssertionError("the backbone's BN running statistics did not move in training mode")
+
+    last = os.path.join(ckpt_dir, "last.npz")
+    if best is None or not os.path.exists(best) or not os.path.exists(last):
+        raise AssertionError(f"checkpoints not written: best {best}, last exists {os.path.exists(last)}")
+    want_params, want_bn = trainer.jax_trees()
+    restored = {}
+    for name, path in (("best", best), ("last", last)):
+        params, bn_state, meta = restore_checkpoint(path, trainer.device)
+        model = HMDEgoPose(trainer.config.model).to(trainer.device)
+        model.load_state_dict(from_jax_params(params, bn_state, trainer.config.model), strict=True)
+        same = all(torch.equal(model.state_dict()[k].cpu(), v.cpu()) for k, v in state.items())
+        if not same:
+            raise AssertionError(f"the {name} checkpoint does not restore the trained model")
+        restored[name] = {"path": os.path.relpath(path, work), "metric": meta.get("metric")}
+    opt = restore_opt_leaves(last)
+    if opt is None or len(opt) != trainer.optimizer.num_leaves():
+        raise AssertionError(f"last.npz holds {None if opt is None else len(opt)} opt leaves, "
+                             f"the optimizer {trainer.optimizer.num_leaves()}")
+    if int(opt[0].item()) != steps:
+        raise AssertionError(f"the saved optimizer count is {opt[0]}, not {steps}")
+    del want_params, want_bn
+
+    profile = profile_steps(trainer)
+    step_ms = np.asarray(timed.step_ms)
+    prepare_ms = np.asarray(timed.part_ms["prepare"])
+    train_metrics, val_scalars = epochs[-1]
+    return {
+        "reference_max_rel_gap": ref_gaps, "reference_tolerance_rel": reference["tolerance_rel"],
+        "steps": steps, "batch": batch, "frames": frames, "val_frames": len(trainer.val_dataset),
+        "startup_s": t_startup, "fit_s": t_fit, "epoch_s": train_metrics["epoch_seconds"],
+        "validate_s": val_s[0] if val_s else None,
+        "step_ms_p50": float(np.percentile(step_ms, 50)), "step_ms_max": float(step_ms.max()),
+        "step_ms_first": float(step_ms[0]),
+        "images_per_s": batch * steps / (step_ms.sum() / 1e3),
+        "augment_share": float(prepare_ms.sum() / step_ms.sum()),
+        "part_ms_p50": {k: float(np.percentile(v, 50)) for k, v in timed.part_ms.items()},
+        "profile": profile,
+        "loss_first": timed.losses[0]["loss"], "loss_last": timed.losses[-1]["loss"],
+        "epoch_means": {k: train_metrics[k] for k in METRIC_NAMES},
+        "val_mixed_point_distance_mean_mm": val_scalars["mixed_point_distance_mean_mm"],
+        "launches": launches, "backbone_stats_moved": len(stats_moved),
+        "checkpoints": restored, "opt_leaves": len(opt),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card,
+    }
+
+
 def read_golden():
     import numpy as np
 
@@ -323,7 +632,8 @@ def scalar_kind(name: str) -> str:
     return "accuracy"  # mean_ap and every accuracy
 
 
-def phase_evaluate(card: str) -> dict:
+def phase_evaluate(card: str, data: str) -> dict:
+    """Generate the v3 set into ``data`` (kept for the train phase) and evaluate on it."""
     from hmd_ego_pose_tpu_torch import cli
     from hmd_ego_pose_tpu_torch.data.colibri import ColibriDataset
     from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
@@ -332,27 +642,25 @@ def phase_evaluate(card: str) -> dict:
         reference = json.load(f)
     with open(ARTIFACT[: -len(".npz")] + ".json") as f:
         sidecar = json.load(f)["eval"]
-    with tempfile.TemporaryDirectory(prefix="hegp_v3_") as tmp:
-        data = os.path.join(tmp, "syn1000_v3_256")
-        t0 = time.perf_counter()
-        cli.main(["make-synthetic", "--out-dir", data, "--num-frames", "1000", "--frame-size", "256",
-                  "--hand-render-version", "3"])
-        t_generate = time.perf_counter() - t0
-        with open(os.path.join(data, "data", "01", "gt_0.yml"), "rb") as f:
-            gt_hash = hashlib.sha256(f.read()).hexdigest()
-        if gt_hash != reference["gt_0_yml_sha256"]:
-            raise AssertionError(f"the port's gt_0.yml hashes {gt_hash}, the JAX generator's "
-                                 f"{reference['gt_0_yml_sha256']}: the generators disagree")
-        t1 = time.perf_counter()
-        frames = len(ColibriDataset(data, 0, 1, "val"))
-        t_read = time.perf_counter() - t1
-        report = io.StringIO()
-        LAUNCHES.reset()
-        t2 = time.perf_counter()
-        with contextlib.redirect_stdout(report):
-            result = cli.main(["evaluate", "--dataset-path", data, "--ckpt", ARTIFACT, "--partition", "val"])
-        t_evaluate = time.perf_counter() - t2
-        launches = LAUNCHES.snapshot()
+    t0 = time.perf_counter()
+    cli.main(["make-synthetic", "--out-dir", data, "--num-frames", "1000", "--frame-size", "256",
+              "--hand-render-version", "3"])
+    t_generate = time.perf_counter() - t0
+    with open(os.path.join(data, "data", "01", "gt_0.yml"), "rb") as f:
+        gt_hash = hashlib.sha256(f.read()).hexdigest()
+    if gt_hash != reference["gt_0_yml_sha256"]:
+        raise AssertionError(f"the port's gt_0.yml hashes {gt_hash}, the JAX generator's "
+                             f"{reference['gt_0_yml_sha256']}: the generators disagree")
+    t1 = time.perf_counter()
+    frames = len(ColibriDataset(data, 0, 1, "val"))
+    t_read = time.perf_counter() - t1
+    report = io.StringIO()
+    LAUNCHES.reset()
+    t2 = time.perf_counter()
+    with contextlib.redirect_stdout(report):
+        result = cli.main(["evaluate", "--dataset-path", data, "--ckpt", ARTIFACT, "--partition", "val"])
+    t_evaluate = time.perf_counter() - t2
+    launches = LAUNCHES.snapshot()
     print(report.getvalue().split("\n{")[0], flush=True)  # the 17-line report
 
     got = result.scalars()
@@ -408,6 +716,9 @@ def main() -> int:
     min_dist = phase_min_distances(dev)
     emit("kernel_min_distances", card=card, **min_dist)
 
+    iou = phase_iou(dev)
+    emit("kernel_iou", card=card, **iou)
+
     golden, frames, cameras = read_golden()
     predict, outputs, cams, cfg = phase_predict(dev, golden, frames, cameras)
     emit("predict", card=card, **predict)
@@ -415,8 +726,12 @@ def main() -> int:
     serve = phase_serve(dev, golden, frames, outputs, cams, cfg, card)
     emit("serve", **serve)
 
-    evaluate = phase_evaluate(card)
-    emit("evaluate", **evaluate)
+    with tempfile.TemporaryDirectory(prefix="hegp_v3_") as work:
+        data = os.path.join(work, "syn1000_v3_256")
+        evaluate = phase_evaluate(card, data)
+        emit("evaluate", **evaluate)
+        train = phase_train(card, data, work)
+        emit("train", **train)
 
     leftover = [t.name for t in threading.enumerate()
                 if t is not threading.main_thread() and t.is_alive() and not t.daemon]
@@ -426,7 +741,8 @@ def main() -> int:
          total_s=time.perf_counter() - t_all)
 
     launches = {"dequantize": serve["launches"].get("dequantize", 0),
-                "min_distances": evaluate["launches"].get("min_distances", 0)}
+                "min_distances": evaluate["launches"].get("min_distances", 0),
+                "iou": train["launches"].get("iou", 0)}
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"the main path never launched the {name} kernel")
@@ -456,6 +772,19 @@ def main() -> int:
             "bound_ms": min_dist["bound_ms"],
             "bound_by": min_dist["bound_by"],
             "library_ms": min_dist["library_ms"],
+        },
+        {
+            "name": "iou",
+            "route": "cuda",
+            "source": "hmd_ego_pose_tpu_torch/csrc/iou.cu",
+            "replaces": "hmd_ego_pose_tpu/ops/pallas_kernels.py:69",
+            "launches": launches["iou"],
+            "max_abs_err": iou["max_abs_err"],
+            "ms": iou["kernel_ms"],
+            "plain_ms": iou["plain_ms"],
+            "bound_ms": iou["bound_ms"],
+            "bound_by": iou["bound_by"],
+            "library_ms": iou["library_ms"],
         },
     ]}), flush=True)
     print(card, flush=True)

@@ -1,8 +1,20 @@
 """Command line of the PyTorch port.
 
+    python -m hmd_ego_pose_tpu_torch.cli train --dataset-path D --ckpt trained/syn1000_phi0_576ep_handrel_int8.npz --epo 1
     python -m hmd_ego_pose_tpu_torch.cli serve --ckpt trained/syn1000_phi0_576ep_handrel_int8.npz --port 18734
     python -m hmd_ego_pose_tpu_torch.cli make-synthetic --out-dir D --num-frames 1000 --frame-size 256 --hand-render-version 3
     python -m hmd_ego_pose_tpu_torch.cli evaluate --dataset-path D --ckpt trained/syn1000_phi0_576ep_handrel_int8.npz --partition val
+
+``train`` fine-tunes (or, without ``--ckpt``, trains from random weights) on
+a fold's train split resident on the device, validates on its val split
+after every ``--eval-every`` epochs and writes the best and ``last``
+checkpoints into ``train_weights/`` in the JAX package's npz layout
+(``train/trainer.py``).  ``--ckpt`` restores on the device (int8 leaves
+through the dequantize kernel) and resumes the optimizer moments and step
+count a ``last`` checkpoint carries; the hand convention comes from the
+checkpoint's metadata unless ``--hand-relative`` asks for it.  Flags and
+defaults are the JAX package's; ``--object-ids`` with more than one id
+raises (multi-object training is not ported).
 
 ``serve`` restores the checkpoint on the device (int8 leaves dequantized by the
 CUDA kernel), folds the BNs, warms the engine up and answers pose requests
@@ -15,7 +27,8 @@ and prints the 17-line report and the scalars as JSON.  Flags and defaults
 are the JAX package's, less ``--dataset`` and ``--batch-size``, which its
 ``evaluate`` does not read either; ``--save-images-path`` and ``--iter`` > 0
 are not ported and raise.  Everything runs on ``cuda`` unless ``--device cpu`` is
-given.  The JAX package's other subcommands are not ported yet.
+given.  The JAX package's ``export``, ``debug``, ``parity`` and
+``format-labels`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -109,19 +122,73 @@ def _object_ids(args):
     return [int(x) for x in str(args.object_ids).split(",") if x.strip()]
 
 
-def make_eval_predict(model, config, device, score_threshold: float):
-    """The evaluator's predict callable over ``model`` (unfolded): numpy
-    (images, cameras) -> detections on ``device``."""
-    from hmd_ego_pose_tpu_torch.models import hmd_ego_pose
+def train_config(args, **train_overrides):
+    """The ``Config`` of ``cli train`` from its flags (``_make_config`` of the JAX CLI)."""
+    from hmd_ego_pose_tpu_torch.config import Config, DataConfig, TrainConfig
 
-    def predict(images: np.ndarray, cameras: np.ndarray):
-        return hmd_ego_pose.predict(
-            model, torch.from_numpy(images).to(device), torch.from_numpy(cameras).to(device),
-            config.model, score_threshold=score_threshold,
-            iou_threshold=config.eval.nms_threshold, max_detections=config.eval.max_detections,
-        )
+    ids = _object_ids(args)
+    k = len(ids) if ids else 1
+    return Config(
+        model=ModelConfig(phi=args.phi, image_size=args.img_size, iter_steps=args.iter, num_classes=k,
+                          hand_relative=args.hand_relative),
+        train=TrainConfig(batch_size=args.batch_size, learning_rate=args.lr, epochs=args.epo,
+                          fine_tune=args.fine_tune, freeze_backbone=args.freeze_backbone,
+                          eval_every=args.eval_every, clip_grad_norm=args.clip_grad_norm,
+                          **train_overrides),
+        data=DataConfig(dataset=args.dataset, dataset_path=args.dataset_path, fold=args.fold,
+                        object_id=ids[0] if ids else args.object_id, image_size=args.img_size,
+                        max_objects=k),
+    )
 
-    return predict
+
+def build_trainer(args, logger=None, **train_overrides):
+    """Everything ``cli train`` does before ``fit``: the datasets, the restore of
+    ``--ckpt`` on the device (with its optimizer leaves and step count), the
+    model report and the ``Trainer``.  ``train_overrides`` replace
+    ``TrainConfig`` fields that have no flag (``oversample``,
+    ``checkpoint_dir``)."""
+    import dataclasses
+
+    from hmd_ego_pose_tpu_torch.data.colibri import ColibriDataset
+    from hmd_ego_pose_tpu_torch.train.checkpoint import restore_checkpoint, restore_opt_leaves
+    from hmd_ego_pose_tpu_torch.train.trainer import Trainer, check_supported
+    from hmd_ego_pose_tpu_torch.utils.device import resolve_device
+    from hmd_ego_pose_tpu_torch.utils.model_stats import format_model_stats
+
+    device = resolve_device(args.device)
+    cfg = train_config(args, **train_overrides)
+    check_supported(cfg)
+    ids = _object_ids(args)
+    train_ds = ColibriDataset(args.dataset_path, args.fold, args.object_id, "train", object_ids=ids)
+    val_ds = ColibriDataset(args.dataset_path, args.fold, args.object_id, "val", object_ids=ids)
+
+    params = bn_state = opt_leaves = None
+    start_step = 0
+    if args.ckpt:
+        params, bn_state, meta = restore_checkpoint(args.ckpt, device)
+        opt_leaves = restore_opt_leaves(args.ckpt)
+        start_step = int(meta.get("train_step", 0))
+        print(f"restored checkpoint {args.ckpt}: {meta.get('metric')}"
+              f" (opt moments: {'yes' if opt_leaves else 'no'})")
+        recorded = meta_hand_relative(meta)
+        if recorded is not None and recorded != cfg.model.hand_relative:
+            if args.hand_relative:
+                print(f"WARNING: the checkpoint was trained with hand_relative={recorded}, this run "
+                      f"uses {cfg.model.hand_relative}: the hand tower will relearn its output convention")
+            else:
+                print(f"checkpoint metadata records hand_relative={recorded}: training with it")
+                cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, hand_relative=recorded))
+    trainer = Trainer(cfg, train_ds, val_ds, device=device, logger=logger, params=params,
+                      bn_state=bn_state, opt_leaves=opt_leaves, start_step=start_step)
+    print(format_model_stats(trainer.model, cfg.model.image_size, batch_size=1))
+    return trainer
+
+
+def cmd_train(args):
+    trainer = build_trainer(args)
+    best = trainer.fit()
+    print(f"best checkpoint: {best}")
+    return best
 
 
 def cmd_evaluate(args):
@@ -131,6 +198,7 @@ def cmd_evaluate(args):
     from hmd_ego_pose_tpu_torch.models.hmd_ego_pose import HMDEgoPose
     from hmd_ego_pose_tpu_torch.models.weights import from_jax_params
     from hmd_ego_pose_tpu_torch.train.checkpoint import restore_checkpoint
+    from hmd_ego_pose_tpu_torch.train.step import make_eval_forward
     from hmd_ego_pose_tpu_torch.utils.device import resolve_device
 
     if args.save_images_path is not None:
@@ -146,7 +214,7 @@ def cmd_evaluate(args):
                                    hand_relative=resolve_hand_relative(args.hand_relative, meta)))
     model = HMDEgoPose(cfg.model).to(device).eval()
     model.load_state_dict(from_jax_params(params, bn_state, cfg.model), strict=True)
-    result = evaluate_model(ds, make_eval_predict(model, cfg, device, args.score_threshold), cfg, device)
+    result = evaluate_model(ds, make_eval_forward(model, cfg, device, args.score_threshold), cfg, device)
     if result.per_class and len(result.per_class) > 1:
         for c, r in sorted(result.per_class.items()):
             print(f"--- class {c} ({ds.class_to_name.get(c, str(c))}) ---")
@@ -174,6 +242,32 @@ def cmd_make_synthetic(args):
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="hmd_ego_pose_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("train", help="train or fine-tune a model", allow_abbrev=False)
+    p.add_argument("--dataset", default="syn_colibri", choices=["syn_colibri", "real_colibri"])
+    p.add_argument("--dataset-path", required=True, help="root with data/ and models/")
+    p.add_argument("--fold", type=int, default=0, help="cross-validation fold [0..4]")
+    p.add_argument("--object-id", type=int, default=1)
+    p.add_argument("--object-ids", default=None,
+                   help="comma-separated ids of a multi-object scene (more than one is not ported)")
+    p.add_argument("--iter", type=int, default=0, help="iterative refinement steps")
+    p.add_argument("--hand-relative", action="store_true",
+                   help="regress the hand relative to the object translation (ModelConfig.hand_relative); "
+                        "with --ckpt the checkpoint's record is used unless this flag is passed")
+    p.add_argument("--img-size", type=int, default=256)
+    p.add_argument("--phi", type=int, default=0, help="EfficientDet compound coefficient")
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--epo", type=int, default=50)
+    p.add_argument("--fine-tune", action="store_true", help="SGD+Nesterov instead of Adam")
+    p.add_argument("--eval-every", type=int, default=1, help="validate/checkpoint every N epochs")
+    p.add_argument("--freeze-backbone", action="store_true", default=True)
+    p.add_argument("--no-freeze-backbone", dest="freeze_backbone", action="store_false")
+    p.add_argument("--clip-grad-norm", type=float, default=0.0,
+                   help="global-norm gradient clip before the optimizer (0 = off)")
+    p.add_argument("--ckpt", default=None, help=".npz checkpoint to start from (fp32 or int8)")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.set_defaults(func=cmd_train)
 
     # no abbreviations: the JAX CLI's --dataset must not pass for --dataset-path
     p = sub.add_parser("evaluate", help="evaluate a checkpoint on a colibri partition", allow_abbrev=False)

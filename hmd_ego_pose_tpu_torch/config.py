@@ -1,7 +1,7 @@
-"""Model, anchor, evaluation and serving configuration for the PyTorch port.
+"""Model, anchor, training, data, evaluation and serving configuration for the PyTorch port.
 
 A copy of the configuration dataclasses and per-phi tables of
-``hmd_ego_pose_tpu/config.py`` that inference and evaluation need.  The port keeps its own
+``hmd_ego_pose_tpu/config.py`` that inference, evaluation and training need.  The port keeps its own
 copy so it never imports the JAX package; the values must stay identical
 (tests/test_torch_model.py compares the derived quantities).
 """
@@ -93,6 +93,9 @@ class ModelConfig:
     fusion_epsilon: float = 1e-4
     # compute dtype of the conv stack; parameters and BN statistics stay float32
     compute_dtype: str = "float32"
+    # per-block activation checkpointing of the backbone in training: not
+    # ported (the trainer raises when it is set)
+    remat_backbone: bool = False
     # the hand head regresses joint offsets from the predicted object
     # translation; predict re-anchors them (models/hmd_ego_pose.py)
     hand_relative: bool = False
@@ -135,6 +138,78 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Loss weights and shapes of the training loss (``losses.py``)."""
+
+    classification_weight: float = 1.0
+    regression_weight: float = 50.0
+    rotation_weight: float = 100.0
+    translation_weight: float = 0.1
+    hand_weight: float = 1.0
+    focal_alpha: float = 0.25
+    focal_gamma: float = 1.5
+    smooth_l1_sigma: float = 3.0
+    num_model_points: int = 500  # 3-D point subsample of the rotation loss
+    # positive anchors per image that the transformation loss reads (the
+    # lowest-index positives); exact while an image has no more positives
+    max_positive_anchors: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 16
+    learning_rate: float = 1e-4
+    epochs: int = 50
+    fine_tune: bool = False  # False: Adam, True: SGD with Nesterov momentum
+    sgd_momentum: float = 0.9
+    # global-norm gradient clip before the optimizer; 0 disables
+    clip_grad_norm: float = 0.0
+    # ReduceLROnPlateau on the validation mixed point-distance mean
+    plateau_factor: float = 0.5
+    plateau_patience: int = 15
+    plateau_threshold: float = 1e-4
+    min_learning_rate: float = 1e-7
+    oversample: int = 10  # epoch length = dataset size x oversample
+    eval_every: int = 1  # validate and checkpoint every N epochs
+    # the JAX package's bound on train steps per device program; the port
+    # steps in Python and does not read it
+    max_steps_per_dispatch: int = 160
+    freeze_backbone: bool = True
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
+    checkpoint_dir: str = "train_weights"
+    seed: int = 0
+    # IoU thresholds of anchor target assignment
+    positive_overlap: float = 0.5
+    negative_overlap: float = 0.4
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    dataset: str = "syn_colibri"  # or "real_colibri"
+    dataset_path: str = ""
+    fold: int = 0
+    object_id: int = 1
+    image_size: int = 256
+    translation_scale_norm: float = 1000.0  # dataset is in mm internally
+    use_6dof_augmentation: bool = True
+    use_colorspace_augmentation: bool = True
+    # padded ground-truth rows per frame (the port trains K = 1 only)
+    max_objects: int = 1
+    chance_no_augmentation: float = 0.02
+    scale_6dof_augmentation: Tuple[float, float] = (0.7, 1.3)
+    num_workers: int = 4
+    prefetch: int = 2
+    # decode every frame and mask once into host RAM
+    preload: bool = True
+    preload_budget_bytes: int = 8 << 30
+    # augmentation and preprocessing on the device, and the whole train split
+    # resident on the device: the only training path the port has
+    device_augment: bool = True
+    device_resident: bool = True
+    device_resident_budget_bytes: int = 8 << 30
+
+
+@dataclasses.dataclass(frozen=True)
 class EvalConfig:
     score_threshold: float = 0.5
     nms_threshold: float = 0.5
@@ -149,9 +224,11 @@ class EvalConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """The parts of the JAX package's ``Config`` that evaluation reads."""
+    """The parts of the JAX package's ``Config`` that training and evaluation read."""
 
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
 
 

@@ -1,7 +1,8 @@
 """Colibri (syn/real) dataset reader, LINEMOD on-disk layout.
 
 Counterpart of ``hmd_ego_pose_tpu/data/colibri.py`` with the reader protocol
-the evaluator uses.  It reads the same files into the same annotations:
+the evaluator and the trainer use (``preload``, ``load_mask`` and
+``model_points_for_loss`` for training).  It reads the same files into the same annotations:
 
 * per-fold split files ``{train,val,test}_{fold}.txt``;
 * ``gt_{fold}.yml``: per-frame ``cam_R_m2c`` (row-major 9-vector),
@@ -183,8 +184,34 @@ class ColibriDataset:
     def is_symmetric_object(self, name_or_id) -> bool:
         return name_or_id in self.symmetric_objects
 
+    def preload(self, budget_bytes: int = 8 << 30) -> bool:
+        """Decode every frame and mask once into a read-only cache in host RAM;
+        False (and nothing cached) when the decoded set would exceed ``budget_bytes``."""
+        if getattr(self, "_image_cache", None) is not None:
+            return True
+        if not self.image_paths:
+            return False
+        probe, mask_probe = read_png(self.image_paths[0]), read_png(self.mask_paths[0])
+        if len(self.image_paths) * (probe.nbytes + mask_probe.nbytes) > budget_bytes:
+            return False
+        images, masks = [], []
+        for ip, mp in zip(self.image_paths, self.mask_paths):
+            im, mk = read_png(ip), read_png(mp)
+            im.setflags(write=False)
+            mk.setflags(write=False)
+            images.append(im)
+            masks.append(mk)
+        self._image_cache, self._mask_cache = images, masks
+        return True
+
     def load_image(self, i: int) -> np.ndarray:
-        return read_png(self.image_paths[i])
+        cache = getattr(self, "_image_cache", None)
+        return cache[i] if cache is not None else read_png(self.image_paths[i])
+
+    def load_mask(self, i: int) -> np.ndarray:
+        """(H, W, 3) uint8 mask (a gray PNG read as RGB)."""
+        cache = getattr(self, "_mask_cache", None)
+        return cache[i] if cache is not None else read_png(self.mask_paths[i])
 
     def load_annotations(self, i: int) -> Dict[str, np.ndarray]:
         return {k: v.copy() for k, v in self.annotations[i].items()}
@@ -194,6 +221,10 @@ class ColibriDataset:
 
     def load_drill_tip_offset(self, i: int) -> np.ndarray:
         return self.annotations[i]["drill_tip_transform"].copy()
+
+    def model_points_for_loss(self, count: int = 500) -> np.ndarray:
+        """(num_classes, count, 3) float32 subsample of each model's points for the loss."""
+        return np.stack([subsample_model_points(pts, count) for pts in self.models_3d_points])
 
     def get_models_3d_points_dict(self):
         return dict(enumerate(self.models_3d_points))

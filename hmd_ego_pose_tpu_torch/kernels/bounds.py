@@ -39,6 +39,8 @@ def min_distances_work(t: int, p: int, q: int) -> Tuple[float, float]:
     return t * (p + q) * 3 * 4 + t * p * 4, t * p * q * 9
 
 
-def iou_work(n: int, k: int, batch: int) -> Tuple[float, float]:
-    """Per image: (N, 4) anchors x (K, 4) boxes float32 in, (N, K) out; ~17 ops per pair."""
-    return batch * (n * 4 * 4 + k * 4 * 4 + n * k * 4), batch * n * k * 17
+def iou_work(n: int, k: int, batch: int, shared_anchors: bool = False) -> Tuple[float, float]:
+    """(B, N, 4) anchors (or one (N, 4) set the batch shares) x (B, K, 4) boxes
+    float32 in, (B, N, K) out; ~17 operations per pair."""
+    anchor_sets = 1 if shared_anchors else batch
+    return anchor_sets * n * 4 * 4 + batch * (k * 4 * 4 + n * k * 4), batch * n * k * 17

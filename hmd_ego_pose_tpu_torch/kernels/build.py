@@ -33,6 +33,7 @@ NVCC_FLAGS = (
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 SIGNATURES = {
     "dequantize": {"hegp_dequantize": (_P, _P, _P, _I, _I, _P)},
+    "iou": {"hegp_iou": (_P, _P, _P, _I, _I, _I, _I, _P)},
     "min_distances": {"hegp_min_distances": (_P, _P, _P, _I, _I, _I, _P)},
 }
 

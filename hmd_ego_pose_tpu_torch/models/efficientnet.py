@@ -1,16 +1,23 @@
-"""EfficientNet backbone (B0..B7), eval forward, NCHW, (P3, P4, P5) features.
+"""EfficientNet backbone (B0..B7), NCHW, (P3, P4, P5) features.
 
 Counterpart of ``hmd_ego_pose_tpu/models/efficientnet.py``.  Module and
 parameter names follow the reference's state_dict (``_conv_stem``,
 ``_blocks.{i}._expand_conv`` ...), so ``models/weights.py`` maps the JAX
 trees onto them key for key.  Features are the outputs of the last blocks of
 stages 3, 5 and 7.
+
+Drop-connect (stochastic depth) runs in training mode on the residual
+blocks, at rate 0.2 * i / blocks for block i, when the forward is given a
+``torch.Generator``: the JAX package draws its masks from ``jax.random``,
+which torch cannot reproduce, so the masks are drawn from the generator (or
+handed to ``MBConv`` as they are, as the tests do).  Without a generator it
+is off, as with ``rng=None`` in JAX.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -19,6 +26,7 @@ from hmd_ego_pose_tpu_torch.config import EFFICIENTNET_PARAMS, MBCONV_STAGES
 from hmd_ego_pose_tpu_torch.nn.core import BatchNorm, Conv2dSame, sigmoid, swish
 
 _FEATURE_STAGES = (3, 5, 7)
+DROP_CONNECT_RATE = 0.2
 
 
 def round_filters(filters: int, width_coefficient: float, divisor: int = 8) -> int:
@@ -79,7 +87,10 @@ class MBConv(nn.Module):
         self._project_conv = Conv2dSame(mid, cout, 1, bias=False, dtype=dtype)
         self._bn2 = BatchNorm(cout, eps, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, keep_mask: Optional[torch.Tensor] = None,
+                keep_prob: float = 1.0) -> torch.Tensor:
+        """``keep_mask``: (B,) bool drop-connect mask of a residual block, kept
+        with probability ``keep_prob``; None runs the block whole."""
         dt, inputs = self.dtype, x
         if self.spec["expand_ratio"] != 1:
             x = swish(self._bn0(self._expand_conv(x)), dt)
@@ -89,9 +100,15 @@ class MBConv(nn.Module):
             se = self._se_expand(swish(self._se_reduce(se), dt))
             x = sigmoid(se, dt) * x.to(dt)
         x = self._bn2(self._project_conv(x))
-        if self.spec["stride"] == 1 and self.spec["in_ch"] == self.spec["out_ch"]:
+        if self.residual:
+            if keep_mask is not None:
+                x = x / keep_prob * keep_mask[:, None, None, None].to(x.dtype)
             x = x + inputs.to(dt)
         return x
+
+    @property
+    def residual(self) -> bool:
+        return self.spec["stride"] == 1 and self.spec["in_ch"] == self.spec["out_ch"]
 
 
 class EfficientNet(nn.Module):
@@ -103,11 +120,22 @@ class EfficientNet(nn.Module):
         self._bn0 = BatchNorm(stem, eps, dtype)
         self._blocks = nn.ModuleList([MBConv(s, eps, dtype) for s in self.specs])
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         x = swish(self._bn0(self._conv_stem(x)), self.dtype)
+        n_blocks = len(self.specs)
+        draws = None
+        if self.training and generator is not None:
+            # every block's uniforms in one draw and one copy to the device
+            draws = torch.rand((n_blocks, x.shape[0]), generator=generator,
+                               device=generator.device).to(x.device)
         features = []
         for i, (block, spec) in enumerate(zip(self._blocks, self.specs)):
-            x = block(x)
+            keep = 1.0 - DROP_CONNECT_RATE * i / n_blocks
+            if draws is not None and block.residual and keep < 1.0:
+                x = block(x, draws[i] < keep, keep)
+            else:
+                x = block(x)
             last_of_stage = i + 1 == len(self.specs) or self.specs[i + 1]["stage"] != spec["stage"]
             if last_of_stage and spec["stage"] in _FEATURE_STAGES:
                 features.append(x)
@@ -122,5 +150,5 @@ class Backbone(nn.Module):
         super().__init__()
         self.model = EfficientNet(coefficient, eps, dtype)
 
-    def forward(self, x: torch.Tensor):
-        return self.model(x)
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+        return self.model(x, generator)

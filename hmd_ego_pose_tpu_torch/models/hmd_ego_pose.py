@@ -58,9 +58,12 @@ class HMDEgoPose(nn.Module):
         self.hand_net = Head(ch, config.num_hand_parameters, na, repeats, levels,
                              header_name="initial_hand_coords", iter_steps=it, eps=eps, dtype=dt)
 
-    def forward(self, x: torch.Tensor, capture: Optional[dict] = None) -> RawOutputs:
-        """NCHW float input -> raw outputs (the conv stack runs in ``config.compute_dtype``)."""
-        feats = self.backbone_net(x)
+    def forward(self, x: torch.Tensor, capture: Optional[dict] = None,
+                generator: Optional[torch.Generator] = None) -> RawOutputs:
+        """NCHW float input -> raw outputs (the conv stack runs in ``config.compute_dtype``).
+
+        ``generator`` draws the backbone's drop-connect masks in training mode."""
+        feats = self.backbone_net(x, generator)
         if capture is not None:
             capture["backbone.p3"], capture["backbone.p4"], capture["backbone.p5"] = feats
         pyramid = self.bifpn(feats, capture)
@@ -96,10 +99,24 @@ def init_weights(model: HMDEgoPose, generator: torch.Generator) -> HMDEgoPose:
 
 def apply(model: HMDEgoPose, images: torch.Tensor, config: ModelConfig,
           capture: Optional[dict] = None) -> RawOutputs:
-    """Preprocessed NHWC float images -> raw head outputs (float32)."""
+    """Preprocessed NHWC float images -> raw head outputs (float32), no autograd,
+    the model in eval mode (BNs on their running statistics)."""
+    model.eval()
     x = images.permute(0, 3, 1, 2).to(dtype_of(config.compute_dtype))
     with torch.inference_mode():
         return model(x, capture)
+
+
+def apply_train(model: HMDEgoPose, images: torch.Tensor, config: ModelConfig,
+                generator: Optional[torch.Generator] = None) -> RawOutputs:
+    """The training forward (``apply(training=True, rng)`` of the JAX package):
+    NHWC images -> raw outputs with autograd, every BN on batch statistics and
+    moving its running statistics in place, drop-connect drawn from
+    ``generator`` (off without one).  Puts the whole model in training mode,
+    the frozen backbone included: its BNs move as the JAX package's do."""
+    model.train()
+    x = images.permute(0, 3, 1, 2).to(dtype_of(config.compute_dtype))
+    return model(x, generator=generator)
 
 
 def detect(

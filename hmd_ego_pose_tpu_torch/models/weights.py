@@ -1,4 +1,4 @@
-"""Carry the JAX parameter trees across to the port's state_dict.
+"""Carry the JAX parameter trees across to the port's state_dict, and back.
 
 ``from_jax_params(params, bn_state, config)`` takes the JAX package's
 ``params`` / ``bn_state`` trees (nested dicts and lists, as a ``.npz``
@@ -12,6 +12,13 @@ Modelled on ``export_torch_state_dict`` of ``hmd_ego_pose_tpu/models/weights.py`
 with the same key mapping (``build_mapping``).  An int8 artifact must be
 dequantized before this transpose: its scales run along the last (HWIO
 out-channel) axis, which ``train/checkpoint.py`` does.
+
+``to_jax_params(state_dict, config)`` is the inverse: (params, bn_state) in
+the JAX package's layout (HWIO kernels, nested dicts and lists), so the port
+saves checkpoints the JAX package restores.  ``jax_leaf_paths`` lists the
+params tree's leaves in ``jax.tree.leaves`` order (dict keys sorted, list
+items by index), each with its state_dict key: the order of the optimizer
+moments in a checkpoint's ``opt/NNNNN`` leaves.
 """
 
 from __future__ import annotations
@@ -138,3 +145,56 @@ def from_jax_params(params, bn_state, config: ModelConfig) -> Dict[str, torch.Te
             value = value.permute(3, 2, 0, 1)
         out[key] = value.contiguous()
     return out
+
+
+def _to_jax_layout(value: torch.Tensor, kind: str) -> torch.Tensor:
+    """A state_dict tensor -> its JAX-layout value (OIHW -> HWIO for a conv kernel)."""
+    return value.permute(2, 3, 1, 0) if kind == "conv" else value
+
+
+def _set(tree: Dict, path: Tuple, value) -> None:
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = value
+
+
+def _listify(node):
+    """Nested dicts whose keys are all ints -> lists, by index."""
+    if not isinstance(node, dict):
+        return node
+    if node and all(isinstance(k, int) for k in node):
+        return [_listify(node[i]) for i in range(len(node))]
+    return {k: _listify(v) for k, v in node.items()}
+
+
+def to_jax_params(state_dict: Dict[str, torch.Tensor], config: ModelConfig):
+    """``HMDEgoPose`` state_dict -> (params, bn_state) trees in the JAX package's
+    layout, leaves C-ordered float32 numpy arrays.
+    ``to_jax_params(from_jax_params(p, b, c), c)`` gives back ``(p, b)`` exactly.
+    """
+    params: Dict[str, Any] = {}
+    bn_state: Dict[str, Any] = {}
+    for key, path, kind in build_mapping(config).entries:
+        value = _to_jax_layout(state_dict[key].detach().to(torch.float32), kind)
+        value = np.ascontiguousarray(value.cpu().numpy())
+        if path[0] == STATE:
+            _set(bn_state, path[1:], value)
+        else:
+            _set(params, path, value)
+    return _listify(params), _listify(bn_state)
+
+
+def _tree_order(path: Tuple) -> Tuple:
+    """Sort key of a tree path in ``jax.tree.leaves`` order: dict keys as
+    strings, list indices as numbers (``blocks/9`` before ``blocks/10``)."""
+    return tuple((1, p) if isinstance(p, int) else (0, p) for p in path)
+
+
+def jax_leaf_paths(config: ModelConfig, exclude_backbone: bool = False) -> List[Tuple[str, Tuple, str]]:
+    """(state_dict key, params path, kind) of every params leaf, in ``jax.tree.leaves``
+    order; ``exclude_backbone`` drops the backbone subtree (the frozen leaves)."""
+    entries = [e for e in build_mapping(config).entries if e[1][0] != STATE]
+    if exclude_backbone:
+        entries = [e for e in entries if e[1][0] != "backbone"]
+    return sorted(entries, key=lambda e: _tree_order(e[1]))

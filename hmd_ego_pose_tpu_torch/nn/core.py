@@ -5,8 +5,12 @@ Counterpart of ``hmd_ego_pose_tpu/nn/core.py`` (NHWC there):
 * SAME padding is asymmetric, the extra pixel on the high side, applied with
   an explicit ``F.pad`` (``padding="same"`` of PyTorch is not this for
   stride 2);
-* batch norm is eval-only: statistics and affine in float32, the result cast
-  to the compute dtype, eps 1e-3 by default;
+* batch norm: statistics and affine in float32, the result cast to the
+  compute dtype, eps 1e-3 by default; in training mode (``module.train()``)
+  it normalises with the batch statistics, the variance taken as
+  E[x^2] - E[x]^2 as the JAX package takes it, and moves the running
+  statistics by momentum 0.01 with the n / (n - 1) correction of the
+  variance;
 * max-pool pads with zeros, not -inf (the reference's quirk, observable
   through trained weights).
 
@@ -30,6 +34,7 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -81,23 +86,44 @@ class Wrapped(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch norm over NCHW; float32 math, output in the compute dtype.
+    """Batch norm over NCHW; float32 math, output in the compute dtype.
 
-    Parameter names follow ``nn.BatchNorm2d`` (weight, bias, running_mean,
-    running_var) so state_dict keys match the reference's.
+    Eval mode normalises with the running statistics.  Training mode
+    (``batch_norm_apply(training=True)`` of ``hmd_ego_pose_tpu/nn/core.py``)
+    normalises with the batch statistics and updates the running ones in
+    place: ``new = (1 - m) * running + m * batch``, the variance corrected by
+    n / (n - 1) for n = N * H * W.  Parameter names follow
+    ``nn.BatchNorm2d`` (weight, bias, running_mean, running_var) so
+    state_dict keys match the reference's.
     """
 
-    def __init__(self, channels: int, eps: float = 1e-3, dtype: torch.dtype = torch.float32):
+    def __init__(self, channels: int, eps: float = 1e-3, dtype: torch.dtype = torch.float32,
+                 momentum: float = 0.01):
         super().__init__()
-        self.eps, self.dtype = eps, dtype
+        self.eps, self.dtype, self.momentum = eps, dtype, momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.eval()  # an inference module until training asks (``model.train()``)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean[:, None, None]) * inv[:, None, None]
+        if not self.training:
+            inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+            y = (x.float() - self.running_mean[:, None, None]) * inv[:, None, None]
+            return (y + self.bias[:, None, None]).to(self.dtype)
+        xf = x.float()
+        mean = torch.mean(xf, dim=(0, 2, 3))
+        var = torch.mean(xf * xf, dim=(0, 2, 3)) - mean * mean
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        # float32 n / max(n - 1, 1), as jnp computes it
+        correction = float(np.float32(n) / np.float32(max(n - 1.0, 1.0)))
+        m = self.momentum
+        with torch.no_grad():
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * var * correction)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * inv[:, None, None]
         return (y + self.bias[:, None, None]).to(self.dtype)
 
 

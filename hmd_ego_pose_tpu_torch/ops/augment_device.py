@@ -1,0 +1,501 @@
+"""Training augmentation on the device: colour RandAugment and the 6-DoF warp, batched.
+
+Counterpart of ``hmd_ego_pose_tpu/ops/augment_device.py``: the same 14
+colour ops with the same formulas and uint8 truncation points, the same
+inverse-affine warp (``jax.scipy.ndimage.map_coordinates`` order 1 for the
+frame, order 0 for the mask, zero border), the same label updates, and the
+same fall back to the unaugmented sample when the object's mask leaves the
+frame.
+
+Randomness.  The JAX package draws inside the ops from ``jax.random``
+keys, which torch cannot reproduce.  Here every op takes its drawn values
+as arguments (``AugmentDraws``), and ``draw_augment`` draws them all from
+one explicit ``torch.Generator`` with the JAX package's distributions:
+whether to augment (uniform >= ``chance_no_augmentation``), how many colour
+slots (1 or 2), each slot's op (0..13) and magnitude (1..13), a uniform
+factor per slot, a cutout centre per slot, standard normal noise for the
+slots that drew the noise op, and the warp's angle (0..360 degrees) and
+scale.  The trainer passes a host (CPU) generator, so grouping by op needs
+no read from the device; the tests build the draws from a JAX key and hold
+the port to the JAX function.
+
+Per-example branches.  The JAX package switches among the 14 ops per
+example and slot (``lax.switch`` under ``vmap``).  A Python loop over the
+examples would make hundreds of launches per step; here each slot groups
+the batch by op and runs every op once on its group (at most 13 op calls
+per slot), writing the group back by index.
+
+Batches hold one object per frame (K = 1, mask value 255); the JAX
+package's multi-object warp is not ported and raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from hmd_ego_pose_tpu_torch.ops.geometry import axis_angle_to_matrix
+from hmd_ego_pose_tpu_torch.ops.preprocess import preprocess_uint8_batch
+
+_EPS = 1e-12
+NUM_OPS = 14
+MAX_SLOTS = 2  # 1 or 2 active colour slots per example
+IDENTITY = NUM_OPS - 1
+(AUTOCONTRAST, EQUALIZE, INVERT, POSTERIZE, SOLARIZE, COLOR, CONTRAST, BRIGHTNESS,
+ SHARPNESS, CUTOUT, GAUSSIAN_NOISE, BLUR, SMOOTH) = range(13)
+
+
+# ---------------------------------------------------------------------------
+# Rotation matrix -> compact axis-angle (branchless)
+# ---------------------------------------------------------------------------
+
+
+def matrix_to_axis_angle(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation matrix -> (..., 3) rotation vector: quaternion by
+    Shepperd's method (4-way select), robust at angle ~ 0 and ~ pi."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    t0 = 1.0 + m00 + m11 + m22
+    t1 = 1.0 + m00 - m11 - m22
+    t2 = 1.0 - m00 + m11 - m22
+    t3 = 1.0 - m00 - m11 + m22
+
+    def root(t):
+        return torch.sqrt(torch.clamp(t, min=_EPS)) * 2.0
+
+    s0, s1, s2, s3 = root(t0), root(t1), root(t2), root(t3)
+    cand0 = torch.stack([s0 / 4.0, (m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0], dim=-1)
+    cand1 = torch.stack([(m21 - m12) / s1, s1 / 4.0, (m01 + m10) / s1, (m02 + m20) / s1], dim=-1)
+    cand2 = torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, s2 / 4.0, (m12 + m21) / s2], dim=-1)
+    cand3 = torch.stack([(m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3, s3 / 4.0], dim=-1)
+    best = torch.argmax(torch.stack([t0, t1, t2, t3], dim=-1), dim=-1)[..., None]
+    q = torch.where(best == 0, cand0, torch.where(best == 1, cand1, torch.where(best == 2, cand2, cand3)))
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    q = torch.where(q[..., 0:1] < 0, -q, q)  # w >= 0: angle in [0, pi]
+    w, v = q[..., 0], q[..., 1:]
+    n = torch.linalg.norm(v, dim=-1)
+    angle = 2.0 * torch.atan2(n, w)
+    big = n > 1e-9
+    scale = torch.where(big, angle / torch.where(big, n, torch.ones_like(n)), torch.full_like(n, 2.0))
+    return v * scale[..., None]
+
+
+# ---------------------------------------------------------------------------
+# Affine warp (inverse map, zero border)
+# ---------------------------------------------------------------------------
+
+
+def inverse_affine(angle_deg: torch.Tensor, scale: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor
+                   ) -> torch.Tensor:
+    """(B,) angles, scales and centres -> (B, 2, 3) inverse of
+    cv2.getRotationMatrix2D(centre, angle, scale)."""
+    a = angle_deg * (math.pi / 180.0)
+    alpha = scale * torch.cos(a)
+    beta = scale * torch.sin(a)
+    tx = (1.0 - alpha) * cx - beta * cy
+    ty = beta * cx + (1.0 - alpha) * cy
+    det = alpha * alpha + beta * beta
+    ia, ib = alpha / det, beta / det
+    itx = -(ia * tx + (-ib) * ty)
+    ity = -(ib * tx + ia * ty)
+    return torch.stack([torch.stack([ia, -ib, itx], dim=-1), torch.stack([ib, ia, ity], dim=-1)], dim=-2)
+
+
+def _src_coords(inv: torch.Tensor, h: int, w: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, 2, 3) -> source (y, x) of every output pixel, (B, H, W) each."""
+    ys = torch.arange(h, device=inv.device, dtype=torch.float32)[None, :, None]
+    xs = torch.arange(w, device=inv.device, dtype=torch.float32)[None, None, :]
+    c = inv[:, :, :, None, None]
+    src_x = c[:, 0, 0] * xs + c[:, 0, 1] * ys + c[:, 0, 2]
+    src_y = c[:, 1, 0] * xs + c[:, 1, 1] * ys + c[:, 1, 2]
+    return src_y, src_x
+
+
+def _taps(img: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor) -> torch.Tensor:
+    """img (B, H, W, C) at integer (B, H', W') taps, 0 outside the image -> (B, H', W', C)."""
+    b, h, w, c = img.shape
+    valid = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+    flat = (iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)).reshape(b, -1, 1).expand(-1, -1, c)
+    vals = torch.gather(img.reshape(b, h * w, c), 1, flat).reshape(b, *iy.shape[1:], c)
+    return torch.where(valid[..., None], vals, torch.zeros_like(vals))
+
+
+def warp_bilinear_u8(images: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 3) uint8 -> warped uint8: map_coordinates order 1, taps summed
+    (y0 x0) + (y0 x1) + (y1 x0) + (y1 x1), rounded half to even."""
+    _, h, w, _ = images.shape
+    src_y, src_x = _src_coords(inv, h, w)
+    img = images.to(torch.float32)
+    ly, lx = torch.floor(src_y), torch.floor(src_x)
+    wy1, wx1 = src_y - ly, src_x - lx
+    wy0, wx0 = 1 - wy1, 1 - wx1
+    iy, ix = ly.to(torch.int64), lx.to(torch.int64)
+    out = None
+    for dy, wy in ((0, wy0), (1, wy1)):
+        for dx, wx in ((0, wx0), (1, wx1)):
+            term = (wy * wx)[..., None] * _taps(img, iy + dy, ix + dx)
+            out = term if out is None else out + term
+    return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
+
+
+def _round_half_away(x: torch.Tensor) -> torch.Tensor:
+    t = torch.trunc(x)
+    return t + torch.where(torch.abs(x - t) >= 0.5, torch.sign(x), torch.zeros_like(x))
+
+
+def warp_nearest_u8(masks: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) uint8 mask -> warped mask: map_coordinates order 0 (indices
+    rounded half away from zero), zero border."""
+    _, h, w = masks.shape
+    src_y, src_x = _src_coords(inv, h, w)
+    iy, ix = _round_half_away(src_y).to(torch.int64), _round_half_away(src_x).to(torch.int64)
+    return _taps(masks[..., None], iy, ix)[..., 0]
+
+
+def bbox_from_mask(sel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, H, W) bool -> ((B, 4) [x1, y1, x2, y2] float32 inclusive extrema, (B,) any)."""
+    _, h, w = sel.shape
+    any_row, any_col = sel.any(dim=2), sel.any(dim=1)
+    ys = torch.arange(h, device=sel.device)
+    xs = torch.arange(w, device=sel.device)
+    y1 = torch.where(any_row, ys, h).amin(dim=1)
+    y2 = torch.where(any_row, ys, -1).amax(dim=1)
+    x1 = torch.where(any_col, xs, w).amin(dim=1)
+    x2 = torch.where(any_col, xs, -1).amax(dim=1)
+    valid = any_row.any(dim=1)
+    bbox = torch.stack([x1, y1, x2, y2], dim=-1).to(torch.float32)
+    return torch.where(valid[:, None], bbox, torch.zeros_like(bbox)), valid
+
+
+# ---------------------------------------------------------------------------
+# Colour ops on (M, H, W, 3) float32 images holding uint8 values
+# ---------------------------------------------------------------------------
+# Each takes its group's magnitudes m (M,) float32 and its drawn values.
+
+
+def _u8(x):
+    return torch.floor(torch.clamp(x, 0.0, 255.0))
+
+
+def _grayscale(img):
+    return torch.floor(0.299 * img[..., 0] + 0.587 * img[..., 1] + 0.114 * img[..., 2])
+
+
+def _blend(a, b, factor):
+    return _u8(a + (b - a) * factor[:, None, None, None])
+
+
+def _factor(m, r):
+    return 0.1 + m * 1.8 / 14.0 * r
+
+
+def op_autocontrast(img, m):
+    lo = torch.floor(torch.amin(img, dim=(1, 2), keepdim=True))
+    hi = torch.floor(torch.amax(img, dim=(1, 2), keepdim=True))
+    stretched = torch.floor((img - lo) * (255.0 / torch.clamp(hi - lo, min=1.0)))
+    return torch.where(hi <= lo, img, torch.clamp(stretched, 0, 255))
+
+
+def op_equalize(img, m):
+    mm, h, w, c = img.shape
+    flat = img.to(torch.int64).permute(0, 3, 1, 2).reshape(mm, c, h * w)
+    hist = torch.zeros((mm, c, 256), dtype=torch.int64, device=img.device)
+    hist.scatter_add_(2, flat, torch.ones_like(flat))  # integer adds: exact in any order
+    cdf = torch.cumsum(hist, dim=2)
+    last = cdf[..., -1:]
+    cdf_min = torch.where(hist > 0, cdf, last + 1).amin(dim=2, keepdim=True)
+    denom = last - cdf_min
+    lut = torch.clamp(torch.round((cdf - cdf_min).to(torch.float32) * 255.0
+                                  / torch.clamp(denom, min=1).to(torch.float32)), 0, 255)
+    out = torch.gather(lut, 2, flat).reshape(mm, c, h, w).permute(0, 2, 3, 1)
+    return torch.where((denom == 0)[:, None, :, :].reshape(mm, 1, 1, c), img, out)
+
+
+def op_invert(img, m):
+    return 255.0 - img
+
+
+def op_posterize(img, m):
+    bits = torch.clamp(8 - torch.floor(m * 4.0 / 14.0).to(torch.int32), min=1)
+    q = torch.exp2((8 - bits).to(torch.float32))[:, None, None, None]
+    return torch.floor(img / q) * q
+
+
+def op_solarize(img, m):
+    threshold = (256.0 - torch.floor(m * 256.0 / 14.0))[:, None, None, None]
+    return torch.where(img < threshold, img, 255.0 - img)
+
+
+def op_color(img, m, r):
+    gray = _grayscale(img)[..., None] * torch.ones(3, device=img.device)
+    return _blend(gray, img, _factor(m, r))
+
+
+def op_contrast(img, m, r):
+    mean = torch.floor(torch.mean(_grayscale(img), dim=(1, 2)))
+    return _blend(mean[:, None, None, None].expand_as(img), img, _factor(m, r))
+
+
+def op_brightness(img, m, r):
+    return _blend(torch.zeros_like(img), img, _factor(m, r))
+
+
+def _conv3x3(img, kernel):
+    """Edge-padded 3x3 filter as 9 shifted adds, in row-major tap order."""
+    _, h, w, _ = img.shape
+    pad = torch.nn.functional.pad(img.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="replicate").permute(0, 2, 3, 1)
+    out = torch.zeros_like(img)
+    for dy in range(3):
+        for dx in range(3):
+            out = out + kernel[dy][dx] * pad[:, dy:dy + h, dx:dx + w, :]
+    return _u8(out)
+
+
+_SMOOTH_K = [[1 / 13.0] * 3, [1 / 13.0, 5 / 13.0, 1 / 13.0], [1 / 13.0] * 3]
+_BLUR_K = [[1 / 9.0] * 3] * 3
+
+
+def op_sharpness(img, m, r):
+    return _blend(_conv3x3(img, _SMOOTH_K), img, _factor(m, r))
+
+
+def op_cutout(img, m, yx):
+    """``yx``: (M, 2) integer centres, drawn uniformly in [0, H) x [0, W)."""
+    _, h, w, _ = img.shape
+    size = torch.floor(min(h, w) * (0.1 + 0.3 * m / 14.0)).to(torch.int64)[:, None, None]
+    y, x = yx[:, 0, None, None], yx[:, 1, None, None]
+    half = torch.div(size, 2, rounding_mode="floor")
+    ys = torch.arange(h, device=img.device)[None, :, None]
+    xs = torch.arange(w, device=img.device)[None, None, :]
+    box = ((ys >= torch.clamp(y - half, min=0)) & (ys < y + half)
+           & (xs >= torch.clamp(x - half, min=0)) & (xs < x + half))
+    out = torch.where(box[..., None], torch.full_like(img, 127.0), img)
+    return torch.where((size == 0)[..., None], img, out)
+
+
+def op_gaussian_noise(img, m, noise):
+    """``noise``: (M, H, W, 3) standard normal draws."""
+    sigma = (m / 14.0 * 25.0)[:, None, None, None]
+    return _u8(img + noise * sigma)
+
+
+def op_blur(img, m):
+    return _conv3x3(img, _BLUR_K)
+
+
+def op_smooth(img, m):
+    return _conv3x3(img, _SMOOTH_K)
+
+
+# ---------------------------------------------------------------------------
+# The draws, and the batch
+# ---------------------------------------------------------------------------
+
+
+class AugmentDraws(NamedTuple):
+    """Every random value of one batch's augmentation (host or device tensors)."""
+
+    apply: torch.Tensor  # (B,) bool: augment this example at all
+    n_slots: torch.Tensor  # (B,) int64 in [1, 3): active colour slots
+    op_ids: torch.Tensor  # (B, 2) int64 in [0, 14)
+    magnitudes: torch.Tensor  # (B, 2) int64 in [1, 14)
+    factors: torch.Tensor  # (B, 2) float32 uniform: colour/contrast/brightness/sharpness
+    cutout_yx: torch.Tensor  # (B, 2, 2) int64 cutout centres per slot
+    noise: Dict[int, torch.Tensor]  # slot -> (M, H, W, 3) standard normals, one per
+    # example whose active op in that slot is the noise op, in example order
+    angles: torch.Tensor  # (B,) float32 degrees in [0, 360)
+    scales: torch.Tensor  # (B,) float32 in scale_range
+
+
+def slot_ops(draws: AugmentDraws, slot: int) -> List[int]:
+    """The op each example runs in ``slot`` (identity where inactive or not augmented)."""
+    active = (draws.apply & (slot < draws.n_slots)).tolist()
+    return [op if on else IDENTITY for op, on in zip(draws.op_ids[:, slot].tolist(), active)]
+
+
+def draw_augment(generator: torch.Generator, batch: int, height: int, width: int,
+                 chance_no_augmentation: float = 0.02,
+                 scale_range: Tuple[float, float] = (0.7, 1.3)) -> AugmentDraws:
+    """All of one batch's draws from ``generator`` (on its device), with the
+    JAX package's distributions."""
+    g, dev = generator, generator.device
+    apply = torch.rand(batch, generator=g, device=dev) >= chance_no_augmentation
+    n_slots = torch.randint(1, 3, (batch,), generator=g, device=dev)
+    op_ids = torch.randint(0, NUM_OPS, (batch, MAX_SLOTS), generator=g, device=dev)
+    magnitudes = torch.randint(1, 14, (batch, MAX_SLOTS), generator=g, device=dev)
+    factors = torch.rand((batch, MAX_SLOTS), generator=g, device=dev)
+    cut_y = torch.randint(0, height, (batch, MAX_SLOTS), generator=g, device=dev)
+    cut_x = torch.randint(0, width, (batch, MAX_SLOTS), generator=g, device=dev)
+    angles = torch.rand(batch, generator=g, device=dev) * 360.0
+    scales = torch.rand(batch, generator=g, device=dev) * (scale_range[1] - scale_range[0]) + scale_range[0]
+    draws = AugmentDraws(apply, n_slots, op_ids, magnitudes, factors,
+                         torch.stack([cut_y, cut_x], dim=-1), {}, angles, scales)
+    for slot in range(MAX_SLOTS):
+        m = sum(op == GAUSSIAN_NOISE for op in slot_ops(draws, slot))
+        if m:
+            draws.noise[slot] = torch.randn((m, height, width, 3), generator=g, device=dev)
+    return draws
+
+
+def color_augment_batch(images_u8: torch.Tensor, draws: AugmentDraws) -> torch.Tensor:
+    """(B, H, W, 3) uint8 -> colour-augmented uint8: per slot, the batch grouped
+    by op and each op run once on its group."""
+    img = images_u8.to(torch.float32)
+    dev = img.device
+    for slot in range(MAX_SLOTS):
+        ops = slot_ops(draws, slot)
+        for op in sorted(set(ops) - {IDENTITY}):
+            rows = [b for b, o in enumerate(ops) if o == op]
+            idx = torch.tensor(rows, device=dev)
+            sub = img.index_select(0, idx)
+            m = draws.magnitudes[rows, slot].to(device=dev, dtype=torch.float32)
+            if op in (COLOR, CONTRAST, BRIGHTNESS, SHARPNESS):
+                r = draws.factors[rows, slot].to(device=dev, dtype=torch.float32)
+                out = {COLOR: op_color, CONTRAST: op_contrast, BRIGHTNESS: op_brightness,
+                       SHARPNESS: op_sharpness}[op](sub, m, r)
+            elif op == CUTOUT:
+                out = op_cutout(sub, m, draws.cutout_yx[rows, slot].to(dev))
+            elif op == GAUSSIAN_NOISE:
+                out = op_gaussian_noise(sub, m, draws.noise[slot].to(dev))
+            else:
+                out = {AUTOCONTRAST: op_autocontrast, EQUALIZE: op_equalize, INVERT: op_invert,
+                       POSTERIZE: op_posterize, SOLARIZE: op_solarize, BLUR: op_blur,
+                       SMOOTH: op_smooth}[op](sub, m)
+            img = img.index_copy(0, idx, out)
+    return img.to(torch.uint8)
+
+
+class RawBatch(NamedTuple):
+    """Unaugmented frames and raw labels of a batch, on the device."""
+
+    frames: torch.Tensor  # (B, H, W, 3) uint8
+    masks: torch.Tensor  # (B, H, W) uint8
+    camera_fxfycxcy: torch.Tensor  # (B, 4) float32
+    gt_boxes: torch.Tensor  # (B, K, 4) frame-pixel xyxy
+    gt_rotations: torch.Tensor  # (B, K, 3) axis-angle radians
+    gt_is_sym: torch.Tensor  # (B, K) float32
+    gt_translations: torch.Tensor  # (B, K, 3) mm
+    gt_coords_3d: torch.Tensor  # (B, K, 21, 3)
+    gt_labels: torch.Tensor  # (B, K) int32
+    gt_valid: torch.Tensor  # (B, K) bool
+    gt_mask_values: Optional[torch.Tensor] = None  # (B, K) int32; None: all 255
+
+
+class Augmented(NamedTuple):
+    images: torch.Tensor  # (B, H, W, 3) uint8
+    bboxes: torch.Tensor  # (B, K, 4)
+    rotations: torch.Tensor  # (B, K, 3)
+    translations: torch.Tensor  # (B, K, 3)
+    coords_3d: torch.Tensor  # (B, K, 21, 3)
+    valid: torch.Tensor  # (B, K) bool
+    applied: torch.Tensor  # (B,) bool: the warp was kept
+
+
+def augment_6dof_batch(images, masks, bboxes, rotations, translations, coords_3d, valid,
+                       cx, cy, angle_deg, scale, mask_values: Optional[torch.Tensor] = None) -> Augmented:
+    """Warp B frames and their one-object labels about the principal point
+    (``augment_6dof_device_multi`` at K = 1): image by -angle, pose composed
+    with a +angle camera-Z rotation, Tz and the hand joints' z divided by the
+    scale, bbox recomputed from the warped mask.  An example whose object
+    leaves the frame keeps its input.  ``mask_values``: (B,) the object's
+    mask pixel value per frame (None: 255)."""
+    if bboxes.shape[1] != 1:
+        raise NotImplementedError("the 6-DoF warp of the PyTorch port takes one object per frame (K = 1)")
+    inv = inverse_affine(-angle_deg, scale, cx, cy)
+    aug_image = warp_bilinear_u8(images, inv)
+    aug_mask = warp_nearest_u8(masks, inv)
+    if mask_values is None:
+        obj_mask = aug_mask == 255
+    else:
+        obj_mask = aug_mask == mask_values.to(torch.uint8)[:, None, None]
+    new_bbox, obj_valid = bbox_from_mask(obj_mask)
+
+    zeros = torch.zeros_like(angle_deg)
+    rot_z = axis_angle_to_matrix(torch.stack([zeros, zeros, angle_deg * (math.pi / 180.0)], dim=-1))
+    rz = rot_z[:, None]  # (B, 1, 3, 3) over the K rows
+    r_obj = axis_angle_to_matrix(rotations)
+    new_rot = matrix_to_axis_angle(torch.matmul(rz, r_obj))
+    new_t = torch.matmul(rz, translations[..., None])[..., 0]
+    new_t = torch.cat([new_t[..., :2], new_t[..., 2:] / scale[:, None, None]], dim=-1)
+    new_c = torch.matmul(coords_3d, rz.transpose(-1, -2))
+    new_c = torch.cat([new_c[..., :2], new_c[..., 2:] / scale[:, None, None, None]], dim=-1)
+
+    obj_valid = obj_valid[:, None]  # (B, K)
+    keep = (obj_valid & valid).any(dim=1)
+
+    def sel(a, b):
+        return torch.where(keep.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+    return Augmented(sel(aug_image, images), sel(new_bbox[:, None], bboxes), sel(new_rot, rotations),
+                     sel(new_t, translations), sel(new_c, coords_3d),
+                     torch.where(keep[:, None], valid & obj_valid, valid), keep)
+
+
+def preprocess_scale(frame_h: int, frame_w: int, target_size: int) -> float:
+    """The image scale the camera-parameter vector carries."""
+    return target_size / max(frame_h, frame_w)
+
+
+class Batch(NamedTuple):
+    """The train step's batch: preprocessed images and padded ground truth."""
+
+    images: torch.Tensor  # (B, S, S, 3) float32
+    camera_parameters: torch.Tensor  # (B, 6)
+    gt_boxes: torch.Tensor  # (B, K, 4)
+    gt_labels: torch.Tensor  # (B, K) int32
+    gt_transformation: torch.Tensor  # (B, K, 8) [rot/pi, trans, is_sym, class]
+    gt_coords_3d: torch.Tensor  # (B, K, 63)
+    gt_valid: torch.Tensor  # (B, K) bool
+
+
+def augment_and_preprocess_batch(raw: RawBatch, draws: Optional[AugmentDraws], image_size: int,
+                                 translation_scale_norm: float = 1000.0,
+                                 use_colorspace: bool = True, use_6dof: bool = True) -> Batch:
+    """Colour aug -> 6-DoF warp -> resize and normalise -> label scaling: the
+    batch the train step consumes.  ``draws`` None (or both augmentations
+    off) preprocesses the frames as they are."""
+    b, h, w, _ = raw.frames.shape
+    k = raw.gt_boxes.shape[1]
+    if k != 1 and (draws is not None and use_6dof):
+        raise NotImplementedError("multi-object augmentation (K > 1) is not ported to the PyTorch package")
+    dev = raw.frames.device
+    img, bboxes, rots, transs, coords, valid = (raw.frames, raw.gt_boxes, raw.gt_rotations,
+                                                 raw.gt_translations, raw.gt_coords_3d, raw.gt_valid)
+    if draws is not None and use_colorspace:
+        img = color_augment_batch(img, draws)
+    if draws is not None and use_6dof:
+        cam = raw.camera_fxfycxcy
+        mask_values = None if raw.gt_mask_values is None else raw.gt_mask_values[:, 0]
+        a = augment_6dof_batch(img, raw.masks, bboxes, rots, transs, coords, valid, cam[:, 2], cam[:, 3],
+                               draws.angles.to(device=dev, dtype=torch.float32),
+                               draws.scales.to(device=dev, dtype=torch.float32), mask_values)
+        on = draws.apply.to(dev)
+
+        def sel(aug, orig):
+            return torch.where(on.reshape((-1,) + (1,) * (orig.dim() - 1)), aug, orig)
+
+        img, bboxes, rots, transs, coords, valid = (sel(a.images, img), sel(a.bboxes, bboxes),
+                                                    sel(a.rotations, rots), sel(a.translations, transs),
+                                                    sel(a.coords_3d, coords), sel(a.valid, valid))
+
+    images = preprocess_uint8_batch(img, image_size)
+    image_scale = preprocess_scale(h, w, image_size)
+    camera_parameters = torch.cat([
+        raw.camera_fxfycxcy.to(torch.float32),
+        torch.full((b, 1), translation_scale_norm, dtype=torch.float32, device=dev),
+        torch.full((b, 1), image_scale, dtype=torch.float32, device=dev),
+    ], dim=1)
+    transformation = torch.cat([rots / math.pi, transs, raw.gt_is_sym[..., None].to(torch.float32),
+                                raw.gt_labels.to(torch.float32)[..., None]], dim=-1)
+    return Batch(
+        images=images,
+        camera_parameters=camera_parameters,
+        gt_boxes=(bboxes * image_scale).to(torch.float32),
+        gt_labels=raw.gt_labels,
+        gt_transformation=transformation.to(torch.float32),
+        gt_coords_3d=(coords * image_scale).reshape(b, k, 63).to(torch.float32),
+        gt_valid=valid,
+    )

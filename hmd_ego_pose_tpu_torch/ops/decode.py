@@ -61,6 +61,11 @@ def decode_translation(translation_anchors, translation_raw, camera_parameters):
                           camera_parameters)
 
 
+def hand_to_relative(coords_3d: torch.Tensor, translation_mm: torch.Tensor) -> torch.Tensor:
+    """Subtract the object translation (mm -> m) from each of the 21 joints (training targets)."""
+    return coords_3d - (translation_mm / 1000.0).repeat(*(1,) * (translation_mm.dim() - 1), 21)
+
+
 def hand_to_absolute(coords_3d_rel: torch.Tensor, translation_mm: torch.Tensor) -> torch.Tensor:
     """Add the object translation (mm -> m) to each of the 21 joints."""
     return coords_3d_rel + (translation_mm / 1000.0).repeat(*(1,) * (translation_mm.dim() - 1), 21)

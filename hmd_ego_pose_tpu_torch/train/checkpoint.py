@@ -1,7 +1,15 @@
-"""Restore ``.npz`` checkpoints of the JAX package onto a device.
+"""Save and restore ``.npz`` checkpoints in the JAX package's layout.
 
-Counterpart of ``restore_checkpoint`` in ``hmd_ego_pose_tpu/train/checkpoint.py``
-for the two ``.npz`` formats: plain float32, and int8 (``__format__ == "int8"``,
+Counterpart of ``hmd_ego_pose_tpu/train/checkpoint.py``.
+
+``save_checkpoint`` writes what the JAX package's npz backend writes for the
+same trees: the members ``params/...``, ``bn/...`` and ``opt/NNNNN`` in that
+order, dict keys sorted and list items by index (``blocks/9`` before
+``blocks/10``), each array as ``np.asarray`` gives it, through the same
+``np.savez`` call, so the files are byte-equal; and the JSON sidecar ``<name>.json``.  The int8
+backend (the quantize kernel) is not ported yet and raises.
+
+``restore_checkpoint`` reads the two ``.npz`` formats: plain float32, and int8 (``__format__ == "int8"``,
 each large leaf stored as int8 values plus float32 per-channel scales along
 its last axis).  The int8 values and scales are uploaded as stored and
 dequantized on the card by the CUDA kernel (``ops/quantization.dequantize``),
@@ -13,7 +21,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +60,71 @@ def _map_tree(fn, tree, is_leaf):
     if isinstance(tree, list):
         return [_map_tree(fn, v, is_leaf) for v in tree]
     return fn(tree)
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
+    """Nested dicts (keys sorted) and lists (by index) -> {"a/b/0/c": leaf}."""
+    if isinstance(tree, dict):
+        items = ((k, tree[k]) for k in sorted(tree))
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {prefix.rstrip("/"): tree}
+    out: Dict[str, Any] = {}
+    for k, v in items:
+        out.update(_flatten(v, f"{prefix}{k}/"))
+    return out
+
+
+def _host(leaf) -> np.ndarray:
+    """A leaf as the JAX package's ``np.asarray`` gives it: a tensor as a C-ordered
+    array, a numpy array as it is (0-d stays 0-d, Fortran order stays)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().contiguous().numpy()
+    return np.asarray(leaf)
+
+
+def checkpoint_name(dataset: str, fold: int, iters: int, metric: float, epoch: int) -> str:
+    """Metric-encoded name, the reference's filename pattern."""
+    return f"{dataset}__fold_{fold}__iter_{iters}__mixed_t_mean_{metric:.2f}__epo_{epoch}"
+
+
+def save_checkpoint(directory: str, name: str, params, bn_state,
+                    metadata: Optional[Dict[str, Any]] = None, backend: str = "npz",
+                    opt_leaves: Optional[List[Any]] = None) -> str:
+    """Write ``<directory>/<name>.npz`` and its sidecar; returns the ``.npz`` path.
+
+    ``params`` / ``bn_state``: JAX-layout trees (``models/weights.py::to_jax_params``)
+    of numpy arrays or tensors.  ``opt_leaves``: the optimizer state's leaves
+    in ``jax.tree.leaves`` order (``train/state.py``), stored as
+    ``opt/00000`` ... so either package resumes the run.
+    """
+    if backend == "int8":
+        raise NotImplementedError(
+            "the int8 checkpoint save needs the quantize kernel, which the PyTorch port "
+            "does not have yet (ROADMAP Queue A-1)")
+    if backend != "npz":
+        raise NotImplementedError(f"checkpoint backend {backend!r} is not ported (npz only)")
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, name + ".npz")
+    flat = {"params/" + k: _host(v) for k, v in _flatten(params).items()}
+    flat.update({"bn/" + k: _host(v) for k, v in _flatten(bn_state).items()})
+    for i, leaf in enumerate(opt_leaves or ()):
+        flat[f"opt/{i:05d}"] = _host(leaf)
+    np.savez(path, **flat)
+    with open(os.path.join(directory, name + ".json"), "w") as f:
+        json.dump(metadata or {}, f, indent=2)
+    return path
+
+
+def restore_opt_leaves(path: str) -> Optional[List[np.ndarray]]:
+    """The optimizer-state leaves saved beside an npz checkpoint, in
+    ``jax.tree.leaves`` order (host numpy); None if it has none."""
+    if os.path.isdir(path):
+        return None
+    with np.load(path) as data:
+        keys = sorted(k for k in data.files if k.startswith("opt/"))
+        return [data[k] for k in keys] if keys else None
 
 
 def meta_hand_relative(metadata: Dict[str, Any]) -> Optional[bool]:

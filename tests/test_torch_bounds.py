@@ -24,6 +24,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     (bounds.dequantize_work(3_841_920, 55_020), 0.00580, "bytes"),
     (bounds.quantize_work(3_841_920, 55_020), 0.00580, "bytes"),
     (bounds.iou_work(12_276, 1, 16), 0.001173, "bytes"),
+    (bounds.iou_work(12_276, 1, 16, shared_anchors=True), 0.000293, "bytes"),  # the train step's layout
 ])
 def test_bound_at_the_paths_shapes(work, bound_ms, bound_by):
     got = bounds.bound(*work)

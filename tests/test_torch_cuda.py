@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
-from hmd_ego_pose_tpu_torch.ops import distances
+from hmd_ego_pose_tpu_torch.ops import distances, iou
 from hmd_ego_pose_tpu_torch.ops.quantization import dequantize, dequantize_reference
 
 pytestmark = pytest.mark.cuda
@@ -60,3 +60,33 @@ def test_min_distances_kernel_bit_equal_to_plain_on_the_card(cuda_device):
     assert LAUNCHES.get("min_distances") == len(shapes)
     with pytest.raises(ValueError):
         distances.min_distances(g.double(), pr)
+
+
+def test_iou_kernel_bit_equal_to_plain_on_the_card(cuda_device):
+    """The train step's shape (16 images, the 12,276 anchors at 256 px, one box)
+    and K = 4, N off every block size, a single anchor, more boxes than one
+    shared-memory chunk; degenerate boxes; one launch per call."""
+    from hmd_ego_pose_tpu_torch.config import AnchorConfig
+    from hmd_ego_pose_tpu_torch.ops.anchors import anchors_for_shape
+
+    pyramid = anchors_for_shape((256, 256), AnchorConfig())[0]
+    rng = np.random.default_rng(0)
+    shapes = [(16, 12276, 1), (16, 12276, 4), (3, 4097, 2), (2, 1, 3), (2, 1000, 300)]
+    LAUNCHES.reset()
+    calls = 0
+    for b, n, k in shapes:
+        anchors = np.resize(pyramid, (n, 4)).astype(np.float32)
+        xy = rng.uniform(-10, 248, size=(b, k, 2))
+        boxes = np.concatenate([xy, xy + rng.uniform(0, 128, size=(b, k, 2))], axis=-1).astype(np.float32)
+        boxes[:, 0, 2:] = boxes[:, 0, :2]  # zero area: union can be 0
+        if k > 1:
+            boxes[:, 1] = boxes[:, 1, [2, 3, 0, 1]]  # inverted
+        a, g = torch.from_numpy(anchors).to(cuda_device), torch.from_numpy(boxes).to(cuda_device)
+        for anc in (a, a.expand(b, n, 4).contiguous()):
+            got = iou.iou_matrix(anc, g)
+            torch.cuda.synchronize()
+            calls += 1
+            assert torch.equal(got, iou.iou_matrix_reference(anc, g))
+    assert LAUNCHES.get("iou") == calls
+    with pytest.raises(ValueError):
+        iou.iou_matrix(a.double(), g)

@@ -1,0 +1,176 @@
+"""Checkpoints between the port and the JAX package, on the shipped artifact's trees.
+
+* ``to_jax_params(from_jax_params(p, b))`` gives back ``(p, b)`` exactly;
+* ``save_checkpoint`` of the port and of the JAX package write byte-equal
+  ``.npz`` files and sidecars for the same trees and optimizer state;
+* a ``last`` checkpoint with optimizer leaves resumes in the other package:
+  the port's in the JAX package and the JAX package's in the port, each
+  then takes one more step from the same gradients as the package that
+  wrote it, and the parameters agree within 1e-5 relative (the optimizer
+  test's float32 bound, ``tests/test_torch_train_ops.py``);
+* the int8 backend is not ported and raises.
+"""
+
+import filecmp
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from hmd_ego_pose_tpu.config import TrainConfig as JaxTrainConfig
+from hmd_ego_pose_tpu.train import checkpoint as jax_checkpoint
+from hmd_ego_pose_tpu.train.state import make_optimizer
+from hmd_ego_pose_tpu_torch import config as tcfg
+from hmd_ego_pose_tpu_torch.models.hmd_ego_pose import HMDEgoPose
+from hmd_ego_pose_tpu_torch.models.weights import from_jax_params, to_jax_params
+from hmd_ego_pose_tpu_torch.train import checkpoint
+from hmd_ego_pose_tpu_torch.train.state import Optimizer
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ARTIFACT = os.path.join(REPO, "trained", "syn1000_phi0_576ep_handrel_int8.npz")
+MODEL = tcfg.ModelConfig(phi=0, image_size=256, hand_relative=True)
+META = {"epoch": 3, "metric": 16.5, "train_step": 12, "hand_relative": True, "config": "Config(...)"}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs several workers at once: torch's CPU kernels take two threads each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def trees():
+    params, bn_state, _ = jax_checkpoint.restore_checkpoint(ARTIFACT)
+    return jax.tree.map(np.asarray, params), jax.tree.map(np.asarray, bn_state)
+
+
+def _grads(params, seed):
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(lambda p: rng.normal(0, 0.01, p.shape).astype(np.float32), params)
+
+
+def _jax_steps(params, tx, opt_state, seeds):
+    update = jax.jit(tx.update)
+    for seed in seeds:
+        updates, opt_state = update(_grads(params, seed), opt_state, params)
+        params = jax.tree.map(lambda p, u: np.asarray(p + u), params, updates)
+    return params, opt_state
+
+
+def _port_steps(model, opt, bn_state, seeds):
+    for seed in seeds:
+        params, _ = to_jax_params(model.state_dict(), MODEL)
+        grads = from_jax_params(_grads(params, seed), bn_state, MODEL)
+        for key, p in model.named_parameters():
+            if p.requires_grad:
+                p.grad = grads[key].clone()
+        opt.step()
+
+
+def _model(params, bn_state):
+    model = HMDEgoPose(MODEL)
+    model.load_state_dict(from_jax_params(params, bn_state, MODEL), strict=True)
+    return model
+
+
+def _assert_trees_close(got, want, rel=1e-5):
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        w = np.asarray(w)
+        assert np.linalg.norm(np.asarray(g, np.float64) - w) <= rel * max(np.linalg.norm(w), 1e-30)
+
+
+def test_to_jax_params_inverts_from_jax_params(trees):
+    params, bn_state = trees
+    back_p, back_b = to_jax_params(from_jax_params(params, bn_state, MODEL), MODEL)
+    for got, want in ((back_p, params), (back_b, bn_state)):
+        assert jax.tree.structure(got) == jax.tree.structure(want)
+        for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            np.testing.assert_array_equal(g, w)
+
+
+def test_save_checkpoint_bytes_equal_jax(trees, tmp_path):
+    params, bn_state = trees
+    tx = make_optimizer(JaxTrainConfig(), params)
+    params1, opt_state = _jax_steps(params, tx, tx.init(params), seeds=[1])
+    leaves = [np.asarray(x) for x in jax.tree.leaves(opt_state)]
+    jax_path = jax_checkpoint.save_checkpoint(str(tmp_path / "jax"), "last", params1, bn_state,
+                                              metadata=META, opt_state=opt_state)
+    port_path = checkpoint.save_checkpoint(str(tmp_path / "port"), "last", params1, bn_state,
+                                           metadata=META, opt_leaves=leaves)
+    assert filecmp.cmp(jax_path, port_path, shallow=False)
+    assert filecmp.cmp(jax_path[:-4] + ".json", port_path[:-4] + ".json", shallow=False)
+    # the port's own trees of the same weights (carried through the state_dict) write the same bytes
+    mine = to_jax_params(_model(params1, bn_state).state_dict(), MODEL)
+    again = checkpoint.save_checkpoint(str(tmp_path / "again"), "last", *mine, metadata=META, opt_leaves=leaves)
+    assert filecmp.cmp(jax_path, again, shallow=False)
+    with np.load(port_path) as data:
+        names = data.files
+    assert names[0].startswith("params/") and names[-1] == f"opt/{len(leaves) - 1:05d}"
+    blocks = [n for n in names if n.startswith("params/backbone/blocks/") and n.endswith("/depthwise_conv/kernel")]
+    assert blocks.index("params/backbone/blocks/9/depthwise_conv/kernel") < blocks.index(
+        "params/backbone/blocks/10/depthwise_conv/kernel")
+
+
+def test_port_last_checkpoint_resumes_in_jax(trees, tmp_path):
+    params, bn_state = trees
+    model = _model(params, bn_state)
+    opt = Optimizer(model, tcfg.TrainConfig(), MODEL)
+    _port_steps(model, opt, bn_state, seeds=[1, 2])
+    path = checkpoint.save_checkpoint(str(tmp_path), "last", *to_jax_params(model.state_dict(), MODEL),
+                                      metadata=META, opt_leaves=opt.leaves())
+    # what the JAX CLI and Trainer do with it: restore, rebuild the optimizer state
+    jparams, jbn, meta = jax_checkpoint.restore_checkpoint(path)
+    assert meta == META
+    jparams, jbn = jax.tree.map(np.asarray, jparams), jax.tree.map(np.asarray, jbn)
+    tx = make_optimizer(JaxTrainConfig(), jparams)
+    template = tx.init(jparams)
+    leaves = jax_checkpoint.restore_opt_leaves(path)
+    t_leaves, treedef = jax.tree.flatten(template)
+    assert len(leaves) == len(t_leaves) == opt.num_leaves()
+    opt_state = jax.tree.unflatten(treedef, [np.asarray(v).astype(t.dtype).reshape(t.shape)
+                                             for v, t in zip(leaves, t_leaves)])
+    assert int(np.asarray(jax.tree.leaves(opt_state)[0])) == 2
+    _port_steps(model, opt, bn_state, seeds=[3])
+    jparams, _ = _jax_steps(jparams, tx, opt_state, seeds=[3])
+    _assert_trees_close(to_jax_params(model.state_dict(), MODEL)[0], jparams)
+    for g, w in zip(jax.tree.leaves(jbn), jax.tree.leaves(bn_state)):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_jax_last_checkpoint_resumes_in_the_port(trees, tmp_path):
+    params, bn_state = trees
+    cfg = JaxTrainConfig(fine_tune=True)
+    tx = make_optimizer(cfg, params)
+    jparams, opt_state = _jax_steps(params, tx, tx.init(params), seeds=[4, 5])
+    path = jax_checkpoint.save_checkpoint(str(tmp_path), "last", jparams, bn_state, metadata=META,
+                                          opt_state=opt_state)
+    tparams, tbn, meta = checkpoint.restore_checkpoint(path, device="cpu")
+    assert meta == META
+    model = HMDEgoPose(MODEL)
+    model.load_state_dict(from_jax_params(tparams, tbn, MODEL), strict=True)
+    opt = Optimizer(model, tcfg.TrainConfig(fine_tune=True), MODEL)
+    opt.load_leaves(checkpoint.restore_opt_leaves(path))
+    assert opt.count == 2
+    for g, w in zip(opt.leaves(), jax.tree.leaves(opt_state)):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    _port_steps(model, opt, bn_state, seeds=[6])
+    jparams, _ = _jax_steps(jparams, tx, opt_state, seeds=[6])
+    _assert_trees_close(to_jax_params(model.state_dict(), MODEL)[0], jparams)
+    with pytest.raises(ValueError, match="optimizer state mismatch"):
+        Optimizer(_model(params, bn_state), tcfg.TrainConfig(), MODEL).load_leaves(
+            checkpoint.restore_opt_leaves(path))
+
+
+def test_int8_save_is_not_ported(trees, tmp_path):
+    with pytest.raises(NotImplementedError, match="quantize"):
+        checkpoint.save_checkpoint(str(tmp_path), "x", *trees, backend="int8")
+    assert checkpoint.checkpoint_name("syn_colibri", 0, 0, 16.3456, 7) == jax_checkpoint.checkpoint_name(
+        "syn_colibri", 0, 0, 16.3456, 7)
+    assert checkpoint.restore_opt_leaves(ARTIFACT) is None
