@@ -25,7 +25,17 @@ Phases, each printing one JSON line of its own:
                per-image anchors: bit equality required; kernel and plain
                times at the train shape beside the bytes bound (no single
                PyTorch call computes it: library time null).
-6. predict  -- restore of ``trained/syn1000_phi0_576ep_handrel_int8.npz`` on the
+6. kernel_quantize -- the int8 quantize kernel against its plain version
+               on the card, on the 137 dequantized int8 leaves of the shipped
+               artifact and on seeded odd shapes (a single value and row, C
+               off 32, C = 10, the largest leaf), zero columns, exact
+               half-steps, negative zeros and denormals: int8 values and
+               scales bit-equal; quantize(dequantize(leaf)) must give back
+               every stored leaf bit for bit; a column holding NaN keeps a NaN
+               scale.  Kernel, plain and ``torch.quantize_per_channel`` times
+               over all leaves (the last with the kernel's scales, and the
+               count of int8 values it gets wrong), beside the bytes bound.
+7. predict  -- restore of ``trained/syn1000_phi0_576ep_handrel_int8.npz`` on the
                card, then ``predict`` (phi-0, 256 px, bf16, score threshold
                0.1) of the six committed golden frames, held to
                ``tests/goldens/handrel_ckpt_expected.npz``
@@ -33,12 +43,12 @@ Phases, each printing one JSON line of its own:
                and the device preprocess of a seeded 300x300 frame, which must
                equal the CPU's bit for bit, with its time and that of a
                1080x1920 frame (to 256 px).
-7. serve    -- the serving path as ``cli serve`` builds it (restore, BN fold,
+8. serve    -- the serving path as ``cli serve`` builds it (restore, BN fold,
                engine warm-up) behind a ``PoseServer`` on 127.0.0.1, port 0; a
                ``PoseClient`` sends the six frames as RGB8 and the pose packets
                are held to the goldens.  Kernel launch counts are reset just
                before this phase and read just after it.
-8. evaluate -- ``cli make-synthetic`` writes the 1000-frame, 256 px, seed-0,
+9. evaluate -- ``cli make-synthetic`` writes the 1000-frame, 256 px, seed-0,
                hand-render-v3 set into a temporary directory, whose
                ``gt_0.yml`` must hash as the JAX generator's did; then
                ``cli evaluate`` of the shipped artifact on its 200 val frames
@@ -47,7 +57,7 @@ Phases, each printing one JSON line of its own:
                once (one class), and every scalar must lie within the stated
                tolerances of ``hmd_ego_pose_tpu_torch/eval/references/handrel_v3_val.json``
                (the JAX package's evaluation, ``scripts/make_eval_reference.py``).
-9. train    -- on the same set: first four fixed training steps (augmentation
+10. train   -- on the same set: first four fixed training steps (augmentation
                and drop-connect off) of ``cli train``'s trainer from the
                artifact, whose six loss terms must lie within the stated
                tolerance of ``hmd_ego_pose_tpu_torch/train/references/
@@ -65,7 +75,21 @@ Phases, each printing one JSON line of its own:
                max (synchronised) and its parts, images/s, epoch, validation
                and start-up seconds, and a torch.profiler sample of four more
                steps (device time per step, busy share).
-10. shutdown -- server and engine stopped, every thread joined with a timeout.
+11. export  -- ``cli export --ckpt trained/syn1000_phi0_576ep_handrel_int8.npz
+               --quantize-int8`` on the card (phi-0, 256 px, fp32) into the
+               temporary directory, with the launch counts reset just before
+               and read just after: ``dequantize`` and ``quantize`` 137 times
+               each; the program saved, loaded back and verified; the seeded
+               input's sha256, the meta JSON and the printed lines as the
+               reference's; every golden output within the stated tolerance
+               of ``hmd_ego_pose_tpu_torch/export/references/handrel_export.json``
+               (the JAX package's export, ``scripts/make_export_reference.py``);
+               both weight files with the JAX files' canonical digests; and
+               ``weights_int8.npz`` restored on the card equal to the shipped
+               artifact.  Seconds of restore, fold, ``torch.export``, save,
+               load-and-verify and int8 save, the ``.pt2`` size and the
+               fp32/int8 size ratio.
+12. shutdown -- server and engine stopped, every thread joined with a timeout.
 
 Then the ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -108,6 +132,9 @@ TRAIN_REFERENCE = os.path.join(HERE, "hmd_ego_pose_tpu_torch", "train", "referen
 # 256 px, 1): four boxes, N off every block size, a single anchor, and more
 # boxes than one shared-memory chunk (256)
 IOU_SHAPES = ((16, 12276, 4), (3, 4097, 2), (2, 1, 3), (2, 1000, 300))
+# the odd shapes the quantize kernel must also take: a single value, a single
+# row, C off 32, the largest leaf of the artifact, the smallest C (10)
+QUANT_SHAPES = ((1, 1), (1, 1280), (5, 33), (7, 1000), (1152, 320), (3, 10))
 
 
 def emit(phase: str, **fields) -> None:
@@ -148,6 +175,35 @@ def int8_leaves(path: str):
                  np.ascontiguousarray(data[n + "/scales"])) for n in names]
 
 
+def quantize_inputs(seed: int = 7) -> dict:
+    """Seeded float32 (R, C) arrays the quantize kernel must take besides the
+    artifact's leaves: the odd shapes, then zero columns, values exactly on
+    half-steps (round half to even), negative zeros and denormals."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cases = {f"{r}x{c}": rng.normal(0, 0.2, (r, c)).astype(np.float32) for r, c in QUANT_SHAPES}
+    zeros = rng.normal(0, 0.2, (6, 40)).astype(np.float32)
+    zeros[:, 3], zeros[:, 7] = 0.0, -0.0
+    cases["zero_columns"] = zeros
+    # column j has scale exactly 2**-(3 + j % 8) (its absmax is 127 steps) and
+    # every other value an odd number of half steps: x / scale = k + 0.5 exactly
+    steps = 2.0 ** -(3 + np.arange(24) % 8)
+    half = (rng.integers(-127, 127, size=(9, 24)) + 0.5) * steps
+    half[0] = 127 * steps * np.where(np.arange(24) % 2, 1, -1)
+    cases["half_steps"] = half.astype(np.float32)
+    negz = rng.normal(0, 0.2, (4, 16)).astype(np.float32)
+    negz[rng.random((4, 16)) < 0.4] = -0.0
+    negz[:, 5] = -0.0
+    cases["negative_zeros"] = negz
+    tiny = (rng.normal(0, 1, (5, 9)) * 1e-39).astype(np.float32)  # denormal values
+    tiny[:, 1] = np.float32(1e-44) * np.arange(1, 6)  # a few denormal ulps
+    tiny[:, 2] = (rng.normal(0, 1, 5) * 1e-20).astype(np.float32)  # absmax below the 1e-12 floor
+    tiny[0, 3] = 0.5  # a normal absmax: the column's denormals quantize to 0
+    cases["denormals"] = tiny
+    return cases
+
+
 def phase_kernel(dev) -> dict:
     import numpy as np
     import torch
@@ -182,6 +238,70 @@ def phase_kernel(dev) -> dict:
         "bit_equal": True, "max_abs_err": max_err, "kernel_ms": ms, "plain_ms": plain_ms,
         "library_ms": library_ms, **bounds.bound(*bounds.dequantize_work(values, scales)),
         "kernels": ["dequantize"],
+    }
+
+
+def phase_quantize(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from hmd_ego_pose_tpu_torch.kernels import bounds
+    from hmd_ego_pose_tpu_torch.ops.quantization import dequantize, quantize, quantize_reference
+
+    stored = [(torch.from_numpy(v).to(dev), torch.from_numpy(s).to(dev)) for v, s in int8_leaves(ARTIFACT)]
+    leaves = [dequantize(v, s) for v, s in stored]
+    cases = [(f"leaf {i} {tuple(x.shape)}", x) for i, x in enumerate(leaves)]
+    cases += [(name, torch.from_numpy(x).to(dev)) for name, x in quantize_inputs().items()]
+    max_err = 0.0
+    for name, x in cases:
+        (q, sc), (want_q, want_sc) = quantize(x), quantize_reference(x)
+        torch.cuda.synchronize()
+        if not (torch.equal(q, want_q) and torch.equal(sc.view(torch.int32), want_sc.view(torch.int32))):
+            raise AssertionError(f"quantize differs from its plain version at {name}: "
+                                 f"{int((q != want_q).sum())} int8 values, "
+                                 f"{int((sc.view(torch.int32) != want_sc.view(torch.int32)).sum())} scales")
+        max_err = max(max_err, (q.int() - want_q.int()).abs().max().item(), (sc - want_sc).abs().max().item())
+    # the shipped artifact is a fixed point: quantize(dequantize(leaf)) gives back the stored leaf
+    for i, ((v, s), x) in enumerate(zip(stored, leaves)):
+        q, sc = quantize(x)
+        if not (torch.equal(q, v) and torch.equal(sc[0], s)):
+            raise AssertionError(f"quantize(dequantize(leaf {i})) does not give back the stored leaf")
+    # a column holding NaN: a NaN scale on both paths, the other columns unchanged
+    x = torch.from_numpy(quantize_inputs()["5x33"]).to(dev)
+    x[2, 4] = float("nan")
+    (q, sc), (want_q, want_sc) = quantize(x), quantize_reference(x)
+    keep = torch.arange(x.shape[1], device=dev) != 4
+    if not (bool(sc[0, 4].isnan()) and bool(want_sc[0, 4].isnan()) and torch.equal(q[:, keep], want_q[:, keep])
+            and torch.equal(sc[:, keep], want_sc[:, keep])):
+        raise AssertionError("quantize of a column holding NaN differs from its plain version")
+    nan_column_values_equal = bool(torch.equal(q[:, 4], want_q[:, 4]))
+
+    def all_leaves(fn):
+        return lambda: [fn(x) for x in leaves]
+
+    ms = cuda_time_ms(all_leaves(quantize))
+    plain_ms = cuda_time_ms(all_leaves(quantize_reference))
+    # the one-call yardstick: per-channel quantization with the kernel's own scales
+    scales = [quantize(x)[1][0].contiguous() for x in leaves]
+    zeros = [torch.zeros(sc.numel(), dtype=torch.int64, device=dev) for sc in scales]
+    library = "torch.quantize_per_channel(x, scales, zeros, 1, torch.qint8) with the kernel's scales"
+    try:
+        lib_wrong = sum(int((torch.quantize_per_channel(x, sc, z, 1, torch.qint8).int_repr() != quantize(x)[0]).sum())
+                        for x, sc, z in zip(leaves, scales, zeros))
+        library_ms = cuda_time_ms(lambda: [torch.quantize_per_channel(x, sc, z, 1, torch.qint8)
+                                           for x, sc, z in zip(leaves, scales, zeros)])
+        library_error = None
+    except (RuntimeError, NotImplementedError) as e:  # the yardstick only: the port never calls it
+        lib_wrong, library_ms, library_error = None, None, f"{type(e).__name__}: {e}"[:300]
+    values = sum(x.numel() for x in leaves)
+    cols = sum(x.shape[1] for x in leaves)
+    return {
+        "leaves": len(leaves), "values": values, "columns": cols,
+        "cases": [name for name, _ in cases[len(leaves):]], "bit_equal": True,
+        "fixed_point_of_artifact": True, "nan_column_values_equal_plain": nan_column_values_equal,
+        "max_abs_err": max_err, "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library": library, "library_int8_values_wrong": lib_wrong, "library_error": library_error,
+        **bounds.bound(*bounds.quantize_work(values, cols)),
     }
 
 
@@ -512,6 +632,113 @@ def phase_train(card: str, data: str, work: str) -> dict:
     }
 
 
+def _leaves(tree, prefix: str = ""):
+    """(path, leaf) of a nested dict / list / tuple tree, dict keys sorted."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _leaves(v, f"{prefix}{i}/")]
+    return [(prefix, tree)]
+
+
+@contextlib.contextmanager
+def timed_calls(targets):
+    """Within the block, every call of ``getattr(owner, name)`` for each
+    (owner, name, key) of ``targets`` is timed, the card synchronised after
+    it, its seconds appended to ``seconds[key]``; the functions are put back
+    after the block.  Yields ``seconds``."""
+    import torch
+
+    seconds, saved = {}, []
+    for owner, name, key in targets:
+        fn = getattr(owner, name)
+
+        def timed(*args, _fn=fn, _key=key, **kwargs):
+            t = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds.setdefault(_key, []).append(time.perf_counter() - t)
+            return out
+
+        saved.append((owner, name, fn))
+        setattr(owner, name, timed)
+    try:
+        yield seconds
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def phase_export(card: str, work: str) -> dict:
+    import numpy as np
+    import torch
+    import torch.export
+
+    from hmd_ego_pose_tpu_torch import cli
+    from hmd_ego_pose_tpu_torch.export import pt2, reference
+    from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
+    from hmd_ego_pose_tpu_torch.train import checkpoint
+    from hmd_ego_pose_tpu_torch.train.checkpoint import restore_checkpoint
+
+    with open(reference.REFERENCE) as f:
+        ref = json.load(f)
+    out_dir = os.path.join(work, "export")
+    printed = io.StringIO()
+    # the stages of cli export, timed from outside: cmd_export looks its
+    # functions up when it runs, export_inference its fold and torch.export's
+    stages = [(checkpoint, "restore_checkpoint", "restore"), (pt2, "export_inference", "export_inference"),
+              (pt2, "fold_batch_norms", "fold"), (torch.export, "export", "torch_export"),
+              (torch.export, "save", "save"), (pt2, "load_and_verify", "load_and_verify"),
+              (checkpoint, "save_checkpoint", "save_checkpoint")]
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    with timed_calls(stages) as seconds, contextlib.redirect_stdout(printed):
+        cli.main(["export", "--ckpt", ARTIFACT, "--quantize-int8", "--out-dir", out_dir])
+    total_s = time.perf_counter() - t0
+    launches = LAUNCHES.snapshot()
+    lines = printed.getvalue().splitlines()
+    print("\n".join(lines), flush=True)
+
+    if launches.get("dequantize", 0) != 137 or launches.get("quantize", 0) != 137:
+        raise AssertionError(f"the export must launch dequantize and quantize 137 times each, got {launches}")
+    want_lines = [line.replace(" in D", f" in {out_dir}") for line in ref["port_printed"]]
+    if lines != want_lines:
+        raise AssertionError(f"cli export printed {lines}, expected {want_lines}")
+    name = "hmd_ego_pose"
+    with open(os.path.join(out_dir, f"{name}_input.npy"), "rb") as f:
+        input_sha = hashlib.sha256(f.read()).hexdigest()
+    with open(os.path.join(out_dir, f"{name}_meta.json")) as f:
+        meta_text = f.read()
+    if input_sha != ref["input_sha256"] or meta_text != ref["meta_json"]:
+        raise AssertionError(f"the seeded input ({input_sha}) or the meta JSON differs from the JAX package's")
+    with np.load(os.path.join(out_dir, f"{name}_golden.npz")) as data:
+        golden = {k: data[k] for k in data.files}
+    gaps, off = reference.hold(golden, ref)
+    if off:
+        raise AssertionError("the card's golden outputs are off the JAX reference:\n" + "\n".join(off))
+    digests = {n: reference.content_digest(os.path.join(out_dir, f"{n}.npz")) for n in ref["weights_digest"]}
+    if digests != ref["weights_digest"]:
+        raise AssertionError(f"weight files' digests {digests}, the JAX package's {ref['weights_digest']}")
+    # the int8 file restores (dequantize on the card) to the shipped artifact's tensors
+    got = restore_checkpoint(os.path.join(out_dir, "weights_int8.npz"), "cuda")[:2]
+    want = restore_checkpoint(ARTIFACT, "cuda")[:2]
+    got_leaves, want_leaves = _leaves(got), _leaves(want)
+    if [k for k, _ in got_leaves] != [k for k, _ in want_leaves] or not all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(got_leaves, want_leaves)):
+        raise AssertionError("weights_int8.npz does not restore to the shipped artifact's tensors")
+    fp32_mb, int8_mb, pt2_mb = (os.path.getsize(os.path.join(out_dir, f)) / 1e6
+                                for f in ("weights_fp32.npz", "weights_int8.npz", f"{name}.pt2"))
+    fp32_s, int8_s = seconds.pop("save_checkpoint")  # weights_fp32, then weights_int8
+    seconds = {k: v[0] for k, v in seconds.items()}
+    seconds.update(fp32_save=fp32_s, int8_save=int8_s)
+    return {
+        "seconds": seconds, "total_s": total_s, "pt2_mb": pt2_mb, "fp32_mb": fp32_mb, "int8_mb": int8_mb,
+        "fp32_over_int8": fp32_mb / int8_mb, "launches": launches,
+        "golden_gap_rel": gaps, "tolerance_rel": ref["tolerance_rel"], "input_sha256": input_sha,
+        "weights_digest_equal": True, "int8_restores_to_artifact": True, "card": card,
+    }
+
+
 def read_golden():
     import numpy as np
 
@@ -719,6 +946,9 @@ def main() -> int:
     iou = phase_iou(dev)
     emit("kernel_iou", card=card, **iou)
 
+    quant = phase_quantize(dev)
+    emit("kernel_quantize", card=card, **quant)
+
     golden, frames, cameras = read_golden()
     predict, outputs, cams, cfg = phase_predict(dev, golden, frames, cameras)
     emit("predict", card=card, **predict)
@@ -732,6 +962,8 @@ def main() -> int:
         emit("evaluate", **evaluate)
         train = phase_train(card, data, work)
         emit("train", **train)
+        export = phase_export(card, work)
+        emit("export", **export)
 
     leftover = [t.name for t in threading.enumerate()
                 if t is not threading.main_thread() and t.is_alive() and not t.daemon]
@@ -742,7 +974,8 @@ def main() -> int:
 
     launches = {"dequantize": serve["launches"].get("dequantize", 0),
                 "min_distances": evaluate["launches"].get("min_distances", 0),
-                "iou": train["launches"].get("iou", 0)}
+                "iou": train["launches"].get("iou", 0),
+                "quantize": export["launches"].get("quantize", 0)}
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"the main path never launched the {name} kernel")
@@ -785,6 +1018,19 @@ def main() -> int:
             "bound_ms": iou["bound_ms"],
             "bound_by": iou["bound_by"],
             "library_ms": iou["library_ms"],
+        },
+        {
+            "name": "quantize",
+            "route": "cuda",
+            "source": "hmd_ego_pose_tpu_torch/csrc/quantize.cu",
+            "replaces": "hmd_ego_pose_tpu/ops/quantization.py:39",
+            "launches": launches["quantize"],
+            "max_abs_err": quant["max_abs_err"],
+            "ms": quant["kernel_ms"],
+            "plain_ms": quant["plain_ms"],
+            "bound_ms": quant["bound_ms"],
+            "bound_by": quant["bound_by"],
+            "library_ms": quant["library_ms"],
         },
     ]}), flush=True)
     print(card, flush=True)

@@ -4,6 +4,7 @@
     python -m hmd_ego_pose_tpu_torch.cli serve --ckpt trained/syn1000_phi0_576ep_handrel_int8.npz --port 18734
     python -m hmd_ego_pose_tpu_torch.cli make-synthetic --out-dir D --num-frames 1000 --frame-size 256 --hand-render-version 3
     python -m hmd_ego_pose_tpu_torch.cli evaluate --dataset-path D --ckpt trained/syn1000_phi0_576ep_handrel_int8.npz --partition val
+    python -m hmd_ego_pose_tpu_torch.cli export --ckpt trained/syn1000_phi0_576ep_handrel_int8.npz --quantize-int8
 
 ``train`` fine-tunes (or, without ``--ckpt``, trains from random weights) on
 a fold's train split resident on the device, validates on its val split
@@ -26,15 +27,22 @@ fold's partition, scores every metric (ADD-S on the min-distance kernel)
 and prints the 17-line report and the scalars as JSON.  Flags and defaults
 are the JAX package's, less ``--dataset`` and ``--batch-size``, which its
 ``evaluate`` does not read either; ``--save-images-path`` and ``--iter`` > 0
-are not ported and raise.  Everything runs on ``cuda`` unless ``--device cpu`` is
-given.  The JAX package's ``export``, ``debug``, ``parity`` and
-``format-labels`` are not ported yet.
+are not ported and raise.  ``export`` restores the checkpoint on the device,
+folds the BNs, writes the ``torch.export`` program of the raw forward
+(``<out-dir>/hmd_ego_pose.pt2``) with its seeded input, golden outputs and
+meta JSON, loads it back and verifies it; with ``--quantize-int8`` it also
+writes ``weights_fp32.npz`` and the int8 distribution checkpoint
+``weights_int8.npz``, every int8 leaf quantized on the card by the CUDA
+kernel.  Everything runs on ``cuda`` unless ``--device cpu`` is given.  The
+JAX package's ``debug``, ``parity`` and ``format-labels`` are not ported
+yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from typing import Optional
 
@@ -239,6 +247,46 @@ def cmd_make_synthetic(args):
     return path
 
 
+def cmd_export(args):
+    """Restore (or, without ``--ckpt``, seed-initialise) the model, export and
+    verify the folded raw forward, and with ``--quantize-int8`` write the
+    fp32 and int8 weight checkpoints.  Returns the output directory."""
+    from hmd_ego_pose_tpu_torch.export.pt2 import export_inference, load_and_verify
+    from hmd_ego_pose_tpu_torch.models.hmd_ego_pose import HMDEgoPose, init_weights
+    from hmd_ego_pose_tpu_torch.models.weights import to_jax_params
+    from hmd_ego_pose_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from hmd_ego_pose_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    hand_relative = args.hand_relative
+    if args.ckpt:
+        params, bn_state, meta = restore_checkpoint(args.ckpt, device)
+        hand_relative = resolve_hand_relative(args.hand_relative, meta)
+        if hand_relative and not args.hand_relative:
+            print("[cli] checkpoint metadata records hand_relative=True -> "
+                  "enabling the drill-anchored hand decode (no --hand-relative "
+                  "flag needed for artifacts with metadata)")
+    cfg = ModelConfig(phi=args.phi, image_size=args.img_size, hand_relative=hand_relative)
+    if not args.ckpt:
+        model = init_weights(HMDEgoPose(cfg), torch.Generator().manual_seed(0))
+        params, bn_state = to_jax_params(model.state_dict(), cfg)
+    out = export_inference(params, bn_state, cfg, args.out_dir, device=device)
+    load_and_verify(args.out_dir, device=device)
+    print(f"exported + verified torch.export artifact in {out}")
+
+    if args.quantize_int8:
+        # distribution artifact: int8 weight checkpoint (~4x smaller), which
+        # restore_checkpoint of either package dequantizes transparently
+        fp32_path = save_checkpoint(args.out_dir, "weights_fp32", params, bn_state)
+        int8_path = save_checkpoint(args.out_dir, "weights_int8", params, bn_state, backend="int8",
+                                    device=device)
+        fp32_mb = os.path.getsize(fp32_path) / 1e6
+        int8_mb = os.path.getsize(int8_path) / 1e6
+        print(f"int8 checkpoint: {int8_mb:.1f} MB vs fp32 {fp32_mb:.1f} MB "
+              f"({fp32_mb / int8_mb:.2f}x smaller)")
+    return out
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="hmd_ego_pose_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -316,6 +364,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the checkpoint was trained with ModelConfig.hand_relative")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.set_defaults(func=cmd_serve)
+
+    p = sub.add_parser("export", help="torch.export of the folded raw forward + verify", allow_abbrev=False)
+    p.add_argument("--quantize-int8", action="store_true",
+                   help="also write an int8-quantized weight checkpoint for distribution "
+                        "(quantized by the CUDA kernel on the card)")
+    p.add_argument("--ckpt", default=None,
+                   help=".npz checkpoint (fp32 or int8); without it the port's own seeded init "
+                        "(torch generator, seed 0) is exported, which is not the JAX package's "
+                        "init(0): the two draw from different generators")
+    p.add_argument("--phi", type=int, default=0)
+    p.add_argument("--img-size", type=int, default=256)
+    p.add_argument("--out-dir", default="artifacts")
+    p.add_argument("--hand-relative", action="store_true",
+                   help="the checkpoint was trained with ModelConfig.hand_relative")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.set_defaults(func=cmd_export)
     return parser
 
 

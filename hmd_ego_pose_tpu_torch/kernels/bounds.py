@@ -30,7 +30,10 @@ def dequantize_work(values: int, scales: int) -> Tuple[float, float]:
 
 
 def quantize_work(values: int, scales: int) -> Tuple[float, float]:
-    """float32 in, int8 and float32 scales out; abs, max, divide, round, clip per value."""
+    """float32 in, int8 and float32 scales out; abs, max, divide, round, clip per value.
+
+    The least the work needs: x read once.  ``csrc/quantize.cu`` reads x twice
+    (column maxima, then the quotients), 9 bytes per value instead of 5."""
     return values * (4 + 1) + scales * 4, values * 5
 
 

@@ -35,6 +35,7 @@ SIGNATURES = {
     "dequantize": {"hegp_dequantize": (_P, _P, _P, _I, _I, _P)},
     "iou": {"hegp_iou": (_P, _P, _P, _I, _I, _I, _I, _P)},
     "min_distances": {"hegp_min_distances": (_P, _P, _P, _I, _I, _I, _P)},
+    "quantize": {"hegp_quantize": (_P, _P, _P, _I, _I, _P)},
 }
 
 _lock = threading.Lock()

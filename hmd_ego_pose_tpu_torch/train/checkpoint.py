@@ -7,7 +7,13 @@ same trees: the members ``params/...``, ``bn/...`` and ``opt/NNNNN`` in that
 order, dict keys sorted and list items by index (``blocks/9`` before
 ``blocks/10``), each array as ``np.asarray`` gives it, through the same
 ``np.savez`` call, so the files are byte-equal; and the JSON sidecar ``<name>.json``.  The int8
-backend (the quantize kernel) is not ported yet and raises.
+backend writes the JAX package's int8 distribution format: ``__format__``
+first, then every params leaf packed by the JAX leaf rule
+(``ops/quantization.quantize_leaf``: small or non-float32 leaves as
+``fp32``, the others as ``int8``, ``scales`` and ``shape``), quantized on
+the card by the CUDA kernel (``ops/quantization.quantize``, one launch per
+int8 leaf), then ``bn/...``; for C-ordered trees the file is byte-equal to
+the JAX package's.
 
 ``restore_checkpoint`` reads the two ``.npz`` formats: plain float32, and int8 (``__format__ == "int8"``,
 each large leaf stored as int8 values plus float32 per-channel scales along
@@ -27,7 +33,7 @@ import numpy as np
 import torch
 
 from hmd_ego_pose_tpu_torch.config import ModelConfig
-from hmd_ego_pose_tpu_torch.ops.quantization import dequantize
+from hmd_ego_pose_tpu_torch.ops.quantization import dequantize, host_array, quantize_tree
 from hmd_ego_pose_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -76,14 +82,6 @@ def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-def _host(leaf) -> np.ndarray:
-    """A leaf as the JAX package's ``np.asarray`` gives it: a tensor as a C-ordered
-    array, a numpy array as it is (0-d stays 0-d, Fortran order stays)."""
-    if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().contiguous().numpy()
-    return np.asarray(leaf)
-
-
 def checkpoint_name(dataset: str, fold: int, iters: int, metric: float, epoch: int) -> str:
     """Metric-encoded name, the reference's filename pattern."""
     return f"{dataset}__fold_{fold}__iter_{iters}__mixed_t_mean_{metric:.2f}__epo_{epoch}"
@@ -91,26 +89,29 @@ def checkpoint_name(dataset: str, fold: int, iters: int, metric: float, epoch: i
 
 def save_checkpoint(directory: str, name: str, params, bn_state,
                     metadata: Optional[Dict[str, Any]] = None, backend: str = "npz",
-                    opt_leaves: Optional[List[Any]] = None) -> str:
+                    opt_leaves: Optional[List[Any]] = None, device: DeviceLike = None) -> str:
     """Write ``<directory>/<name>.npz`` and its sidecar; returns the ``.npz`` path.
 
     ``params`` / ``bn_state``: JAX-layout trees (``models/weights.py::to_jax_params``)
-    of numpy arrays or tensors.  ``opt_leaves``: the optimizer state's leaves
-    in ``jax.tree.leaves`` order (``train/state.py``), stored as
-    ``opt/00000`` ... so either package resumes the run.
+    of numpy arrays or tensors.  ``backend``: "npz" (float32, as given) or
+    "int8" (the distribution format; its leaves are quantized on ``device``,
+    where None means the card and a missing card raises).  ``opt_leaves``:
+    the optimizer state's leaves in ``jax.tree.leaves`` order
+    (``train/state.py``), stored as ``opt/00000`` ... by the npz backend so
+    either package resumes the run; the int8 backend does not write them, as
+    in the JAX package.
     """
-    if backend == "int8":
-        raise NotImplementedError(
-            "the int8 checkpoint save needs the quantize kernel, which the PyTorch port "
-            "does not have yet (ROADMAP Queue A-1)")
-    if backend != "npz":
-        raise NotImplementedError(f"checkpoint backend {backend!r} is not ported (npz only)")
+    if backend not in ("npz", "int8"):
+        raise NotImplementedError(f"checkpoint backend {backend!r} is not ported (npz and int8 only)")
+    int8 = backend == "int8"
+    flat: Dict[str, Any] = {"__format__": np.asarray("int8")} if int8 else {}
+    packed = quantize_tree(params, resolve_device(device)) if int8 else params
+    flat.update({"params/" + k: host_array(v) for k, v in _flatten(packed).items()})
+    flat.update({"bn/" + k: host_array(v) for k, v in _flatten(bn_state).items()})
+    for i, leaf in enumerate(() if int8 else opt_leaves or ()):
+        flat[f"opt/{i:05d}"] = host_array(leaf)
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, name + ".npz")
-    flat = {"params/" + k: _host(v) for k, v in _flatten(params).items()}
-    flat.update({"bn/" + k: _host(v) for k, v in _flatten(bn_state).items()})
-    for i, leaf in enumerate(opt_leaves or ()):
-        flat[f"opt/{i:05d}"] = _host(leaf)
     np.savez(path, **flat)
     with open(os.path.join(directory, name + ".json"), "w") as f:
         json.dump(metadata or {}, f, indent=2)

@@ -15,9 +15,10 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
 from hmd_ego_pose_tpu_torch.ops import distances, iou
-from hmd_ego_pose_tpu_torch.ops.quantization import dequantize, dequantize_reference
+from hmd_ego_pose_tpu_torch.ops.quantization import dequantize, dequantize_reference, quantize, quantize_reference
 
 pytestmark = pytest.mark.cuda
 
@@ -90,3 +91,22 @@ def test_iou_kernel_bit_equal_to_plain_on_the_card(cuda_device):
     assert LAUNCHES.get("iou") == calls
     with pytest.raises(ValueError):
         iou.iou_matrix(a.double(), g)
+
+
+def test_quantize_kernel_bit_equal_to_plain_on_the_card(cuda_device):
+    """The odd shapes (a single value and row, C off 32, the artifact's largest
+    leaf and smallest C), zero columns, exact half-steps, negative zeros and
+    denormals: int8 values and scales bit for bit; one launch per call."""
+    cases = chip_smoke.quantize_inputs()
+    LAUNCHES.reset()
+    for name, x in cases.items():
+        x = torch.from_numpy(x).to(cuda_device)
+        q, s = quantize(x)
+        torch.cuda.synchronize()
+        want_q, want_s = quantize_reference(x)
+        assert q.dtype == torch.int8 and s.shape == (1, x.shape[1]), name
+        assert torch.equal(q, want_q), name
+        assert torch.equal(s.view(torch.int32), want_s.view(torch.int32)), name
+    assert LAUNCHES.get("quantize") == len(cases)
+    with pytest.raises(ValueError):
+        quantize(x.double())

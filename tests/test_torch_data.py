@@ -225,6 +225,7 @@ def test_port_imports_only_the_standard_library_torch_numpy_and_scipy():
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     paths = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(repo, "hmd_ego_pose_tpu_torch"))
              for f in fs if f.endswith(".py")] + [os.path.join(repo, "chip_smoke.py")]
+    assert os.path.join(repo, "hmd_ego_pose_tpu_torch", "export", "pt2.py") in paths
     offenders = []
     for path in paths:
         with open(path) as f:

@@ -212,6 +212,7 @@ def test_port_imports_no_jax_pil_or_yaml():
                 if name.split(".")[0] in banned:
                     offenders.append(f"{os.path.relpath(path, REPO)}:{node.lineno} {name}")
     assert len(list(_sources())) > 20
+    assert {"pt2.py", "reference.py"} <= {os.path.basename(p) for p in _sources() if os.sep + "export" + os.sep in p}
     assert not offenders, offenders
 
 

@@ -8,7 +8,10 @@
   then takes one more step from the same gradients as the package that
   wrote it, and the parameters agree within 1e-5 relative (the optimizer
   test's float32 bound, ``tests/test_torch_train_ops.py``);
-* the int8 backend is not ported and raises.
+* the int8 backend of both packages writes byte-equal files for the same
+  C-ordered trees (the port quantizing with its plain version on the CPU),
+  ``__format__`` first and no optimizer leaves, and each package restores
+  the other's int8 file to the same leaves.
 """
 
 import filecmp
@@ -23,7 +26,7 @@ from hmd_ego_pose_tpu.config import TrainConfig as JaxTrainConfig
 from hmd_ego_pose_tpu.train import checkpoint as jax_checkpoint
 from hmd_ego_pose_tpu.train.state import make_optimizer
 from hmd_ego_pose_tpu_torch import config as tcfg
-from hmd_ego_pose_tpu_torch.models.hmd_ego_pose import HMDEgoPose
+from hmd_ego_pose_tpu_torch.models.hmd_ego_pose import HMDEgoPose, init_weights
 from hmd_ego_pose_tpu_torch.models.weights import from_jax_params, to_jax_params
 from hmd_ego_pose_tpu_torch.train import checkpoint
 from hmd_ego_pose_tpu_torch.train.state import Optimizer
@@ -168,9 +171,64 @@ def test_jax_last_checkpoint_resumes_in_the_port(trees, tmp_path):
             checkpoint.restore_opt_leaves(path))
 
 
-def test_int8_save_is_not_ported(trees, tmp_path):
-    with pytest.raises(NotImplementedError, match="quantize"):
-        checkpoint.save_checkpoint(str(tmp_path), "x", *trees, backend="int8")
+def test_checkpoint_name_and_artifact_opt_leaves(trees, tmp_path):
     assert checkpoint.checkpoint_name("syn_colibri", 0, 0, 16.3456, 7) == jax_checkpoint.checkpoint_name(
         "syn_colibri", 0, 0, 16.3456, 7)
     assert checkpoint.restore_opt_leaves(ARTIFACT) is None
+
+
+@pytest.fixture(scope="module")
+def seeded_trees():
+    """C-ordered phi-0 trees of a seeded init, with BN statistics off identity."""
+    model = init_weights(HMDEgoPose(MODEL), torch.Generator().manual_seed(3))
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith("running_mean"):
+                buf.copy_(torch.randn(buf.shape, generator=gen) * 0.1)
+            elif name.endswith("running_var"):
+                buf.copy_(torch.rand(buf.shape, generator=gen) + 0.5)
+    return to_jax_params(model.state_dict(), MODEL)
+
+
+@pytest.mark.parametrize("leaves", ["numpy", "tensor"])
+def test_int8_save_bytes_equal_jax(seeded_trees, tmp_path, leaves):
+    """Byte-equal ``.npz`` (``filecmp``, tolerance 0) and sidecar; optimizer leaves are not written."""
+    params, bn_state = seeded_trees
+    jpath = jax_checkpoint.save_checkpoint(str(tmp_path / "jax"), "w", params, bn_state, metadata=META,
+                                           backend="int8")
+    given = (params, bn_state) if leaves == "numpy" else jax.tree.map(torch.from_numpy, (params, bn_state))
+    tpath = checkpoint.save_checkpoint(str(tmp_path / "port"), "w", *given, metadata=META, backend="int8",
+                                       opt_leaves=[np.zeros(3, np.float32)], device="cpu")
+    assert filecmp.cmp(jpath, tpath, shallow=False)
+    assert filecmp.cmp(jpath[:-4] + ".json", tpath[:-4] + ".json", shallow=False)
+    with np.load(tpath) as data:
+        assert data.files[0] == "__format__" and str(data["__format__"]) == "int8"
+        assert not any(k.startswith("opt/") for k in data.files)
+        assert sum(k.endswith("/int8") for k in data.files) > 100
+
+
+def test_each_package_restores_the_others_int8_file(seeded_trees, tmp_path):
+    params, bn_state = seeded_trees
+    jpath = jax_checkpoint.save_checkpoint(str(tmp_path / "jax"), "w", params, bn_state, backend="int8")
+    tpath = checkpoint.save_checkpoint(str(tmp_path / "port"), "w", params, bn_state, backend="int8",
+                                       device="cpu")
+    want = jax_checkpoint.restore_checkpoint(jpath)[:2]
+    by_jax = jax_checkpoint.restore_checkpoint(tpath)[:2]
+    by_port = checkpoint.restore_checkpoint(jpath, device="cpu")[:2]
+    for got in (by_jax, jax.tree.map(lambda t: t.numpy(), by_port)):
+        assert jax.tree.structure(got) == jax.tree.structure(want)
+        for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+    # the int8 round trip is lossy: within half a step of each column's scale
+    restored = jax.tree.leaves(want[0])
+    for g, w in zip(restored, jax.tree.leaves(params)):
+        s = np.abs(w.reshape(-1, w.shape[-1])).max(axis=0) / 127
+        assert np.all(np.abs(np.asarray(g) - w).reshape(-1, w.shape[-1]) <= s * 0.5 + 1e-7)
+
+
+def test_int8_save_defaults_to_the_card(seeded_trees, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        checkpoint.save_checkpoint(str(tmp_path), "w", *seeded_trees, backend="int8")
