@@ -8,10 +8,15 @@ Phases, each printing one JSON line of its own:
 1. device   -- the card's name and power limit (nvidia-smi).
 2. build    -- every CUDA kernel of the port built from ``csrc/`` with nvcc,
                one process per source, all at once.
-3. kernel   -- the dequantize kernel against its plain PyTorch version on the
-               card, on every int8 leaf of the shipped artifact and on seeded odd
-               shapes: bit equality required; kernel, plain and one-call
-               PyTorch times over all leaves, beside the bytes bound.
+3. kernel   -- the grouped dequantize kernel against its plain PyTorch version
+               on the card: a group of one on every int8 leaf of the shipped
+               artifact and on seeded odd shapes; the 137 leaves as one group;
+               a mixed group (odd shapes, zero columns, half-steps, denormal
+               and NaN scales) as one group.  Bit equality required.  Over the
+               137 leaves: the group call as the restore makes it (packing,
+               uploads, launch), the launch alone on packed buffers already on
+               the card, the plain and the one-call PyTorch loops, beside the
+               bytes bound.
 4. kernel_min_distances -- the ADD-S min-distance kernel against its plain
                version at the evaluation's shape (T=200 pose pairs, P=Q=600)
                and at seeded odd shapes, with duplicate points: bit equality
@@ -25,16 +30,21 @@ Phases, each printing one JSON line of its own:
                per-image anchors: bit equality required; kernel and plain
                times at the train shape beside the bytes bound (no single
                PyTorch call computes it: library time null).
-6. kernel_quantize -- the int8 quantize kernel against its plain version
-               on the card, on the 137 dequantized int8 leaves of the shipped
-               artifact and on seeded odd shapes (a single value and row, C
-               off 32, C = 10, the largest leaf), zero columns, exact
-               half-steps, negative zeros and denormals: int8 values and
-               scales bit-equal; quantize(dequantize(leaf)) must give back
-               every stored leaf bit for bit; a column holding NaN keeps a NaN
-               scale.  Kernel, plain and ``torch.quantize_per_channel`` times
-               over all leaves (the last with the kernel's scales, and the
-               count of int8 values it gets wrong), beside the bytes bound.
+6. kernel_quantize -- the grouped int8 quantize kernel against its plain
+               version on the card, as groups of one on the 137 dequantized
+               int8 leaves of the shipped artifact and on seeded odd shapes (a
+               single value and row, C off 32, C = 10, the largest leaf), zero
+               columns, exact half-steps, negative zeros and denormals; then
+               the 137 leaves as one group and a mixed group (those cases, the
+               odd shapes and a NaN column) as one group: int8 values and
+               scales bit-equal; quantize_group(dequantize_group(leaves)) must
+               give back every stored leaf bit for bit; a column holding NaN
+               keeps a NaN scale and touches no other leaf.  Over the 137
+               leaves: the group call as the int8 save makes it (packing,
+               table upload, launch), the launch alone, the plain and the
+               ``torch.quantize_per_channel`` loops (the last with the
+               kernel's scales, and the count of int8 values it gets wrong),
+               beside the bytes bound.
 7. predict  -- restore of ``trained/syn1000_phi0_576ep_handrel_int8.npz`` on the
                card, then ``predict`` (phi-0, 256 px, bf16, score threshold
                0.1) of the six committed golden frames, held to
@@ -67,8 +77,8 @@ Phases, each printing one JSON line of its own:
                trainer (``cli.build_trainer``: phi-0, 256 px, fp32, batch 16,
                Adam 1e-4, frozen backbone, oversample 1) for one epoch over the
                600 train frames and validation on the 200 val frames.  Every
-               loss finite, ``iou`` launched once per step, ``dequantize`` 137
-               times at the restore, ``min_distances`` once; the backbone's
+               loss finite, ``iou`` launched once per step, ``dequantize`` once
+               at the restore, ``min_distances`` once; the backbone's
                parameters bit-identical and its BN statistics moved; the best
                and ``last`` checkpoints written and restored to the trained
                model, ``last`` with the optimizer's leaves.  Times: step p50 and
@@ -78,7 +88,7 @@ Phases, each printing one JSON line of its own:
 11. export  -- ``cli export --ckpt trained/syn1000_phi0_576ep_handrel_int8.npz
                --quantize-int8`` on the card (phi-0, 256 px, fp32) into the
                temporary directory, with the launch counts reset just before
-               and read just after: ``dequantize`` and ``quantize`` 137 times
+               and read just after: ``dequantize`` and ``quantize`` once
                each; the program saved, loaded back and verified; the seeded
                input's sha256, the meta JSON and the printed lines as the
                reference's; every golden output within the stated tolerance
@@ -204,104 +214,189 @@ def quantize_inputs(seed: int = 7) -> dict:
     return cases
 
 
-def phase_kernel(dev) -> dict:
+def device_time_ms(fn, reps: int = 50, spin_cycles: int = 50_000_000) -> float:
+    """Mean device time of ``fn()`` where the card never waits for the host:
+    the calls are queued behind a spin kernel (``torch.cuda._sleep``), and the
+    start event must still be pending when the last call has been queued."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    behind_spin = not start.query()
+    stop.synchronize()
+    if not behind_spin:
+        raise AssertionError(f"the spin kernel ended before {reps} calls were queued: raise spin_cycles")
+    return start.elapsed_time(stop) / reps
+
+
+def mixed_float_group(seed: int = 7) -> dict:
+    """The float32 leaves a quantize group must take besides the artifact's,
+    launched as one group: ``quantize_inputs()``, a leaf with a NaN column
+    (which must touch no other leaf), then the ``ODD_SHAPES``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+    nan = rng.normal(0, 0.2, (5, 33)).astype(np.float32)
+    nan[2, 4] = np.nan
+    odd = {f"odd {r}x{c}": rng.normal(0, 0.2, (r, c)).astype(np.float32) for r, c in ODD_SHAPES}
+    return {**quantize_inputs(seed), "nan_column": nan, **odd}
+
+
+def mixed_int8_group(seed: int = 0) -> list:
+    """(name, values (R, C) int8, scales (C,) float32) of the int8 leaves a
+    dequantize group must take besides the artifact's, launched as one group:
+    the ``ODD_SHAPES`` with seeded values and scales, then every leaf of
+    ``mixed_float_group`` quantized by the plain version (zero columns,
+    half-steps, negative zeros, denormal scales, a NaN scale)."""
     import numpy as np
     import torch
 
-    from hmd_ego_pose_tpu_torch.kernels import bounds
-    from hmd_ego_pose_tpu_torch.ops.quantization import dequantize, dequantize_reference
+    from hmd_ego_pose_tpu_torch.ops.quantization import quantize_reference
 
-    leaves = [(torch.from_numpy(v).to(dev), torch.from_numpy(s).to(dev)) for v, s in int8_leaves(ARTIFACT)]
-    rng = np.random.default_rng(0)
-    odd = [(torch.from_numpy(rng.integers(-127, 128, size=shape, dtype=np.int8)).to(dev),
-            torch.from_numpy(rng.uniform(1e-4, 1e-1, size=shape[1]).astype(np.float32)).to(dev))
-           for shape in ODD_SHAPES]
+    rng = np.random.default_rng(seed)
+    leaves = [(f"odd {shape}", rng.integers(-127, 128, size=shape, dtype=np.int8),
+               rng.uniform(1e-4, 1e-1, size=shape[1]).astype(np.float32)) for shape in ODD_SHAPES]
+    for name, x in mixed_float_group().items():
+        q, s = quantize_reference(torch.from_numpy(x))
+        leaves.append((name, q.numpy(), s.numpy()[0]))
+    return leaves
+
+
+def same_bits(a, b) -> bool:
+    """Bit equality of two float32 or int8 tensors (NaN payloads and signed zeros included)."""
+    import torch
+
+    return a.shape == b.shape and (torch.equal(a.view(torch.int32), b.view(torch.int32))
+                                   if a.dtype == torch.float32 else torch.equal(a, b))
+
+
+def phase_kernel(dev) -> dict:
+    import torch
+
+    from hmd_ego_pose_tpu_torch.kernels import bounds
+    from hmd_ego_pose_tpu_torch.ops.quantization import (dequantize, dequantize_group, dequantize_packed,
+                                                         dequantize_reference, pack_dequantize_group)
+
+    stored = int8_leaves(ARTIFACT)
+    mixed = mixed_int8_group()
     max_err = 0.0
-    for v, s in leaves + odd:
-        got, want = dequantize(v, s), dequantize_reference(v, s)
+    # the 137 leaves as one group, the mixed group as one group, and every
+    # leaf as a group of one (dequantize on tensors already on the card)
+    for group_name, group in {"artifact": [(f"leaf {i}", v, s) for i, (v, s) in enumerate(stored)],
+                              "mixed": mixed}.items():
+        on_card = [(torch.from_numpy(v).to(dev), torch.from_numpy(s).to(dev)) for _, v, s in group]
+        got = dequantize_group([(v, s) for _, v, s in group], dev)
+        ones = [dequantize(v, s) for v, s in on_card]
         torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"dequantize differs from its plain version at {tuple(v.shape)}: "
-                                 f"max |diff| {(got - want).abs().max().item()}")
-        max_err = max(max_err, (got - want).abs().max().item())
+        for (name, _, _), (v, s), g, one in zip(group, on_card, got, ones):
+            want = dequantize_reference(v, s)
+            if not (same_bits(g, want) and same_bits(one, want)):
+                raise AssertionError(f"dequantize differs from its plain version at {group_name} {name}")
+            max_err = max(max_err, *((x - want).nan_to_num(0.0).abs().max().item() for x in (g, one)))
+        if group_name == "artifact":
+            leaves = on_card
+
+    values, scales, group = pack_dequantize_group(stored)
+    packed = (torch.from_numpy(values).to(dev), torch.from_numpy(scales).to(dev))
+    table = torch.from_numpy(group.table).to(dev)
+    # as the restore makes it: packing, the three uploads and the launch
+    ms = cuda_time_ms(lambda: dequantize_group(stored, dev))
+    launch_ms = device_time_ms(lambda: dequantize_packed(*packed, group, table))
 
     def all_leaves(fn):
         return lambda: [fn(v, s) for v, s in leaves]
 
-    ms = cuda_time_ms(all_leaves(dequantize))
     plain_ms = cuda_time_ms(all_leaves(dequantize_reference))
     library_ms = cuda_time_ms(all_leaves(lambda v, s: torch.mul(v, s)))  # one call, int8 * f32 -> f32
-    values = sum(v.numel() for v, _ in leaves)
-    scales = sum(s.numel() for _, s in leaves)
+    n_values = sum(v.numel() for v, _ in leaves)
+    n_scales = sum(s.numel() for _, s in leaves)
     return {
-        "leaves": len(leaves), "int8_values": values, "odd_shapes": [list(s) for s in ODD_SHAPES],
-        "bit_equal": True, "max_abs_err": max_err, "kernel_ms": ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, **bounds.bound(*bounds.dequantize_work(values, scales)),
+        "leaves": len(leaves), "int8_values": n_values, "odd_shapes": [list(s) for s in ODD_SHAPES],
+        "mixed_group": [name for name, _, _ in mixed], "blocks": group.blocks,
+        "bit_equal": True, "max_abs_err": max_err, "kernel_ms": ms, "launch_ms": launch_ms,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        **bounds.bound(*bounds.dequantize_work(n_values, n_scales)),
         "kernels": ["dequantize"],
     }
 
 
 def phase_quantize(dev) -> dict:
-    import numpy as np
     import torch
 
     from hmd_ego_pose_tpu_torch.kernels import bounds
-    from hmd_ego_pose_tpu_torch.ops.quantization import dequantize, quantize, quantize_reference
+    from hmd_ego_pose_tpu_torch.ops.quantization import (dequantize_group, pack_quantize_group, quantize,
+                                                         quantize_group, quantize_packed, quantize_reference)
 
-    stored = [(torch.from_numpy(v).to(dev), torch.from_numpy(s).to(dev)) for v, s in int8_leaves(ARTIFACT)]
-    leaves = [dequantize(v, s) for v, s in stored]
-    cases = [(f"leaf {i} {tuple(x.shape)}", x) for i, x in enumerate(leaves)]
-    cases += [(name, torch.from_numpy(x).to(dev)) for name, x in quantize_inputs().items()]
+    stored = int8_leaves(ARTIFACT)
+    leaves = dequantize_group(stored, dev)
     max_err = 0.0
-    for name, x in cases:
-        (q, sc), (want_q, want_sc) = quantize(x), quantize_reference(x)
+
+    def hold(name, x, q, sc, nan_column=None):
+        nonlocal max_err
+        want_q, want_sc = quantize_reference(x)
         torch.cuda.synchronize()
-        if not (torch.equal(q, want_q) and torch.equal(sc.view(torch.int32), want_sc.view(torch.int32))):
+        # a NaN column: NaN scales on both paths; its int8 values are an unspecified cast
+        keep = torch.arange(x.shape[1], device=dev) != (-1 if nan_column is None else nan_column)
+        nan_held = nan_column is None or bool(sc[0, nan_column].isnan() and want_sc[0, nan_column].isnan())
+        if not (nan_held and same_bits(q[:, keep], want_q[:, keep]) and same_bits(sc[:, keep], want_sc[:, keep])):
             raise AssertionError(f"quantize differs from its plain version at {name}: "
-                                 f"{int((q != want_q).sum())} int8 values, "
-                                 f"{int((sc.view(torch.int32) != want_sc.view(torch.int32)).sum())} scales")
-        max_err = max(max_err, (q.int() - want_q.int()).abs().max().item(), (sc - want_sc).abs().max().item())
-    # the shipped artifact is a fixed point: quantize(dequantize(leaf)) gives back the stored leaf
-    for i, ((v, s), x) in enumerate(zip(stored, leaves)):
-        q, sc = quantize(x)
-        if not (torch.equal(q, v) and torch.equal(sc[0], s)):
-            raise AssertionError(f"quantize(dequantize(leaf {i})) does not give back the stored leaf")
-    # a column holding NaN: a NaN scale on both paths, the other columns unchanged
-    x = torch.from_numpy(quantize_inputs()["5x33"]).to(dev)
-    x[2, 4] = float("nan")
-    (q, sc), (want_q, want_sc) = quantize(x), quantize_reference(x)
-    keep = torch.arange(x.shape[1], device=dev) != 4
-    if not (bool(sc[0, 4].isnan()) and bool(want_sc[0, 4].isnan()) and torch.equal(q[:, keep], want_q[:, keep])
-            and torch.equal(sc[:, keep], want_sc[:, keep])):
-        raise AssertionError("quantize of a column holding NaN differs from its plain version")
-    nan_column_values_equal = bool(torch.equal(q[:, 4], want_q[:, 4]))
+                                 f"{int((q[:, keep] != want_q[:, keep]).sum())} int8 values, "
+                                 f"{int((sc[:, keep] != want_sc[:, keep]).sum())} scales, NaN held {nan_held}")
+        max_err = max(max_err, (q.int() - want_q.int())[:, keep].abs().max().item(),
+                      (sc - want_sc)[:, keep].abs().max().item())
+        return bool(torch.equal(q, want_q))
 
-    def all_leaves(fn):
-        return lambda: [fn(x) for x in leaves]
+    # the 137 leaves as one group, the mixed group (odd shapes, the seeded
+    # cases, a NaN column) as one group, and every leaf as a group of one
+    mixed = {name: torch.from_numpy(x).to(dev) for name, x in mixed_float_group().items()}
+    for group_name, xs in {"artifact": {f"leaf {i}": x for i, x in enumerate(leaves)}, "mixed": mixed}.items():
+        got = quantize_group(list(xs.values()))
+        for (name, x), (q, sc) in zip(xs.items(), got):
+            nan_column = 4 if name == "nan_column" else None
+            hold(f"{group_name} group, {name}", x, q, sc, nan_column)
+            one_equal = hold(f"{group_name}, {name} as a group of one", x, *quantize(x), nan_column)
+            if nan_column is not None:
+                nan_column_values_equal = one_equal
+        if group_name == "artifact":
+            kernel_out = got
+    # the shipped artifact is a fixed point: quantize_group(dequantize_group(leaves)) gives back every stored leaf
+    for i, ((q, sc), (v, s)) in enumerate(zip(kernel_out, stored)):
+        if not (torch.equal(q.cpu(), torch.from_numpy(v)) and torch.equal(sc[0].cpu(), torch.from_numpy(s))):
+            raise AssertionError(f"quantize_group(dequantize_group(leaves)) does not give back stored leaf {i}")
 
-    ms = cuda_time_ms(all_leaves(quantize))
-    plain_ms = cuda_time_ms(all_leaves(quantize_reference))
+    packed, group = pack_quantize_group(leaves, dev)
+    table = torch.from_numpy(group.table).to(dev)
+    # as the int8 save makes it: the packing, the table's upload and the launch
+    ms = cuda_time_ms(lambda: quantize_packed(*pack_quantize_group(leaves, dev)))
+    launch_ms = device_time_ms(lambda: quantize_packed(packed, group, table))
+    plain_ms = cuda_time_ms(lambda: [quantize_reference(x) for x in leaves])
     # the one-call yardstick: per-channel quantization with the kernel's own scales
-    scales = [quantize(x)[1][0].contiguous() for x in leaves]
+    scales = [sc[0].contiguous() for _, sc in kernel_out]
     zeros = [torch.zeros(sc.numel(), dtype=torch.int64, device=dev) for sc in scales]
     library = "torch.quantize_per_channel(x, scales, zeros, 1, torch.qint8) with the kernel's scales"
     try:
-        lib_wrong = sum(int((torch.quantize_per_channel(x, sc, z, 1, torch.qint8).int_repr() != quantize(x)[0]).sum())
-                        for x, sc, z in zip(leaves, scales, zeros))
+        lib_wrong = sum(int((torch.quantize_per_channel(x, sc, z, 1, torch.qint8).int_repr() != q).sum())
+                        for x, sc, z, (q, _) in zip(leaves, scales, zeros, kernel_out))
         library_ms = cuda_time_ms(lambda: [torch.quantize_per_channel(x, sc, z, 1, torch.qint8)
                                            for x, sc, z in zip(leaves, scales, zeros)])
         library_error = None
     except (RuntimeError, NotImplementedError) as e:  # the yardstick only: the port never calls it
         lib_wrong, library_ms, library_error = None, None, f"{type(e).__name__}: {e}"[:300]
-    values = sum(x.numel() for x in leaves)
+    n_values = sum(x.numel() for x in leaves)
     cols = sum(x.shape[1] for x in leaves)
     return {
-        "leaves": len(leaves), "values": values, "columns": cols,
-        "cases": [name for name, _ in cases[len(leaves):]], "bit_equal": True,
+        "leaves": len(leaves), "values": n_values, "columns": cols, "blocks": group.blocks,
+        "mixed_group": list(mixed), "bit_equal": True,
         "fixed_point_of_artifact": True, "nan_column_values_equal_plain": nan_column_values_equal,
-        "max_abs_err": max_err, "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "library": library, "library_int8_values_wrong": lib_wrong, "library_error": library_error,
-        **bounds.bound(*bounds.quantize_work(values, cols)),
+        "max_abs_err": max_err, "kernel_ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "library": library, "library_int8_values_wrong": lib_wrong,
+        "library_error": library_error, **bounds.bound(*bounds.quantize_work(n_values, cols)),
     }
 
 
@@ -574,8 +669,8 @@ def phase_train(card: str, data: str, work: str) -> dict:
         raise AssertionError(f"non-finite losses at steps {bad}: {[timed.losses[i] for i in bad]}")
     if launches.get("iou", 0) != steps:
         raise AssertionError(f"the IoU kernel must launch once per step ({steps}), got {launches}")
-    if launches_restore.get("dequantize", 0) != 137 or launches.get("dequantize", 0) != 137:
-        raise AssertionError(f"the restore must launch dequantize 137 times, got {launches_restore}")
+    if launches_restore.get("dequantize", 0) != 1 or launches.get("dequantize", 0) != 1:
+        raise AssertionError(f"the restore must launch dequantize once, got {launches_restore}")
     if launches.get("min_distances", 0) != 1:
         raise AssertionError(f"validation must launch min_distances once, got {launches}")
     state = trainer.model.state_dict()
@@ -699,8 +794,8 @@ def phase_export(card: str, work: str) -> dict:
     lines = printed.getvalue().splitlines()
     print("\n".join(lines), flush=True)
 
-    if launches.get("dequantize", 0) != 137 or launches.get("quantize", 0) != 137:
-        raise AssertionError(f"the export must launch dequantize and quantize 137 times each, got {launches}")
+    if launches.get("dequantize", 0) != 1 or launches.get("quantize", 0) != 1:
+        raise AssertionError(f"the export must launch dequantize and quantize once each, got {launches}")
     want_lines = [line.replace(" in D", f" in {out_dir}") for line in ref["port_printed"]]
     if lines != want_lines:
         raise AssertionError(f"cli export printed {lines}, expected {want_lines}")
@@ -988,6 +1083,7 @@ def main() -> int:
             "launches": launches["dequantize"],
             "max_abs_err": kernel["max_abs_err"],
             "ms": kernel["kernel_ms"],
+            "launch_ms": kernel["launch_ms"],
             "plain_ms": kernel["plain_ms"],
             "bound_ms": kernel["bound_ms"],
             "bound_by": kernel["bound_by"],
@@ -1027,6 +1123,7 @@ def main() -> int:
             "launches": launches["quantize"],
             "max_abs_err": quant["max_abs_err"],
             "ms": quant["kernel_ms"],
+            "launch_ms": quant["launch_ms"],
             "plain_ms": quant["plain_ms"],
             "bound_ms": quant["bound_ms"],
             "bound_by": quant["bound_by"],

@@ -1,8 +1,8 @@
 """Build the hand-written CUDA kernels with plain ``nvcc`` and load them with ctypes.
 
 Every ``csrc/<name>.cu`` compiles on first use into its own shared library
-``_build/<name>-<hash>.so``, where the hash covers the source files and the
-flags: a changed source rebuilds, an unchanged one loads the library already
+``_build/<name>-<hash>.so``, where the hash covers the source, every
+shared header ``csrc/*.cuh`` and the flags: a changed source rebuilds, an unchanged one loads the library already
 built.  Sources include no PyTorch header, so a build takes seconds.  All
 sources are compiled at once, one ``nvcc`` process each (``build_all``).
 
@@ -32,10 +32,10 @@ NVCC_FLAGS = (
 # c_int64 for sizes (without them ctypes passes 32-bit ints and cuts pointers)
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 SIGNATURES = {
-    "dequantize": {"hegp_dequantize": (_P, _P, _P, _I, _I, _P)},
+    "dequantize": {"hegp_dequantize_group": (_P, _P, _P, _P, _I, _I, _P)},
     "iou": {"hegp_iou": (_P, _P, _P, _I, _I, _I, _I, _P)},
     "min_distances": {"hegp_min_distances": (_P, _P, _P, _I, _I, _I, _P)},
-    "quantize": {"hegp_quantize": (_P, _P, _P, _I, _I, _P)},
+    "quantize": {"hegp_quantize_group": (_P, _P, _P, _P, _I, _I, _P)},
 }
 
 _lock = threading.Lock()

@@ -9,17 +9,19 @@ order, dict keys sorted and list items by index (``blocks/9`` before
 ``np.savez`` call, so the files are byte-equal; and the JSON sidecar ``<name>.json``.  The int8
 backend writes the JAX package's int8 distribution format: ``__format__``
 first, then every params leaf packed by the JAX leaf rule
-(``ops/quantization.quantize_leaf``: small or non-float32 leaves as
-``fp32``, the others as ``int8``, ``scales`` and ``shape``), quantized on
-the card by the CUDA kernel (``ops/quantization.quantize``, one launch per
-int8 leaf), then ``bn/...``; for C-ordered trees the file is byte-equal to
-the JAX package's.
+(``ops/quantization.quantize_tree``: small or non-float32 leaves as
+``fp32``, the others as ``int8``, ``scales`` and ``shape``), the large leaves
+quantized on the card by the CUDA kernel as one group (one launch for all of
+them), then ``bn/...``; for C-ordered trees the file is byte-equal to the JAX
+package's.
 
 ``restore_checkpoint`` reads the two ``.npz`` formats: plain float32, and int8 (``__format__ == "int8"``,
 each large leaf stored as int8 values plus float32 per-channel scales along
-its last axis).  The int8 values and scales are uploaded as stored and
-dequantized on the card by the CUDA kernel (``ops/quantization.dequantize``),
-one launch per int8 leaf.  The metadata sidecar ``<name>.json`` comes back
+its last axis).  Every int8 leaf, in tree order, is dequantized by one
+``ops/quantization.dequantize_group``: the values and the scales packed on
+the host, uploaded once each and dequantized on the card by the CUDA kernel
+in one launch; the leaves come back as views of one buffer.  The float32
+leaves and ``bn/...`` are uploaded one by one.  The metadata sidecar ``<name>.json`` comes back
 as a dict.  Orbax directories are not read by the port yet.
 """
 
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 
 from hmd_ego_pose_tpu_torch.config import ModelConfig
-from hmd_ego_pose_tpu_torch.ops.quantization import dequantize, host_array, quantize_tree
+from hmd_ego_pose_tpu_torch.ops.quantization import dequantize_group, host_array, quantize_tree
 from hmd_ego_pose_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -163,16 +165,15 @@ def restore_checkpoint(path: str, device: DeviceLike = None) -> Tuple[Any, Any, 
     def upload(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    def unpack(leaf) -> torch.Tensor:
-        if "fp32" in leaf:
-            return upload(leaf["fp32"])
-        values = leaf["int8"]
-        values2d = upload(values.reshape(-1, values.shape[-1]))
-        return dequantize(values2d, upload(leaf["scales"])).reshape(values.shape)
-
     params = _unflatten(params_flat)
     if int8:
-        params = _map_tree(unpack, params, _packed)
+        stored: List[Dict[str, np.ndarray]] = []
+        _map_tree(stored.append, params, _packed)
+        quantized = [(leaf["int8"].reshape(-1, leaf["int8"].shape[-1]), leaf["scales"])
+                     for leaf in stored if "int8" in leaf]
+        restored = iter(dequantize_group(quantized, dev) if quantized else ())
+        params = _map_tree(lambda leaf: upload(leaf["fp32"]) if "fp32" in leaf
+                           else next(restored).reshape(leaf["int8"].shape), params, _packed)
     else:
         params = _map_tree(upload, params, lambda x: isinstance(x, np.ndarray))
     bn_state = _map_tree(upload, _unflatten(bn_flat), lambda x: isinstance(x, np.ndarray))

@@ -18,7 +18,8 @@ import torch
 import chip_smoke
 from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
 from hmd_ego_pose_tpu_torch.ops import distances, iou
-from hmd_ego_pose_tpu_torch.ops.quantization import dequantize, dequantize_reference, quantize, quantize_reference
+from hmd_ego_pose_tpu_torch.ops.quantization import (dequantize, dequantize_group, dequantize_reference, quantize,
+                                                     quantize_group, quantize_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -110,3 +111,58 @@ def test_quantize_kernel_bit_equal_to_plain_on_the_card(cuda_device):
     assert LAUNCHES.get("quantize") == len(cases)
     with pytest.raises(ValueError):
         quantize(x.double())
+
+
+def test_dequantize_group_bit_equal_to_plain_with_one_launch(cuda_device):
+    """The mixed group (odd shapes, zero columns, half-steps, denormal and NaN
+    scales) as one group: every leaf bit-equal to the plain version, one launch;
+    a group of one equals ``dequantize``."""
+    leaves = [(v, s) for _, v, s in chip_smoke.mixed_int8_group()]
+    LAUNCHES.reset()
+    got = dequantize_group(leaves, cuda_device)
+    torch.cuda.synchronize()
+    assert LAUNCHES.get("dequantize") == 1
+    for (v, s), g in zip(leaves, got):
+        want = dequantize_reference(torch.from_numpy(v).to(cuda_device), torch.from_numpy(s).to(cuda_device))
+        assert chip_smoke.same_bits(g, want), v.shape
+    v, s = leaves[4]
+    one = dequantize_group([(v, s)], cuda_device)[0]
+    assert torch.equal(one, dequantize(torch.from_numpy(v).to(cuda_device), torch.from_numpy(s).to(cuda_device)))
+
+
+def test_quantize_group_bit_equal_to_plain_with_one_launch(cuda_device):
+    """The mixed group (odd shapes, zero columns, half-steps, negative zeros,
+    denormals, a NaN column between other leaves) as one group: int8 values
+    and scales bit-equal to the plain version, the NaN column's scale NaN on
+    both and no other leaf touched, one launch; a group of one equals ``quantize``."""
+    cases = {name: torch.from_numpy(x).to(cuda_device) for name, x in chip_smoke.mixed_float_group().items()}
+    LAUNCHES.reset()
+    got = quantize_group(list(cases.values()))
+    torch.cuda.synchronize()
+    assert LAUNCHES.get("quantize") == 1
+    for (name, x), (q, s) in zip(cases.items(), got):
+        want_q, want_s = quantize_reference(x)
+        assert q.shape == x.shape and s.shape == (1, x.shape[1]), name
+        keep = torch.arange(x.shape[1], device=cuda_device) != (4 if name == "nan_column" else -1)
+        assert torch.equal(q[:, keep], want_q[:, keep]), name
+        assert chip_smoke.same_bits(s[:, keep], want_s[:, keep]), name
+        if name == "nan_column":
+            assert bool(s[0, 4].isnan()) and bool(want_s[0, 4].isnan())
+    x = cases["5x33"]
+    (q1, s1), (q, s) = quantize_group([x])[0], quantize(x)
+    assert torch.equal(q1, q) and chip_smoke.same_bits(s1, s)
+
+
+def test_group_wrappers_raise_on_mixed_devices_wrong_dtypes_and_empty_groups(cuda_device):
+    v = np.zeros((2, 3), np.int8)
+    s = np.ones(3, np.float32)
+    on_card = (torch.from_numpy(v).to(cuda_device), torch.from_numpy(s).to(cuda_device))
+    for bad in ([(v, s), on_card], [(v.astype(np.int16), s)], [(v, s.astype(np.float64))], []):
+        with pytest.raises(ValueError):
+            dequantize_group(bad, cuda_device)
+    x = torch.ones((2, 3), dtype=torch.float32)
+    for bad in ([x, x.to(cuda_device)], [x.double().to(cuda_device)], [x.to(cuda_device)[:, :0]], []):
+        with pytest.raises(ValueError):
+            quantize_group(bad, cuda_device)
+    with pytest.raises(ValueError):
+        dequantize(on_card[0], on_card[1].cpu())

@@ -5,8 +5,12 @@ The plain versions, which the CPU path runs, are held to the JAX package:
 versions; ``quantize_reference`` bit-equal to ``quantize_np`` (what the JAX
 int8 save runs), and within one ulp of scale of ``quantize_pallas`` in
 interpret mode, where XLA multiplies by float32(1/127) instead of dividing.
-The port's ``restore_checkpoint`` must give the JAX restore's leaves bit for
-bit on both shipped artifacts.  The CUDA kernels themselves are held to the
+The group plain versions, which walk a group's table over those, equal
+``dequantize_np`` / ``quantize_np`` leaf by leaf on the shipped artifact's
+137 int8 leaves and on a seeded mixed group, and the tables lay every leaf
+out aligned and apart.  The port's ``restore_checkpoint`` (one group for
+every int8 leaf) must give the JAX restore's leaves bit for bit on both
+shipped artifacts, and its int8 save the JAX file's canonical digest.  The CUDA kernels themselves are held to the
 plain versions by ``tests/test_torch_cuda.py``, on the card.
 """
 
@@ -23,9 +27,13 @@ import chip_smoke
 from hmd_ego_pose_tpu.ops import quantization as jax_quantization
 from hmd_ego_pose_tpu.ops.quantization import dequantize_np, dequantize_pallas, quantize_np, quantize_pallas
 from hmd_ego_pose_tpu.train import checkpoint as jax_checkpoint
+from hmd_ego_pose_tpu_torch.export import reference
 from hmd_ego_pose_tpu_torch.kernels import LAUNCHES, build
 from hmd_ego_pose_tpu_torch.ops import quantization
-from hmd_ego_pose_tpu_torch.ops.quantization import dequantize, dequantize_reference, quantize, quantize_reference
+from hmd_ego_pose_tpu_torch.ops.quantization import (dequantize, dequantize_group, dequantize_group_reference,
+                                                     dequantize_reference, pack_dequantize_group,
+                                                     pack_quantize_group, quantize, quantize_group,
+                                                     quantize_group_reference, quantize_reference)
 from hmd_ego_pose_tpu_torch.train import checkpoint as torch_checkpoint
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -210,3 +218,142 @@ def test_restore_checkpoint_refuses_cuda_without_a_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         torch_checkpoint.restore_checkpoint(os.path.join(REPO, "trained", ARTIFACTS[0] + ".npz"))
 
+
+
+def _artifact_int8_leaves():
+    return [(v, s) for v, s in chip_smoke.int8_leaves(os.path.join(REPO, "trained", ARTIFACTS[0] + ".npz"))]
+
+
+def _int8_group(name):
+    if name == "artifact":
+        return _artifact_int8_leaves()
+    return [(v, s) for _, v, s in chip_smoke.mixed_int8_group()]
+
+
+def _float_group(name):
+    if name == "artifact":
+        return [dequantize_np(v, s) for v, s in _artifact_int8_leaves()]
+    return list(chip_smoke.mixed_float_group().values())
+
+
+def _bits(a):
+    a = np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+@pytest.mark.parametrize("group", ["artifact", "mixed"])
+def test_dequantize_group_reference_bit_equal_to_dequantize_np(group):
+    """The shipped artifact's 137 int8 leaves, and the mixed group (odd shapes,
+    zero columns, half-steps, denormal and NaN scales), packed as the kernel
+    takes them: every leaf bit for bit ``dequantize_np`` (tolerance 0, NaN
+    payloads and signed zeros included)."""
+    leaves = _int8_group(group)
+    values, scales, layout = pack_dequantize_group(leaves)
+    out = dequantize_group_reference(torch.from_numpy(values), torch.from_numpy(scales), layout.table)
+    for (v, s), (_, _, ooff, r, c, _) in zip(leaves, layout.table.tolist()):
+        with np.errstate(invalid="ignore"):
+            want = dequantize_np(v, s)
+        np.testing.assert_array_equal(_bits(out[ooff:ooff + r * c].view(r, c).numpy()), _bits(want))
+    got = dequantize_group(leaves, "cpu")  # the CPU path: the same packing, the plain version
+    assert len(got) == len(leaves)
+    for g, (_, _, ooff, r, c, _) in zip(got, layout.table.tolist()):
+        np.testing.assert_array_equal(_bits(g.numpy()), _bits(out[ooff:ooff + r * c].view(r, c).numpy()))
+
+
+@pytest.mark.parametrize("group", ["artifact", "mixed"])
+def test_quantize_group_reference_bit_equal_to_quantize_np(group):
+    """The 137 dequantized leaves of the shipped artifact, and the mixed group
+    (odd shapes, zero columns, half-steps, negative zeros, denormals, a NaN
+    column between other leaves), packed as the kernel takes them: int8
+    values and scales bit for bit ``quantize_np`` (tolerance 0).  The NaN
+    column's scale is NaN on both sides and its int8 values, an unspecified
+    cast, are not compared; no other leaf or column is touched."""
+    xs = _float_group(group)
+    packed, layout = pack_quantize_group(xs, "cpu")
+    values, scales = quantize_group_reference(packed, layout.table)
+    for x, (_, soff, voff, r, c, _) in zip(xs, layout.table.tolist()):
+        with np.errstate(invalid="ignore"):
+            want_q, want_s = quantize_np(x)
+        q, s = values[voff:voff + r * c].view(r, c).numpy(), scales[soff:soff + c].numpy()
+        keep = ~np.isnan(x).any(axis=0)
+        np.testing.assert_array_equal(q[:, keep], want_q[:, keep])
+        np.testing.assert_array_equal(_bits(s[keep]), _bits(want_s[0, keep]))
+        assert np.isnan(s[~keep]).all() and np.isnan(want_s[0, ~keep]).all()
+    if group == "artifact":  # a fixed point: quantizing the dequantized leaves gives back the stored ones
+        for (v, s), (q, sc) in zip(_artifact_int8_leaves(), quantize_group(xs, "cpu")):
+            np.testing.assert_array_equal(q.numpy(), v)
+            np.testing.assert_array_equal(sc.numpy()[0], s)
+
+
+@pytest.mark.parametrize("kernel", ["dequantize", "quantize"])
+def test_group_tables_align_separate_and_cover_every_leaf(kernel):
+    """The shipped artifact's 137 leaves and the mixed group's shapes: every
+    leaf's values start where the kernel needs them (16-aligned for
+    dequantize, back to back for quantize) and do not overlap the next; the
+    scales and the blocks follow one another; each leaf gets exactly the
+    blocks that cover it."""
+    shapes = [v.shape for v, _ in _artifact_int8_leaves()] + [v.shape for _, v, _ in chip_smoke.mixed_int8_group()]
+    if kernel == "dequantize":
+        layout = quantization.dequantize_layout(shapes + [(0, 7), (3, 5)])
+        align, per_block = quantization.DEQUANTIZE_ALIGN, lambda r, c: r * c / quantization.DEQUANTIZE_BLOCK_VALUES
+    else:
+        layout = quantization.quantize_layout(shapes)
+        align, per_block = 1, lambda r, c: c / quantization.QUANTIZE_BLOCK_COLS
+    t = layout.table
+    assert t.dtype == np.int64 and t.shape == (len(shapes) + (2 if kernel == "dequantize" else 0), 6)
+    sizes = t[:, 3] * t[:, 4]
+    assert (t[:, 0] % align == 0).all() and (t[:, 0] == t[:, 2]).all()
+    assert t[0, 0] == 0 and (t[1:, 0] >= t[:-1, 0] + sizes[:-1]).all() and (t[1:, 0] - t[:-1, 0] - sizes[:-1] < align).all()
+    assert layout.values == t[-1, 0] + sizes[-1]
+    assert (t[:, 1] == np.concatenate([[0], np.cumsum(t[:-1, 4])])).all() and layout.scales == t[:, 4].sum()
+    blocks = np.array([int(np.ceil(per_block(r, c))) for r, c in t[:, 3:5]])
+    assert (t[:, 5] == np.concatenate([[0], np.cumsum(blocks[:-1])])).all() and layout.blocks == blocks.sum()
+    artifact = quantization.dequantize_layout(shapes[:137]) if kernel == "dequantize" else \
+        quantization.quantize_layout(shapes[:137])
+    assert (artifact.values, artifact.scales) == (3_841_920, 55_020)  # no padding: every leaf is 16-aligned
+    assert artifact.blocks == (989 if kernel == "dequantize" else 1736)
+
+
+def test_restore_dequantizes_every_int8_leaf_as_one_group():
+    """On the CPU the restore goes through the same packing and table: every
+    int8 leaf comes back as a view of one buffer, no kernel is launched."""
+    path = os.path.join(REPO, "trained", ARTIFACTS[0] + ".npz")
+    LAUNCHES.reset()
+    params, _, _ = torch_checkpoint.restore_checkpoint(path, device="cpu")
+    assert LAUNCHES.snapshot() == {}
+    with np.load(path) as data:
+        names = [k[len("params/"):-len("/int8")] for k in data.files if k.endswith("/int8")]
+    storages = set()
+    for name in names:
+        node = params
+        for part in name.split("/"):
+            node = node[int(part)] if isinstance(node, list) else node[part]
+        storages.add(node.untyped_storage().data_ptr())
+    assert len(names) == 137 and len(storages) == 1
+
+
+@pytest.mark.parametrize("leaves", ["numpy", "tensor"])
+def test_int8_save_of_the_artifact_has_the_jax_canonical_digest(tmp_path, leaves):
+    """The shipped artifact restored by the JAX package and saved int8 by both
+    packages (the port's large leaves as one group on the CPU): the same
+    canonical digest (name, dtype, shape, C-ordered bytes of every member)."""
+    jp, jb, _ = jax_checkpoint.restore_checkpoint(os.path.join(REPO, "trained", ARTIFACTS[0] + ".npz"))
+    jp, jb = jax.tree.map(np.asarray, (jp, jb))
+    jpath = jax_checkpoint.save_checkpoint(str(tmp_path / "jax"), "w", jp, jb, backend="int8")
+    given = (jp, jb) if leaves == "numpy" else jax.tree.map(lambda a: torch.from_numpy(np.array(a)), (jp, jb))
+    LAUNCHES.reset()
+    tpath = torch_checkpoint.save_checkpoint(str(tmp_path / "port"), "w", *given, backend="int8", device="cpu")
+    assert LAUNCHES.get("quantize") == 0
+    assert reference.content_digest(tpath) == reference.content_digest(jpath)
+
+
+def test_group_wrappers_refuse_empty_groups_wrong_dtypes_and_other_devices():
+    v, s = np.zeros((2, 3), np.int8), np.ones(3, np.float32)
+    meta = torch.zeros((2, 3), dtype=torch.int8, device="meta")
+    for bad in ([], [(v.astype(np.int16), s)], [(v, s.astype(np.float64))], [(v, s[:2])], [(v, s), (meta, s)]):
+        with pytest.raises(ValueError):
+            dequantize_group(bad, "cpu")
+    x = torch.ones((2, 3), dtype=torch.float32)
+    for bad in ([], [x.double()], [x[:, :0]], [x.reshape(-1)], [x, x.to("meta")]):
+        with pytest.raises(ValueError):
+            quantize_group(bad, "cpu")
