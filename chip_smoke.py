@@ -19,18 +19,33 @@ Phases, each printing one JSON line of its own:
                bytes bound.
 4. kernel_min_distances -- the ADD-S min-distance kernel against its plain
                version at the evaluation's shape (T=200 pose pairs, P=Q=600)
-               and at seeded odd shapes, with duplicate points: bit equality
-               required; kernel, plain and ``torch.cdist(...).amin`` times at
-               the evaluation's shape, beside the operations bound.
-5. kernel_iou -- the anchor-IoU kernel of target assignment against its plain
-               version at the train step's shape (16 images, the 12,276
-               anchors at 256 px shared by the batch, one box) and at K = 4,
-               N off every block, a single anchor and more boxes than one
-               shared-memory chunk, with degenerate boxes, for shared and
-               per-image anchors: bit equality required; kernel and plain
-               times at the train shape beside the bytes bound (no single
-               PyTorch call computes it: library time null).
-6. kernel_quantize -- the grouped int8 quantize kernel against its plain
+               and at seeded odd shapes (Q above one staged chunk, P off
+               every slice), with duplicate points: bit equality required; a
+               NaN point makes its pair's rows NaN; the call (``kernel_ms``)
+               and the launch alone (``launch_ms``), plain and
+               ``torch.cdist(...).amin`` times at the evaluation's shape,
+               beside the operations bound.
+5. kernel_iou -- the one-call anchor-IoU kernel against its plain version at
+               the train step's shape (16 images, the 12,276 anchors at 256
+               px shared by the batch, one box) and at K = 4, N off every
+               block, a single anchor and more boxes than one shared-memory
+               chunk, with degenerate boxes, for shared and per-image
+               anchors: bit equality required; call, launch and plain times
+               at the train shape beside the bytes bound (no single PyTorch
+               call computes it: library time null).  No main path launches
+               it any more: the kernels line gives it 0 launches and
+               ``"main_path": false``.
+6. kernel_target_assign -- the fused target-assignment kernel against its
+               plain version ``assign_targets_batch_reference`` on the card:
+               the train shape (16 images, 12,276 anchors, K = 1, C = 1), K = 3
+               padded with two classes, the hazard batch (a padded row after
+               a valid row whose best anchor is anchor 0), K = 4 with repeated
+               best anchors, images without valid ground truth and anchors
+               whose centre lies outside the image: all five outputs bit-equal,
+               one launch count per call; at the train shape the call, the
+               launches alone, the plain version's call and device time, the
+               host time of one call of each, beside the bytes bound.
+7. kernel_quantize -- the grouped int8 quantize kernel against its plain
                version on the card, as groups of one on the 137 dequantized
                int8 leaves of the shipped artifact and on seeded odd shapes (a
                single value and row, C off 32, C = 10, the largest leaf), zero
@@ -45,7 +60,7 @@ Phases, each printing one JSON line of its own:
                ``torch.quantize_per_channel`` loops (the last with the
                kernel's scales, and the count of int8 values it gets wrong),
                beside the bytes bound.
-7. predict  -- restore of ``trained/syn1000_phi0_576ep_handrel_int8.npz`` on the
+8. predict  -- restore of ``trained/syn1000_phi0_576ep_handrel_int8.npz`` on the
                card, then ``predict`` (phi-0, 256 px, bf16, score threshold
                0.1) of the six committed golden frames, held to
                ``tests/goldens/handrel_ckpt_expected.npz``
@@ -53,12 +68,12 @@ Phases, each printing one JSON line of its own:
                and the device preprocess of a seeded 300x300 frame, which must
                equal the CPU's bit for bit, with its time and that of a
                1080x1920 frame (to 256 px).
-8. serve    -- the serving path as ``cli serve`` builds it (restore, BN fold,
+9. serve    -- the serving path as ``cli serve`` builds it (restore, BN fold,
                engine warm-up) behind a ``PoseServer`` on 127.0.0.1, port 0; a
                ``PoseClient`` sends the six frames as RGB8 and the pose packets
                are held to the goldens.  Kernel launch counts are reset just
                before this phase and read just after it.
-9. evaluate -- ``cli make-synthetic`` writes the 1000-frame, 256 px, seed-0,
+10. evaluate -- ``cli make-synthetic`` writes the 1000-frame, 256 px, seed-0,
                hand-render-v3 set into a temporary directory, whose
                ``gt_0.yml`` must hash as the JAX generator's did; then
                ``cli evaluate`` of the shipped artifact on its 200 val frames
@@ -67,7 +82,7 @@ Phases, each printing one JSON line of its own:
                once (one class), and every scalar must lie within the stated
                tolerances of ``hmd_ego_pose_tpu_torch/eval/references/handrel_v3_val.json``
                (the JAX package's evaluation, ``scripts/make_eval_reference.py``).
-10. train   -- on the same set: first four fixed training steps (augmentation
+11. train   -- on the same set: first four fixed training steps (augmentation
                and drop-connect off) of ``cli train``'s trainer from the
                artifact, whose six loss terms must lie within the stated
                tolerance of ``hmd_ego_pose_tpu_torch/train/references/
@@ -77,15 +92,16 @@ Phases, each printing one JSON line of its own:
                trainer (``cli.build_trainer``: phi-0, 256 px, fp32, batch 16,
                Adam 1e-4, frozen backbone, oversample 1) for one epoch over the
                600 train frames and validation on the 200 val frames.  Every
-               loss finite, ``iou`` launched once per step, ``dequantize`` once
-               at the restore, ``min_distances`` once; the backbone's
+               loss finite, ``target_assign`` launched once per step and
+               ``iou`` never, ``dequantize`` once at the restore,
+               ``min_distances`` once; the backbone's
                parameters bit-identical and its BN statistics moved; the best
                and ``last`` checkpoints written and restored to the trained
                model, ``last`` with the optimizer's leaves.  Times: step p50 and
                max (synchronised) and its parts, images/s, epoch, validation
                and start-up seconds, and a torch.profiler sample of four more
                steps (device time per step, busy share).
-11. export  -- ``cli export --ckpt trained/syn1000_phi0_576ep_handrel_int8.npz
+12. export  -- ``cli export --ckpt trained/syn1000_phi0_576ep_handrel_int8.npz
                --quantize-int8`` on the card (phi-0, 256 px, fp32) into the
                temporary directory, with the launch counts reset just before
                and read just after: ``dequantize`` and ``quantize`` once
@@ -99,7 +115,7 @@ Phases, each printing one JSON line of its own:
                artifact.  Seconds of restore, fold, ``torch.export``, save,
                load-and-verify and int8 save, the ``.pt2`` size and the
                fp32/int8 size ratio.
-12. shutdown -- server and engine stopped, every thread joined with a timeout.
+13. shutdown -- server and engine stopped, every thread joined with a timeout.
 
 Then the ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -233,6 +249,45 @@ def device_time_ms(fn, reps: int = 50, spin_cycles: int = 50_000_000) -> float:
     if not behind_spin:
         raise AssertionError(f"the spin kernel ended before {reps} calls were queued: raise spin_cycles")
     return start.elapsed_time(stop) / reps
+
+
+def device_us(event) -> float:
+    """Self device time of a torch.profiler ``key_averages()`` row, in microseconds."""
+    return float(getattr(event, "self_device_time_total", getattr(event, "self_cuda_time_total", 0.0)) or 0.0)
+
+
+def profiled_device_ms(fn, reps: int = 10):
+    """Mean device time of ``fn()`` as torch.profiler sums its kernels and copies,
+    for work that synchronises the host inside (where ``device_time_ms`` cannot
+    queue it behind a spin kernel); None where the profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(device_us(e) for e in prof.key_averages())
+    return busy / 1e3 / reps if busy else None
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Median host time of one ``fn()`` call (what it costs the caller's thread),
+    the card idle before each call."""
+    import numpy as np
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
 
 
 def mixed_float_group(seed: int = 7) -> dict:
@@ -435,15 +490,25 @@ def phase_min_distances(dev) -> dict:
         checked.append(list(shape))
         if shape == MIN_DIST_EVAL_SHAPE:
             eval_inputs, eval_want = (g, p), want
+    # a NaN predicted point makes every row of its pair NaN and touches no other pair
+    g, p = (torch.from_numpy(a).to(dev) for a in point_pairs(rng, 3, 700, 513))
+    p[1, 17, 2] = float("nan")
+    got, want = min_distances(g, p), min_distances_reference(g, p)
+    torch.cuda.synchronize()
+    finite = ~want.isnan()
+    if not (bool(got[1].isnan().all()) and torch.equal(got.isnan(), want.isnan())
+            and torch.equal(got[finite], want[finite])):
+        raise AssertionError("min_distances does not carry a NaN point as its plain version does")
 
     g, p = eval_inputs
     ms = cuda_time_ms(lambda: min_distances(g, p))
+    launch_ms = device_time_ms(lambda: min_distances(g, p))
     plain_ms = cuda_time_ms(lambda: min_distances_reference(g, p))
     library_ms = cuda_time_ms(lambda: torch.cdist(g, p).amin(dim=-1))  # the one-call yardstick
     library_dev = (torch.cdist(g, p).amin(dim=-1) - eval_want).abs().max().item()
     return {
-        "shapes": checked, "bit_equal": True, "max_abs_err": max_err,
-        "eval_shape": list(MIN_DIST_EVAL_SHAPE), "kernel_ms": ms, "plain_ms": plain_ms,
+        "shapes": checked, "bit_equal": True, "nan_rows_held": True, "max_abs_err": max_err,
+        "eval_shape": list(MIN_DIST_EVAL_SHAPE), "kernel_ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
         "library_ms": library_ms, "library": "torch.cdist(g, p).amin(-1)",
         "library_max_abs_dev_mm": library_dev,
         **bounds.bound(*bounds.min_distances_work(g.shape[0], g.shape[1], p.shape[1])),
@@ -481,13 +546,14 @@ def phase_iou(dev) -> dict:
     import torch
 
     from hmd_ego_pose_tpu_torch.config import ModelConfig
-    from hmd_ego_pose_tpu_torch.kernels import bounds
+    from hmd_ego_pose_tpu_torch.kernels import LAUNCHES, bounds
     from hmd_ego_pose_tpu_torch.ops.iou import iou_matrix, iou_matrix_reference
 
     cfg = ModelConfig()
     main_shape = (16, cfg.total_anchors, 1)
     rng = np.random.default_rng(6)
     max_err, checked = 0.0, []
+    LAUNCHES.reset()
     for b, n, k in (main_shape,) + IOU_SHAPES:
         anchors, boxes = iou_inputs(rng, dev, b, n, k)
         for a in (anchors, anchors.expand(b, n, 4).contiguous()):  # shared and per-image anchors
@@ -500,14 +566,110 @@ def phase_iou(dev) -> dict:
         checked.append([b, n, k])
         if (b, n, k) == main_shape:
             main_inputs = (anchors, boxes)
+    checks = LAUNCHES.get("iou")  # one per shape and anchor layout; no main path launches iou
     anchors, boxes = main_inputs
     ms = cuda_time_ms(lambda: iou_matrix(anchors, boxes), reps=200)
+    launch_ms = device_time_ms(lambda: iou_matrix(anchors, boxes))
     plain_ms = cuda_time_ms(lambda: iou_matrix_reference(anchors, boxes), reps=200)
     return {
         "shapes": checked, "bit_equal": True, "max_abs_err": max_err, "train_shape": list(main_shape),
-        "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        "checks": checks, "kernel_ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms, "library_ms": None,
         "library": "none (no single torch call computes a box IoU matrix)",
         **bounds.bound(*bounds.iou_work(main_shape[1], main_shape[2], main_shape[0], shared_anchors=True)),
+    }
+
+
+def target_batch(rng, b: int, k: int, num_classes: int, image_size: int = 256):
+    """Seeded padded ground truth of B images: (boxes, int32 labels, transformation
+    (B, K, 8), coords (B, K, 63), bool valid) as numpy; boxes partly outside the
+    image, about 30 % of the rows padding, the first image all valid and the
+    second (where B > 1) without valid ground truth."""
+    import numpy as np
+
+    xy = rng.uniform(-10, image_size - 8, size=(b, k, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(2, image_size / 2, size=(b, k, 2))], axis=-1).astype(np.float32)
+    labels = rng.integers(0, num_classes, size=(b, k)).astype(np.int32)
+    trans = rng.normal(size=(b, k, 8)).astype(np.float32)
+    coords = rng.normal(size=(b, k, 63)).astype(np.float32)
+    valid = rng.uniform(size=(b, k)) < 0.7
+    valid[0] = True
+    if b > 1:
+        valid[1] = False
+    return boxes, labels, trans, coords, valid
+
+
+def target_cases(rng) -> dict:
+    """name -> (ground truth as numpy, num_classes, image_size) of the target-assignment checks."""
+    import numpy as np
+
+    hazard = (np.zeros((2, 2, 4), np.float32), np.zeros((2, 2), np.int32),
+              np.arange(32, dtype=np.float32).reshape(2, 2, 8), np.ones((2, 2, 63), np.float32),
+              np.array([[True, False], [False, True]]))
+    hazard[0][0, 0] = hazard[0][1, 1] = [0, 0, 10, 10]  # best anchor 0 at IoU 0.098; the other row padded
+    repeated = target_batch(rng, 3, 4, 1)
+    repeated[0][:, 1:] = repeated[0][:, :1]  # four copies of one box: one best anchor for its valid rows
+    repeated[0][1] = [0, 0, 10, 10]  # the hazard's box: every row on anchor 0, the last (padded) wins
+    repeated[4][:] = [[True, True, False, True], [False, True, True, False], [True, False, True, True]]
+    return {
+        "train_k1_c1": (target_batch(rng, 16, 1, 1), 1, 256),
+        "k3_padded_c2": (target_batch(rng, 5, 3, 2), 2, 256),
+        "hazard": (hazard, 1, 256),
+        "k4_repeated_best": (repeated, 1, 256),
+        "outside_image_c2": (target_batch(rng, 4, 3, 2, image_size=192), 2, 192),  # 256 px anchors, 192 px image
+        "k300_chunked": (target_batch(rng, 2, 300, 1), 1, 256),
+    }
+
+
+def phase_target_assign(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from hmd_ego_pose_tpu_torch.config import ModelConfig
+    from hmd_ego_pose_tpu_torch.kernels import LAUNCHES, bounds
+    from hmd_ego_pose_tpu_torch.ops.anchors import device_anchors
+    from hmd_ego_pose_tpu_torch.ops.target_assign import assign_targets_batch, assign_targets_batch_reference
+
+    cfg = ModelConfig()
+    anchors = device_anchors(cfg.image_size, cfg.anchors, dev)[0]
+    cases = target_cases(np.random.default_rng(9))
+    max_err, checked = 0.0, {}
+    LAUNCHES.reset()
+    for name, (gt, num_classes, image_size) in cases.items():
+        gt = [torch.from_numpy(x).to(dev) for x in gt]
+        kw = dict(num_classes=num_classes, image_size=image_size)
+        got, want = assign_targets_batch(anchors, *gt, **kw), assign_targets_batch_reference(anchors, *gt, **kw)
+        torch.cuda.synchronize()
+        for field, a, b in zip(want._fields, got, want):
+            if not same_bits(a, b):
+                raise AssertionError(f"target_assign differs from its plain version at {name}, {field}: "
+                                     f"{int((a != b).sum())} values, max |diff| {(a - b).abs().max().item()}")
+            max_err = max(max_err, (a - b).abs().max().item())
+        checked[name] = {"batch": gt[0].shape[0], "k": gt[0].shape[1], "classes": num_classes,
+                         "image_size": image_size, "positives": int((want.state == 1).sum()),
+                         "ignored": int((want.state == -1).sum())}
+        if name == "train_k1_c1":
+            main = (gt, kw)
+    if LAUNCHES.get("target_assign") != len(cases):
+        raise AssertionError(f"target_assign must count one launch per call, got {LAUNCHES.snapshot()}")
+    if checked["hazard"]["positives"] != 1:
+        raise AssertionError(f"the hazard batch must keep exactly one forced positive: {checked['hazard']}")
+    gt, kw = main
+
+    def kernel():
+        return assign_targets_batch(anchors, *gt, **kw)
+
+    def plain():
+        return assign_targets_batch_reference(anchors, *gt, **kw)
+
+    b, k = gt[0].shape[:2]
+    return {
+        "cases": checked, "bit_equal": True, "max_abs_err": max_err, "train_shape": [b, anchors.shape[0], k, 1],
+        "kernel_ms": cuda_time_ms(kernel, reps=200), "launch_ms": device_time_ms(kernel),
+        "plain_ms": cuda_time_ms(plain, reps=50), "plain_device_ms": profiled_device_ms(plain),
+        "host_ms": {"kernel": host_ms(kernel), "plain": host_ms(plain)}, "library_ms": None,
+        "library": "none (no single torch call assigns anchor targets)",
+        **bounds.bound(*bounds.target_assign_work(anchors.shape[0], k, b, kw["num_classes"],
+                                                  gt[2].shape[2], gt[3].shape[2])),
     }
 
 
@@ -573,10 +735,6 @@ def profile_steps(trainer, steps: int = 4) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
-
-    def device_us(e):
-        return float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)) or 0.0)
-
     busy = sum(device_us(e) for e in events)
     top = sorted(events, key=device_us, reverse=True)[:6]
     return {
@@ -667,8 +825,8 @@ def phase_train(card: str, data: str, work: str) -> dict:
     bad = [i for i, m in enumerate(timed.losses) if not all(np.isfinite(v) for v in m.values())]
     if bad:
         raise AssertionError(f"non-finite losses at steps {bad}: {[timed.losses[i] for i in bad]}")
-    if launches.get("iou", 0) != steps:
-        raise AssertionError(f"the IoU kernel must launch once per step ({steps}), got {launches}")
+    if launches.get("target_assign", 0) != steps or launches.get("iou", 0) != 0:
+        raise AssertionError(f"target_assign must launch once per step ({steps}) and iou never, got {launches}")
     if launches_restore.get("dequantize", 0) != 1 or launches.get("dequantize", 0) != 1:
         raise AssertionError(f"the restore must launch dequantize once, got {launches_restore}")
     if launches.get("min_distances", 0) != 1:
@@ -1041,6 +1199,9 @@ def main() -> int:
     iou = phase_iou(dev)
     emit("kernel_iou", card=card, **iou)
 
+    targets = phase_target_assign(dev)
+    emit("kernel_target_assign", card=card, **targets)
+
     quant = phase_quantize(dev)
     emit("kernel_quantize", card=card, **quant)
 
@@ -1067,12 +1228,17 @@ def main() -> int:
     emit("shutdown", threads_alive=[t.name for t in threading.enumerate() if t.is_alive()],
          total_s=time.perf_counter() - t_all)
 
+    # every count is read from a main path's run; iou is on none of them since
+    # target_assign took its place in training (the train phase asserts it never
+    # launches), so it is reported with the count of 0 and left out of this check
     launches = {"dequantize": serve["launches"].get("dequantize", 0),
                 "min_distances": evaluate["launches"].get("min_distances", 0),
                 "iou": train["launches"].get("iou", 0),
-                "quantize": export["launches"].get("quantize", 0)}
+                "quantize": export["launches"].get("quantize", 0),
+                "target_assign": train["launches"].get("target_assign", 0)}
+    off_main_path = {"iou"}
     for name, n in launches.items():
-        if n == 0:
+        if name not in off_main_path and n == 0:
             raise AssertionError(f"the main path never launched the {name} kernel")
     print(json.dumps({"kernels": [
         {
@@ -1097,6 +1263,7 @@ def main() -> int:
             "launches": launches["min_distances"],
             "max_abs_err": min_dist["max_abs_err"],
             "ms": min_dist["kernel_ms"],
+            "launch_ms": min_dist["launch_ms"],
             "plain_ms": min_dist["plain_ms"],
             "bound_ms": min_dist["bound_ms"],
             "bound_by": min_dist["bound_by"],
@@ -1108,8 +1275,10 @@ def main() -> int:
             "source": "hmd_ego_pose_tpu_torch/csrc/iou.cu",
             "replaces": "hmd_ego_pose_tpu/ops/pallas_kernels.py:69",
             "launches": launches["iou"],
+            "main_path": False,  # the train path launches target_assign in its place
             "max_abs_err": iou["max_abs_err"],
             "ms": iou["kernel_ms"],
+            "launch_ms": iou["launch_ms"],
             "plain_ms": iou["plain_ms"],
             "bound_ms": iou["bound_ms"],
             "bound_by": iou["bound_by"],
@@ -1128,6 +1297,20 @@ def main() -> int:
             "bound_ms": quant["bound_ms"],
             "bound_by": quant["bound_by"],
             "library_ms": quant["library_ms"],
+        },
+        {
+            "name": "target_assign",
+            "route": "cuda",
+            "source": "hmd_ego_pose_tpu_torch/csrc/target_assign.cu",
+            "replaces": "hmd_ego_pose_tpu/ops/pallas_kernels.py:69",
+            "launches": launches["target_assign"],
+            "max_abs_err": targets["max_abs_err"],
+            "ms": targets["kernel_ms"],
+            "launch_ms": targets["launch_ms"],
+            "plain_ms": targets["plain_ms"],
+            "bound_ms": targets["bound_ms"],
+            "bound_by": targets["bound_by"],
+            "library_ms": targets["library_ms"],
         },
     ]}), flush=True)
     print(card, flush=True)

@@ -21,11 +21,8 @@
 // its image's K boxes and their areas through shared memory in chunks of
 // 256 boxes (5 KB), read as one coalesced run of floats; each thread keeps
 // its anchor in registers and writes its row's K outputs.  The arithmetic is
-// written with the _rn intrinsics in the order of the plain PyTorch version
-// ops/iou.py::iou_matrix_reference (which is the jnp order of
-// hmd_ego_pose_tpu/ops/iou.py): nvcc would otherwise contract a*b + c into
-// an FMA, and the kernel is bit-equal to the plain version.  min and max
-// propagate NaN, as torch.minimum / torch.maximum do.
+// iou.cuh's, shared with target_assign.cu: bit-equal to the plain version
+// ops/iou.py::iou_matrix_reference.
 //
 // Interface: plain C (no PyTorch headers), loaded with ctypes.  The launcher
 // takes device pointers and the caller's stream, allocates nothing, does not
@@ -34,13 +31,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "iou.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kChunk = 256;  // ground-truth boxes staged per pass
-
-__device__ __forceinline__ float nan_min(float a, float b) { return (a < b || a != a) ? a : b; }
-__device__ __forceinline__ float nan_max(float a, float b) { return (a > b || a != a) ? a : b; }
 
 __global__ void iou_kernel(const float* __restrict__ anchors, const float* __restrict__ gt,
                            float* __restrict__ out, int64_t batch, int64_t n, int64_t k,
@@ -57,7 +53,7 @@ __global__ void iou_kernel(const float* __restrict__ anchors, const float* __res
       ax2 = a[2];
       ay2 = a[3];
     }
-    const float area_a = __fmul_rn(__fsub_rn(ax2, ax1), __fsub_rn(ay2, ay1));
+    const float area_a = hegp::box_area(ax1, ay1, ax2, ay2);
     const float* g = gt + b * k * 4;
     float* row = out + (b * n + i) * k;
     for (int64_t start = 0; start < k; start += kChunk) {
@@ -70,17 +66,13 @@ __global__ void iou_kernel(const float* __restrict__ anchors, const float* __res
         staged[5 * j + 1] = by1;
         staged[5 * j + 2] = bx2;
         staged[5 * j + 3] = by2;
-        staged[5 * j + 4] = __fmul_rn(__fsub_rn(bx2, bx1), __fsub_rn(by2, by1));
+        staged[5 * j + 4] = hegp::box_area(bx1, by1, bx2, by2);
       }
       __syncthreads();
       if (active) {
         for (int j = 0; j < m; ++j) {
           const float* s = staged + 5 * j;
-          const float iw = nan_max(__fsub_rn(nan_min(ax2, s[2]), nan_max(ax1, s[0])), 0.f);
-          const float ih = nan_max(__fsub_rn(nan_min(ay2, s[3]), nan_max(ay1, s[1])), 0.f);
-          const float inter = __fmul_rn(iw, ih);
-          const float uni = __fsub_rn(__fadd_rn(area_a, s[4]), inter);
-          row[start + j] = uni > 0.f ? __fdiv_rn(inter, uni) : 0.f;
+          row[start + j] = hegp::iou(ax1, ay1, ax2, ay2, area_a, s[0], s[1], s[2], s[3], s[4]);
         }
       }
     }

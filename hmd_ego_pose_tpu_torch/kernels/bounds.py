@@ -38,7 +38,13 @@ def quantize_work(values: int, scales: int) -> Tuple[float, float]:
 
 
 def min_distances_work(t: int, p: int, q: int) -> Tuple[float, float]:
-    """(T, P, 3) and (T, Q, 3) float32 in, (T, P) out; 3 sub, 3 mul, 2 add, 1 min per pair."""
+    """(T, P, 3) and (T, Q, 3) float32 in, (T, P) out; 3 sub, 3 mul, 2 add, 1 min per pair.
+
+    The bound is against the published 67 TFLOP/s, which counts an FMA as two
+    operations.  The bit-equal arithmetic of ``csrc/min_distances.cu`` has no
+    FMA: its 9 instructions a pair run at 128 lanes per clock per SM, so its
+    ceiling is about twice this bound (~19-22 us at the evaluation's shape,
+    132 SMs at 1.75-1.98 GHz)."""
     return t * (p + q) * 3 * 4 + t * p * 4, t * p * q * 9
 
 
@@ -47,3 +53,14 @@ def iou_work(n: int, k: int, batch: int, shared_anchors: bool = False) -> Tuple[
     float32 in, (B, N, K) out; ~17 operations per pair."""
     anchor_sets = 1 if shared_anchors else batch
     return anchor_sets * n * 4 * 4 + batch * (k * 4 * 4 + n * k * 4), batch * n * k * 17
+
+
+def target_assign_work(n: int, k: int, batch: int, num_classes: int, dt: int = 8,
+                       dc: int = 63) -> Tuple[float, float]:
+    """(N, 4) anchors shared by the batch and (B, K) padded ground truth in
+    (boxes 4, label int32, transformation DT, coords DC, valid one byte), the five
+    per-anchor targets out: (B, N, C + 4 + DT + DC + 1) float32.  ~17 operations
+    per anchor-row IoU and ~20 per anchor for the thresholds and ``bbox_transform``."""
+    gt_bytes = batch * k * ((4 + 1 + dt + dc) * 4 + 1)
+    out_bytes = batch * n * (num_classes + 4 + dt + dc + 1) * 4
+    return n * 4 * 4 + gt_bytes + out_bytes, batch * n * (k * 17 + 20)

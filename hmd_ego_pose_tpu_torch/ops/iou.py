@@ -2,9 +2,10 @@
 version, and the host numpy IoU of the evaluator's detection matching.
 
 * ``iou_matrix`` launches the hand-written CUDA kernel (``csrc/iou.cu``) on
-  CUDA tensors, once for a whole batch: the counterpart of the TPU kernel
-  ``iou_matrix_pallas`` (``hmd_ego_pose_tpu/ops/pallas_kernels.py``) that
-  the JAX train step vmaps over the images of a batch;
+  CUDA tensors, once for a whole batch: the one-call counterpart of the TPU
+  kernel ``iou_matrix_pallas`` (``hmd_ego_pose_tpu/ops/pallas_kernels.py``).
+  The train step does not call it: its target assignment computes the same
+  IoU inside ``csrc/target_assign.cu`` (``ops/target_assign.py``);
 * ``iou_matrix_reference`` is the plain PyTorch version, the arithmetic of
   ``hmd_ego_pose_tpu/ops/iou.py::iou_matrix`` in the same order, one
   rounding per operation, so the kernel equals it bit for bit;

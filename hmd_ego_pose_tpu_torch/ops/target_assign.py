@@ -1,9 +1,17 @@
 """Anchor target assignment on the device, over a whole batch at once.
 
 Counterpart of ``hmd_ego_pose_tpu/ops/target_assign.py``, whose
-``assign_targets`` the JAX train step vmaps over the images of a batch.
-Here the batch is a leading dimension and the anchor/ground-truth IoU of all
-B images is one launch of the CUDA kernel (``ops/iou.py::iou_matrix``).
+``assign_targets`` the JAX train step vmaps over the images of a batch,
+around the TPU kernel ``iou_matrix_pallas``.  Here the batch is a leading
+dimension:
+
+* ``assign_targets_batch`` launches the hand-written CUDA kernel
+  (``csrc/target_assign.cu``) on CUDA tensors: the IoU, both argmaxes, the
+  thresholds, the forced positives, ``bbox_transform`` and the gathers of
+  the assigned ground-truth rows in two launches, counted once;
+* ``assign_targets_batch_reference`` is the plain PyTorch version, the JAX
+  package's operations in the same order on ``ops/iou.py::iou_matrix_reference``;
+  the kernel equals it bit for bit.
 
 Semantics, as in the JAX package:
 
@@ -22,16 +30,20 @@ the rows in order and the last one wins (a padded row after a valid row
 with the same best anchor clears that anchor's force).  A CUDA
 ``index_put_`` with repeated indices lands them in no fixed order, so each
 image writes only the last of the rows that share an anchor, which gives
-XLA's result with every index written once.
+XLA's result with every index written once; the kernel takes, per anchor,
+the last row whose best anchor it is.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from hmd_ego_pose_tpu_torch.ops.iou import iou_matrix
+from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
+from hmd_ego_pose_tpu_torch.kernels import build
+from hmd_ego_pose_tpu_torch.ops.iou import iou_matrix_reference
 
 
 class AnchorTargets(NamedTuple):
@@ -81,7 +93,7 @@ def _forced_positive(best_anchor: torch.Tensor, gt_valid: torch.Tensor, n: int) 
     return force[:, :n]
 
 
-def assign_targets_batch(
+def assign_targets_batch_reference(
     anchors: torch.Tensor,
     gt_boxes: torch.Tensor,
     gt_labels: torch.Tensor,
@@ -93,7 +105,7 @@ def assign_targets_batch(
     positive_overlap: float = 0.5,
     negative_overlap: float = 0.4,
 ) -> AnchorTargets:
-    """Targets of B images over padded ground truth.
+    """Targets of B images over padded ground truth, in plain PyTorch.
 
     Args:
         anchors: (N, 4) float32, shared by the batch.
@@ -104,7 +116,7 @@ def assign_targets_batch(
         gt_valid: (B, K) bool, False rows are padding.
     """
     n = anchors.shape[0]
-    overlaps = iou_matrix(anchors, gt_boxes)  # (B, N, K), one kernel launch
+    overlaps = iou_matrix_reference(anchors, gt_boxes)  # (B, N, K)
     # padding must never win an argmax
     overlaps = torch.where(gt_valid[:, None, :], overlaps, torch.full_like(overlaps, -1.0))
 
@@ -141,3 +153,69 @@ def assign_targets_batch(
         coords_3d=assigned(gt_coords_3d.float()),
         state=state,
     )
+
+
+_TARGET_DTYPES = (("anchors", torch.float32, 2), ("gt_boxes", torch.float32, 3), ("gt_labels", torch.int32, 2),
+                  ("gt_transformation", torch.float32, 3), ("gt_coords_3d", torch.float32, 3),
+                  ("gt_valid", torch.bool, 2))
+
+
+def assign_targets_batch(
+    anchors: torch.Tensor,
+    gt_boxes: torch.Tensor,
+    gt_labels: torch.Tensor,
+    gt_transformation: torch.Tensor,
+    gt_coords_3d: torch.Tensor,
+    gt_valid: torch.Tensor,
+    num_classes: int,
+    image_size: int,
+    positive_overlap: float = 0.5,
+    negative_overlap: float = 0.4,
+) -> AnchorTargets:
+    """Targets of B images over padded ground truth (``assign_targets_batch_reference``'s
+    arguments, with ``gt_labels`` int32 and ``gt_valid`` bool).
+
+    On CUDA tensors this launches the hand-written kernel (two launches, one
+    count) on the current stream, or raises: a build or launch failure is
+    never hidden behind the plain version.  Tensors on the CPU take the plain
+    version.
+    """
+    args = (anchors, gt_boxes, gt_labels, gt_transformation, gt_coords_3d, gt_valid)
+    for (name, dtype, dim), x in zip(_TARGET_DTYPES, args):
+        if x.dtype != dtype or x.dim() != dim:
+            raise ValueError(f"{name} must be {dtype} with {dim} dimensions, got {x.dtype} {tuple(x.shape)}")
+    n, (b, k) = anchors.shape[0], gt_boxes.shape[:2]
+    shapes = [x.shape[:2] for x in (gt_labels, gt_transformation, gt_coords_3d, gt_valid)]
+    if anchors.shape[1] != 4 or gt_boxes.shape[2] != 4 or k == 0 or any(sh != (b, k) for sh in shapes):
+        raise ValueError(f"shapes must be anchors (N, 4) and ground truth (B, K >= 1, ...), got "
+                         f"{[tuple(x.shape) for x in args]}")
+    if num_classes < 1:
+        raise ValueError(f"num_classes must be at least 1, got {num_classes}")
+    if all(x.device.type == "cpu" for x in args):
+        return assign_targets_batch_reference(*args, num_classes=num_classes, image_size=image_size,
+                                              positive_overlap=positive_overlap,
+                                              negative_overlap=negative_overlap)
+    device = anchors.device
+    if device.type != "cuda" or any(x.device != device for x in args):
+        raise ValueError(f"assign_targets_batch needs every tensor on one CUDA device, got "
+                         f"{[str(x.device) for x in args]}")
+    if not all(x.is_contiguous() for x in args):
+        raise ValueError("assign_targets_batch needs contiguous tensors")
+    dt, dc = gt_transformation.shape[2], gt_coords_3d.shape[2]
+    f32 = dict(dtype=torch.float32, device=device)
+    out = AnchorTargets(labels=torch.empty((b, n, num_classes), **f32), regression=torch.empty((b, n, 4), **f32),
+                        transformation=torch.empty((b, n, dt), **f32), coords_3d=torch.empty((b, n, dc), **f32),
+                        state=torch.empty((b, n), **f32))
+    if b == 0 or n == 0:
+        return out
+    best = torch.empty((b, k), dtype=torch.int32, device=device)  # scratch: best anchor per row
+    lib = build.library("target_assign")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    # thresholds and the image size compare in float32, as torch compares a float32 tensor with a scalar
+    scalars = (float(np.float32(image_size)), float(np.float32(positive_overlap)), float(np.float32(negative_overlap)))
+    rc = lib.hegp_target_assign(*(x.data_ptr() for x in args), best.data_ptr(), *(x.data_ptr() for x in out),
+                                b, n, k, num_classes, dt, dc, *scalars, stream)
+    if rc != 0:
+        raise RuntimeError(f"target_assign kernel launch failed: cudaError {rc}")
+    LAUNCHES.add("target_assign")
+    return out

@@ -9,7 +9,9 @@ tensor cores; the bound is the larger of the two.  Shapes are the ones its
 path gives it: the shipped handrel artifact's int8 leaves (dequantize,
 quantize), the 200-frame evaluation (min distances: T=200 pose pairs of
 P=Q=600 model points), and a training batch of 16 images at 256 px with one
-ground-truth box each (IoU).  Prints one JSON line per kernel.  Runs on the
+ground-truth box each (IoU), and for the fused target assignment that
+replaces the IoU kernel on the train path the same batch with one class.
+Prints one JSON line per kernel.  Runs on the
 CPU.  The rates and formulas are ``hmd_ego_pose_tpu_torch/kernels/bounds.py``,
 which ``chip_smoke.py`` also uses for the ported kernels on its run's inputs.
 """
@@ -50,6 +52,8 @@ def main() -> None:
             f"T={t}, P={p}, Q={q}"),
         row("iou_matrix", "hmd_ego_pose_tpu/ops/pallas_kernels.py:69", bounds.iou_work(n, k, batch),
             f"batch {batch}, N={n}, K={k}"),
+        row("target_assign", "hmd_ego_pose_tpu/ops/pallas_kernels.py:69",
+            bounds.target_assign_work(n, k, batch, num_classes=1), f"batch {batch}, N={n}, K={k}, C=1"),
     ]
     for r in rows:
         print(json.dumps(r))

@@ -17,7 +17,7 @@ import torch
 
 import chip_smoke
 from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
-from hmd_ego_pose_tpu_torch.ops import distances, iou
+from hmd_ego_pose_tpu_torch.ops import distances, iou, target_assign
 from hmd_ego_pose_tpu_torch.ops.quantization import (dequantize, dequantize_group, dequantize_reference, quantize,
                                                      quantize_group, quantize_reference)
 
@@ -62,6 +62,61 @@ def test_min_distances_kernel_bit_equal_to_plain_on_the_card(cuda_device):
     assert LAUNCHES.get("min_distances") == len(shapes)
     with pytest.raises(ValueError):
         distances.min_distances(g.double(), pr)
+
+
+def test_min_distances_kernel_bit_equal_at_the_smoke_shapes(cuda_device):
+    """``chip_smoke.MIN_DIST_SHAPES``: the evaluation's shape, a single point,
+    P off every slice, Q above one staged chunk (2048), the 1000-point cap;
+    duplicate points; one launch per call; a NaN point makes its pair's rows NaN."""
+    rng = np.random.default_rng(1)
+    LAUNCHES.reset()
+    for shape in chip_smoke.MIN_DIST_SHAPES:
+        g, pr = (torch.from_numpy(a).to(cuda_device) for a in chip_smoke.point_pairs(rng, *shape))
+        got = distances.min_distances(g, pr)
+        torch.cuda.synchronize()
+        assert torch.equal(got, distances.min_distances_reference(g, pr)), shape
+    assert LAUNCHES.get("min_distances") == len(chip_smoke.MIN_DIST_SHAPES)
+    pr[0, 3, 1] = float("nan")  # a NaN point: every row of its pair NaN, no other pair touched
+    got = distances.min_distances(g, pr)
+    assert bool(got[0].isnan().all()) and not bool(got[1:].isnan().any())
+
+
+def test_target_assign_kernel_bit_equal_to_plain_on_the_card(cuda_device):
+    """``chip_smoke.target_cases``: the train shape, K = 3 padded with two
+    classes, the hazard batch, K = 4 with repeated best anchors, images without
+    valid ground truth, anchors outside the image, more rows than one staged
+    chunk: all five outputs bit-equal, one launch count per call."""
+    from hmd_ego_pose_tpu_torch.config import ModelConfig
+    from hmd_ego_pose_tpu_torch.ops.anchors import device_anchors
+
+    cfg = ModelConfig()
+    anchors = device_anchors(cfg.image_size, cfg.anchors, cuda_device)[0]
+    cases = chip_smoke.target_cases(np.random.default_rng(0))
+    LAUNCHES.reset()
+    for name, (gt, num_classes, image_size) in cases.items():
+        gt = [torch.from_numpy(x).to(cuda_device) for x in gt]
+        kw = dict(num_classes=num_classes, image_size=image_size)
+        got = target_assign.assign_targets_batch(anchors, *gt, **kw)
+        torch.cuda.synchronize()
+        want = target_assign.assign_targets_batch_reference(anchors, *gt, **kw)
+        for field, a, b in zip(want._fields, got, want):
+            assert chip_smoke.same_bits(a, b), (name, field)
+    assert LAUNCHES.get("target_assign") == len(cases)
+    assert LAUNCHES.get("iou") == 0
+
+
+def test_target_assign_wrapper_raises_on_mixed_devices_and_wrong_dtypes(cuda_device):
+    gt = [torch.from_numpy(x).to(cuda_device) for x in chip_smoke.target_batch(np.random.default_rng(0), 2, 3, 1)]
+    anchors = torch.zeros((7, 4), device=cuda_device)
+    kw = dict(num_classes=1, image_size=256)
+    with pytest.raises(ValueError):
+        target_assign.assign_targets_batch(anchors.cpu(), *gt, **kw)
+    with pytest.raises(ValueError):
+        target_assign.assign_targets_batch(anchors, gt[0], gt[1].long(), *gt[2:], **kw)
+    with pytest.raises(ValueError):
+        target_assign.assign_targets_batch(anchors, *gt[:4], gt[4].float(), **kw)
+    with pytest.raises(ValueError):
+        target_assign.assign_targets_batch(anchors, gt[0].transpose(1, 2).contiguous().transpose(1, 2), *gt[1:], **kw)
 
 
 def test_iou_kernel_bit_equal_to_plain_on_the_card(cuda_device):

@@ -90,13 +90,37 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_build_hash_tracks_the_source():
-    assert build.sources() == ["dequantize", "iou", "min_distances", "quantize"]
+    assert build.sources() == ["dequantize", "iou", "min_distances", "quantize", "target_assign"]
     assert sorted(build.SIGNATURES) == build.sources()
     for name in build.sources():
         path = build.library_path(name)
         assert path.startswith(build.BUILD_DIR) and path.endswith(".so")
         assert path == build.library_path(name)
     assert build.library_path("dequantize") != build.library_path("min_distances")
+    assert build.library_path("min_distances", ("HEGP_MIN_DIST_POINTS=2",)) != build.library_path("min_distances")
+
+
+def _kernel_variants():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("time_kernel_variants",
+                                                  os.path.join(REPO, "scripts", "time_kernel_variants.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.VARIANTS
+
+
+@pytest.mark.parametrize("name,variant", sorted(_kernel_variants().items()))
+def test_kernel_variants_override_constants_their_source_declares(name, variant):
+    """Every define of a timed variant overrides an #ifndef default of its source."""
+    source, defines, _ = variant
+    assert source in build.SIGNATURES, name
+    with open(os.path.join(build.CSRC, f"{source}.cu")) as f:
+        text = f.read()
+    for define in defines:
+        macro, value = define.split("=")
+        assert f"#ifndef {macro}\n#define {macro} " in text, (name, macro)
+        assert int(value) > 0
 
 
 QUANT_CASES = chip_smoke.quantize_inputs()

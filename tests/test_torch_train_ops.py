@@ -170,11 +170,31 @@ def _hazard_batch():
     return boxes, labels, transformation, coords, valid
 
 
+def _repeated_best_batch():
+    """K = 4: the four rows of an image are one box, so its valid rows share one
+    best anchor and the padded rows another (anchor 0).  In image 1 the box is
+    the hazard's (best anchor 0 at IoU 0.098), so all four rows scatter onto
+    anchor 0 and the last, padded, clears its force."""
+    boxes, labels, transformation, coords, _ = _gt_batch(3, 3, 4)
+    boxes[:, 1:] = boxes[:, :1]
+    boxes[1] = [0, 0, 10, 10]
+    valid = np.array([[True, True, False, True], [False, True, True, False], [True, False, True, True]])
+    return boxes, labels, transformation, coords, valid
+
+
+# cases whose image is smaller than the 256 px pyramid: the anchors whose centre
+# lies at or past 192 px are outside it
+_IMAGE_SIZE = {"outside_image_c2": 192}
+
+
 def _targets_both(anchors, gt, num_classes, image_size):
     want = jax.jit(jax_targets.assign_targets_batch, static_argnums=(6, 7))(
         jnp.asarray(anchors), *map(jnp.asarray, gt), num_classes, image_size)
-    got = target_assign.assign_targets_batch(torch.from_numpy(anchors), *map(torch.from_numpy, gt),
-                                             num_classes=num_classes, image_size=image_size)
+    args = (torch.from_numpy(anchors), *map(torch.from_numpy, gt))
+    got = target_assign.assign_targets_batch_reference(*args, num_classes=num_classes, image_size=image_size)
+    # on CPU tensors the wrapper takes the plain version
+    for a, b in zip(target_assign.assign_targets_batch(*args, num_classes=num_classes, image_size=image_size), got):
+        assert torch.equal(a, b)
     return got, want
 
 
@@ -182,9 +202,11 @@ def _targets_both(anchors, gt, num_classes, image_size):
     ("k1", _gt_batch(0, 4, 1), 1),
     ("k3_padded", _gt_batch(1, 5, 3), 2),
     ("hazard", _hazard_batch(), 1),
+    ("k4_repeated_best", _repeated_best_batch(), 1),
+    ("outside_image_c2", _gt_batch(2, 4, 3, size=192), 2),
 ])
 def test_assign_targets_batch_matches_jax(name, gt, classes):
-    got, want = _targets_both(ANCHORS_256, gt, classes, 256)
+    got, want = _targets_both(ANCHORS_256, gt, classes, _IMAGE_SIZE.get(name, 256))
     np.testing.assert_array_equal(got.state.numpy(), np.asarray(want.state))
     np.testing.assert_array_equal(got.labels.numpy(), np.asarray(want.labels))
     # the chosen ground-truth row: its transformation is gathered, so equal
@@ -195,6 +217,35 @@ def test_assign_targets_batch_matches_jax(name, gt, classes):
         # XLA lands the rows in order: the padded row after the valid one
         # clears anchor 0's force; in the swapped image it stays
         assert got.state[0, 0] == 0.0 and got.state[1, 0] == 1.0
+    if name == "outside_image_c2":
+        outside = (ANCHORS_256[:, 0] + ANCHORS_256[:, 2]) / 2 >= 192
+        assert outside.any() and bool((got.state[:, torch.from_numpy(outside)] == -1.0).all())
+    if name == "k4_repeated_best":
+        # image 1: the last of the rows on anchor 0 is padded, so its force goes
+        assert got.state[0].eq(1.0).any() and got.state[1, 0] == 0.0 and not got.state[1].eq(1.0).any()
+
+
+def test_assign_targets_wrapper_checks_and_counts_no_cpu_launch():
+    from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
+
+    gt = [torch.from_numpy(x) for x in _gt_batch(0, 2, 3)]
+    anchors = torch.from_numpy(ANCHORS_256[:50].copy())
+    kw = dict(num_classes=1, image_size=256)
+    LAUNCHES.reset()
+    target_assign.assign_targets_batch(anchors, *gt, **kw)
+    assert LAUNCHES.get("target_assign") == 0
+    for i, bad in enumerate([anchors.double(), gt[0].double(), gt[1].long(), gt[2].half(), gt[3].double(),
+                             gt[4].int()]):
+        args = [anchors, *gt]
+        args[i] = bad
+        with pytest.raises(ValueError):
+            target_assign.assign_targets_batch(*args, **kw)
+    with pytest.raises(ValueError):  # mixed devices
+        target_assign.assign_targets_batch(anchors.to("meta"), *gt, **kw)
+    with pytest.raises(ValueError):  # no ground-truth rows
+        target_assign.assign_targets_batch(anchors, *(x[:, :0] for x in gt), **kw)
+    with pytest.raises(ValueError):  # rows that disagree
+        target_assign.assign_targets_batch(anchors, gt[0], gt[1][:, :2], *gt[2:], **kw)
 
 
 def test_forced_positive_last_row_wins_at_k4():
