@@ -37,8 +37,9 @@ Phases, each printing one JSON line of its own:
                ``"main_path": false``.
 6. kernel_target_assign -- the fused target-assignment kernel against its
                plain version ``assign_targets_batch_reference`` on the card:
-               the train shape (16 images, 12,276 anchors, K = 1, C = 1), K = 3
-               padded with two classes, the hazard batch (a padded row after
+               the train shape (16 images, 12,276 anchors, K = 1, C = 1), the
+               multi-object run's shape (K = 2, C = 2, one object's row
+               invalidated), K = 3 padded with two classes, the hazard batch (a padded row after
                a valid row whose best anchor is anchor 0), K = 4 with repeated
                best anchors, images without valid ground truth and anchors
                whose centre lies outside the image: all five outputs bit-equal,
@@ -101,7 +102,37 @@ Phases, each printing one JSON line of its own:
                max (synchronised) and its parts, images/s, epoch, validation
                and start-up seconds, and a torch.profiler sample of four more
                steps (device time per step, busy share).
-12. export  -- ``cli export --ckpt trained/syn1000_phi0_576ep_handrel_int8.npz
+12. train_multi -- ``cli make-synthetic --num-objects 2`` writes the 400-frame,
+               256 px two-object set (fold 0: 240 train, 80 val), whose
+               ``gt_0.yml`` must hash as the JAX generator's did; the artifact
+               widened to two classes (``models/weights.py::widen_classes``)
+               is saved as the start; four fixed steps of ``cli train
+               --object-ids 1,2``'s trainer held to
+               ``hmd_ego_pose_tpu_torch/train/references/multi2_v3_train_steps.json``;
+               then one epoch (oversample 1, augmentation on: the multi-object
+               warp) and validation: every loss finite, ``target_assign`` once
+               per step, ``min_distances`` twice (once per class), the
+               checkpoints written and restored.
+13. train_windowed -- the v3 set's 600 train frames with
+               ``device_resident_budget_bytes`` of a third of them: three
+               windows of 200 frames over one epoch, the step count the sum
+               over the windows, ``target_assign`` once per step; the device
+               memory held after each window's upload, over the model as
+               built, must stay within one window and Adam's moments (one
+               window resident at a time), and the peak is reported beside
+               the resident run's.
+14. train_host -- ``device_augment=False``: four fixed steps of host batches
+               (augmentation off) held to ``handrel_v3_train_steps.json``, the
+               largest gap between the host-preprocessed and the
+               device-preprocessed batch of step 0 per field, then one
+               augmented epoch through the host input pipeline (worker
+               threads): step times and images/s beside the resident run's.
+15. train_remat -- ``--no-freeze-backbone``, the same state, batch and
+               drop-connect seed through a remat and a plain step: losses
+               equal, BN statistics moved once (as the plain step's within
+               1e-5 relative), parameters finite and within 2 lr (one Adam
+               step); peak memory and step times of five steps of each.
+16. export  -- ``cli export --ckpt trained/syn1000_phi0_576ep_handrel_int8.npz
                --quantize-int8`` on the card (phi-0, 256 px, fp32) into the
                temporary directory, with the launch counts reset just before
                and read just after: ``dequantize`` and ``quantize`` once
@@ -115,9 +146,11 @@ Phases, each printing one JSON line of its own:
                artifact.  Seconds of restore, fold, ``torch.export``, save,
                load-and-verify and int8 save, the ``.pt2`` size and the
                fp32/int8 size ratio.
-13. shutdown -- server and engine stopped, every thread joined with a timeout.
+17. shutdown -- server and engine stopped, every thread joined with a timeout.
 
-Then the ``kernels`` JSON line, the nvidia-smi line, and as the last line
+Then the ``kernels`` JSON line (``target_assign``'s launches summed over the
+five training runs, ``min_distances``' over the evaluation and the two-class
+validation), the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 non-zero without that line.  It exits non-zero at once without a CUDA device
 or without the repository beside it.  A watchdog turns a hang into a
@@ -131,6 +164,7 @@ import faulthandler
 import hashlib
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -154,6 +188,8 @@ MIN_DIST_SHAPES = (MIN_DIST_EVAL_SHAPE, (1, 1, 1), (3, 700, 513), (2, 5000, 4999
 EVAL_TOLERANCES = {"count": 0.0, "accuracy": 0.005, "mm": 0.05, "deg": 0.01}
 TRAIN_REFERENCE = os.path.join(HERE, "hmd_ego_pose_tpu_torch", "train", "references",
                                "handrel_v3_train_steps.json")
+MULTI_REFERENCE = os.path.join(HERE, "hmd_ego_pose_tpu_torch", "train", "references",
+                               "multi2_v3_train_steps.json")
 # (B, N, K) of the IoU kernel besides the train step's (16, 12,276 anchors at
 # 256 px, 1): four boxes, N off every block size, a single anchor, and more
 # boxes than one shared-memory chunk (256)
@@ -610,8 +646,15 @@ def target_cases(rng) -> dict:
     repeated[0][:, 1:] = repeated[0][:, :1]  # four copies of one box: one best anchor for its valid rows
     repeated[0][1] = [0, 0, 10, 10]  # the hazard's box: every row on anchor 0, the last (padded) wins
     repeated[4][:] = [[True, True, False, True], [False, True, True, False], [True, False, True, True]]
+    # the multi-object run's shape: two objects a frame, row k of class k, all
+    # valid but one object whose mask left the frame (its row kept, valid cleared)
+    multi = target_batch(rng, 16, 2, 2)
+    multi[1][:] = [0, 1]
+    multi[4][:] = True
+    multi[4][5, 0] = False
     return {
         "train_k1_c1": (target_batch(rng, 16, 1, 1), 1, 256),
+        "train_k2_c2_multi": (multi, 2, 256),
         "k3_padded_c2": (target_batch(rng, 5, 3, 2), 2, 256),
         "hazard": (hazard, 1, 256),
         "k4_repeated_best": (repeated, 1, 256),
@@ -649,6 +692,8 @@ def phase_target_assign(dev) -> dict:
                          "ignored": int((want.state == -1).sum())}
         if name == "train_k1_c1":
             main = (gt, kw)
+        if name == "train_k2_c2_multi":
+            multi = (gt, kw)
     if LAUNCHES.get("target_assign") != len(cases):
         raise AssertionError(f"target_assign must count one launch per call, got {LAUNCHES.snapshot()}")
     if checked["hazard"]["positives"] != 1:
@@ -662,8 +707,12 @@ def phase_target_assign(dev) -> dict:
         return assign_targets_batch_reference(anchors, *gt, **kw)
 
     b, k = gt[0].shape[:2]
+    multi_gt, multi_kw = multi
+    k2_launch_ms = device_time_ms(lambda: assign_targets_batch(anchors, *multi_gt, **multi_kw))
     return {
         "cases": checked, "bit_equal": True, "max_abs_err": max_err, "train_shape": [b, anchors.shape[0], k, 1],
+        "k2_c2": {"launch_ms": k2_launch_ms, **bounds.bound(*bounds.target_assign_work(
+            anchors.shape[0], 2, multi_gt[0].shape[0], 2, multi_gt[2].shape[2], multi_gt[3].shape[2]))},
         "kernel_ms": cuda_time_ms(kernel, reps=200), "launch_ms": device_time_ms(kernel),
         "plain_ms": cuda_time_ms(plain, reps=50), "plain_device_ms": profiled_device_ms(plain),
         "host_ms": {"kernel": host_ms(kernel), "plain": host_ms(plain)}, "library_ms": None,
@@ -674,9 +723,10 @@ def phase_target_assign(dev) -> dict:
 
 
 class TimedStep:
-    """Wraps a trainer's step: synchronised times of its parts (gather + augment
-    + preprocess; forward + targets + loss; backward; optimizer update) and
-    each step's losses, read after the step."""
+    """Wraps a trainer's step: synchronised times of its parts (batch, augment
+    and preprocess; forward + targets + loss; backward; optimizer update) and
+    each step's losses, read after the step.  Resident and windowed epochs
+    call it, the host pipeline's epochs call its ``host_step``."""
 
     PARTS = ("prepare", "forward", "backward", "optimizer")
 
@@ -696,12 +746,12 @@ class TimedStep:
 
         step.optimizer.step = timed_update
 
-    def __call__(self, data, idx, draws=None, generator=None):
+    def _timed(self, prepare, generator):
         import torch
 
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        batch = self.step.prepare(data, idx, draws)
+        batch = prepare()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         bundle = self.step.losses(batch, generator)
@@ -716,6 +766,34 @@ class TimedStep:
         self.step_ms.append((t3 - t0) * 1e3)
         self.losses.append({k: float(v) for k, v in metrics.items()})
         return metrics
+
+    def __call__(self, data, idx, draws=None, generator=None):
+        return self._timed(lambda: self.step.prepare(data, idx, draws), generator)
+
+    def host_step(self, batch, draws=None, generator=None):
+        return self._timed(lambda: self.step.prepare_host(batch, draws), generator)
+
+    def summary(self, batch: int, start: int = 0, stop=None) -> dict:
+        """Times of the steps ``start`` .. ``stop``."""
+        import numpy as np
+
+        step_ms = np.asarray(self.step_ms[start:stop])
+        parts = {k: v[start:stop] for k, v in self.part_ms.items()}
+        return {
+            "steps": len(step_ms), "step_ms_p50": float(np.percentile(step_ms, 50)),
+            "step_ms_max": float(step_ms.max()), "step_ms_first": float(step_ms[0]),
+            "images_per_s": batch * len(step_ms) / (step_ms.sum() / 1e3),
+            "augment_share": float(np.sum(parts["prepare"]) / step_ms.sum()),
+            "part_ms_p50": {k: float(np.percentile(v, 50)) for k, v in parts.items()},
+            "loss_first": self.losses[start]["loss"], "loss_last": self.losses[start:stop][-1]["loss"],
+        }
+
+    def check_finite(self) -> None:
+        import numpy as np
+
+        bad = [i for i, m in enumerate(self.losses) if not all(np.isfinite(v) for v in m.values())]
+        if bad:
+            raise AssertionError(f"non-finite losses at steps {bad}: {[self.losses[i] for i in bad]}")
 
 
 def profile_steps(trainer, steps: int = 4) -> dict:
@@ -745,34 +823,19 @@ def profile_steps(trainer, steps: int = 4) -> dict:
     }
 
 
-def phase_train(card: str, data: str, work: str) -> dict:
-    import numpy as np
-    import torch
+LOSS_TERMS = ("total", "classification", "regression", "rotation", "translation", "hand")
 
-    from hmd_ego_pose_tpu_torch import cli
-    from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
-    from hmd_ego_pose_tpu_torch.models.hmd_ego_pose import HMDEgoPose
-    from hmd_ego_pose_tpu_torch.models.weights import from_jax_params
-    from hmd_ego_pose_tpu_torch.train.checkpoint import restore_checkpoint, restore_opt_leaves
+
+def hold_to_reference(reference: dict, step, what: str) -> list:
+    """Runs ``step(s)`` (-> the step's metrics) for each reference step and holds
+    its six loss terms to the reference's relative tolerance; returns the
+    largest relative gap of each step."""
     from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES
-    from hmd_ego_pose_tpu_torch.utils.logging import MetricLogger
 
-    with open(TRAIN_REFERENCE) as f:
-        reference = json.load(f)
-    args = cli.build_parser().parse_args(["train", "--dataset-path", data, "--ckpt", ARTIFACT, "--epo", "1"])
-    quiet = io.StringIO()
-
-    # 1. reference check: four steps from the artifact, augmentation and
-    # drop-connect off, fixed batches, against the JAX package's losses
-    with contextlib.redirect_stdout(quiet):
-        ref_trainer = cli.build_trainer(args, logger=MetricLogger(os.path.join(work, "runs"), stdout=False),
-                                        checkpoint_dir=os.path.join(work, "ref_ckpt"))
-    batch = ref_trainer.config.train.batch_size
-    terms = dict(zip(("total", "classification", "regression", "rotation", "translation", "hand"), METRIC_NAMES))
-    ref_gaps, off = [], []
+    terms = dict(zip(LOSS_TERMS, METRIC_NAMES))
+    gaps, off = [], []
     for s, want in enumerate(reference["steps"]):
-        idx = torch.arange(batch * s, batch * (s + 1), device=ref_trainer.device)
-        got = ref_trainer.step_fn(ref_trainer.data, idx, None, None)
+        got = step(s)
         tol = reference["tolerance_rel"]["0" if s == 0 else "3"]
         gap = 0.0
         for term, name in terms.items():
@@ -780,25 +843,25 @@ def phase_train(card: str, data: str, work: str) -> dict:
             gap = max(gap, g)
             if not g <= tol:
                 off.append(f"step {s} {term}: card {float(got[name])!r}, JAX {want[term]!r}, rel gap {g:.3g} > {tol}")
-        ref_gaps.append(gap)
+        gaps.append(gap)
     if off:
-        raise AssertionError("the card's training losses are off the JAX reference:\n" + "\n".join(off))
-    del ref_trainer
-    torch.cuda.empty_cache()
+        raise AssertionError(f"the card's {what} losses are off the JAX reference:\n" + "\n".join(off))
+    return gaps
 
-    # 2. the main path: cli train's trainer, one epoch over the 800 train frames
-    # (oversample 1: 50 steps of 16), validation on the 200 val frames, the checkpoints
-    ckpt_dir = os.path.join(work, "ckpt")
-    LAUNCHES.reset()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(quiet):
-        trainer = cli.build_trainer(args, logger=MetricLogger(os.path.join(work, "runs"), stdout=False),
-                                    oversample=1, checkpoint_dir=ckpt_dir)
-    torch.cuda.synchronize()
-    t_startup = time.perf_counter() - t0
-    launches_restore = LAUNCHES.snapshot()
-    backbone = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()
-                if k.startswith("backbone_net.")}
+
+def fixed_batch(trainer, s: int):
+    """The reference steps' batch s: frames 16 s .. 16 s + 15 of the train split, on the card."""
+    import torch
+
+    batch = trainer.config.train.batch_size
+    return torch.arange(batch * s, batch * (s + 1), device=trainer.device)
+
+
+def fit_timed(trainer) -> dict:
+    """``trainer.fit()`` with every step timed (``TimedStep``) and validation
+    timed; the card synchronised at the end."""
+    import torch
+
     timed = TimedStep(trainer.step_fn)
     trainer.step_fn = timed
     validate, val_s = trainer.validate, []
@@ -812,19 +875,89 @@ def phase_train(card: str, data: str, work: str) -> dict:
     trainer.validate = timed_validate
     epochs = []
     t1 = time.perf_counter()
-    with contextlib.redirect_stdout(quiet):
-        best = trainer.fit(on_epoch_end=lambda e, m, r: epochs.append((m, r.scalars())))
+    with contextlib.redirect_stdout(io.StringIO()):
+        best = trainer.fit(on_epoch_end=lambda e, m, r: epochs.append((m, r)))
     torch.cuda.synchronize()
-    t_fit = time.perf_counter() - t1
+    return {"timed": timed, "best": best, "val_s": val_s, "epochs": epochs, "fit_s": time.perf_counter() - t1}
+
+
+def check_checkpoints(trainer, best, ckpt_dir: str, steps: int, work: str) -> dict:
+    """The best and ``last`` checkpoints written, each restoring to the trained
+    model, ``last`` with the optimizer's leaves and step count."""
+    import torch
+
+    from hmd_ego_pose_tpu_torch.models.hmd_ego_pose import HMDEgoPose
+    from hmd_ego_pose_tpu_torch.models.weights import from_jax_params
+    from hmd_ego_pose_tpu_torch.train.checkpoint import restore_checkpoint, restore_opt_leaves
+
+    last = os.path.join(ckpt_dir, "last.npz")
+    if best is None or not os.path.exists(best) or not os.path.exists(last):
+        raise AssertionError(f"checkpoints not written: best {best}, last exists {os.path.exists(last)}")
+    state = trainer.model.state_dict()
+    restored = {}
+    for name, path in (("best", best), ("last", last)):
+        params, bn_state, meta = restore_checkpoint(path, trainer.device)
+        model = HMDEgoPose(trainer.config.model).to(trainer.device)
+        model.load_state_dict(from_jax_params(params, bn_state, trainer.config.model), strict=True)
+        if not all(torch.equal(model.state_dict()[k].cpu(), v.cpu()) for k, v in state.items()):
+            raise AssertionError(f"the {name} checkpoint does not restore the trained model")
+        restored[name] = {"path": os.path.relpath(path, work), "metric": meta.get("metric")}
+    opt = restore_opt_leaves(last)
+    if opt is None or len(opt) != trainer.optimizer.num_leaves():
+        raise AssertionError(f"last.npz holds {None if opt is None else len(opt)} opt leaves, "
+                             f"the optimizer {trainer.optimizer.num_leaves()}")
+    if int(opt[0].item()) != steps:
+        raise AssertionError(f"the saved optimizer count is {opt[0]}, not {steps}")
+    return {"checkpoints": restored, "opt_leaves": len(opt)}
+
+
+def phase_train(card: str, data: str, work: str) -> dict:
+    import torch
+
+    from hmd_ego_pose_tpu_torch import cli
+    from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
+    from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES
+    from hmd_ego_pose_tpu_torch.utils.logging import MetricLogger
+
+    with open(TRAIN_REFERENCE) as f:
+        reference = json.load(f)
+    args = cli.build_parser().parse_args(["train", "--dataset-path", data, "--ckpt", ARTIFACT, "--epo", "1"])
+    quiet = io.StringIO()
+
+    # 1. reference check: four steps from the artifact, augmentation and
+    # drop-connect off, fixed batches, against the JAX package's losses
+    with contextlib.redirect_stdout(quiet):
+        ref_trainer = cli.build_trainer(args, logger=MetricLogger(os.path.join(work, "runs"), stdout=False),
+                                        checkpoint_dir=os.path.join(work, "ref_ckpt"))
+    ref_gaps = hold_to_reference(
+        reference, lambda s: ref_trainer.step_fn(ref_trainer.data, fixed_batch(ref_trainer, s), None, None),
+        "training")
+    del ref_trainer
+    torch.cuda.empty_cache()
+
+    # 2. the main path: cli train's trainer, one epoch over the 600 train frames
+    # (oversample 1: 37 steps of 16), validation on the 200 val frames, the checkpoints
+    ckpt_dir = os.path.join(work, "ckpt")
+    LAUNCHES.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(quiet):
+        trainer = cli.build_trainer(args, logger=MetricLogger(os.path.join(work, "runs"), stdout=False),
+                                    oversample=1, checkpoint_dir=ckpt_dir)
+    torch.cuda.synchronize()
+    t_startup = time.perf_counter() - t0
+    launches_restore = LAUNCHES.snapshot()
+    backbone = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()
+                if k.startswith("backbone_net.")}
+    run = fit_timed(trainer)
     launches = LAUNCHES.snapshot()
 
-    steps = len(timed.step_ms)
+    timed = run["timed"]
+    steps, batch = len(timed.step_ms), trainer.config.train.batch_size
     frames = len(trainer.train_dataset)
-    if steps != frames // batch:
-        raise AssertionError(f"{steps} steps for {frames} frames at batch {batch}")
-    bad = [i for i, m in enumerate(timed.losses) if not all(np.isfinite(v) for v in m.values())]
-    if bad:
-        raise AssertionError(f"non-finite losses at steps {bad}: {[timed.losses[i] for i in bad]}")
+    if trainer.path != "resident" or steps != frames // batch:
+        raise AssertionError(f"{steps} steps for {frames} frames at batch {batch} on the {trainer.path} path")
+    timed.check_finite()
     if launches.get("target_assign", 0) != steps or launches.get("iou", 0) != 0:
         raise AssertionError(f"target_assign must launch once per step ({steps}) and iou never, got {launches}")
     if launches_restore.get("dequantize", 0) != 1 or launches.get("dequantize", 0) != 1:
@@ -839,49 +972,312 @@ def phase_train(card: str, data: str, work: str) -> dict:
     stats_moved = [k for k in moved if k.endswith(("running_mean", "running_var"))]
     if not stats_moved:
         raise AssertionError("the backbone's BN running statistics did not move in training mode")
-
-    last = os.path.join(ckpt_dir, "last.npz")
-    if best is None or not os.path.exists(best) or not os.path.exists(last):
-        raise AssertionError(f"checkpoints not written: best {best}, last exists {os.path.exists(last)}")
-    want_params, want_bn = trainer.jax_trees()
-    restored = {}
-    for name, path in (("best", best), ("last", last)):
-        params, bn_state, meta = restore_checkpoint(path, trainer.device)
-        model = HMDEgoPose(trainer.config.model).to(trainer.device)
-        model.load_state_dict(from_jax_params(params, bn_state, trainer.config.model), strict=True)
-        same = all(torch.equal(model.state_dict()[k].cpu(), v.cpu()) for k, v in state.items())
-        if not same:
-            raise AssertionError(f"the {name} checkpoint does not restore the trained model")
-        restored[name] = {"path": os.path.relpath(path, work), "metric": meta.get("metric")}
-    opt = restore_opt_leaves(last)
-    if opt is None or len(opt) != trainer.optimizer.num_leaves():
-        raise AssertionError(f"last.npz holds {None if opt is None else len(opt)} opt leaves, "
-                             f"the optimizer {trainer.optimizer.num_leaves()}")
-    if int(opt[0].item()) != steps:
-        raise AssertionError(f"the saved optimizer count is {opt[0]}, not {steps}")
-    del want_params, want_bn
+    saved = check_checkpoints(trainer, run["best"], ckpt_dir, steps, work)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
 
     profile = profile_steps(trainer)
-    step_ms = np.asarray(timed.step_ms)
-    prepare_ms = np.asarray(timed.part_ms["prepare"])
-    train_metrics, val_scalars = epochs[-1]
+    train_metrics, result = run["epochs"][-1]
     return {
         "reference_max_rel_gap": ref_gaps, "reference_tolerance_rel": reference["tolerance_rel"],
-        "steps": steps, "batch": batch, "frames": frames, "val_frames": len(trainer.val_dataset),
-        "startup_s": t_startup, "fit_s": t_fit, "epoch_s": train_metrics["epoch_seconds"],
-        "validate_s": val_s[0] if val_s else None,
-        "step_ms_p50": float(np.percentile(step_ms, 50)), "step_ms_max": float(step_ms.max()),
-        "step_ms_first": float(step_ms[0]),
-        "images_per_s": batch * steps / (step_ms.sum() / 1e3),
-        "augment_share": float(prepare_ms.sum() / step_ms.sum()),
-        "part_ms_p50": {k: float(np.percentile(v, 50)) for k, v in timed.part_ms.items()},
-        "profile": profile,
-        "loss_first": timed.losses[0]["loss"], "loss_last": timed.losses[-1]["loss"],
+        **timed.summary(batch), "batch": batch, "frames": frames, "val_frames": len(trainer.val_dataset),
+        "startup_s": t_startup, "fit_s": run["fit_s"], "epoch_s": train_metrics["epoch_seconds"],
+        "validate_s": run["val_s"][0] if run["val_s"] else None, "profile": profile,
         "epoch_means": {k: train_metrics[k] for k in METRIC_NAMES},
-        "val_mixed_point_distance_mean_mm": val_scalars["mixed_point_distance_mean_mm"],
-        "launches": launches, "backbone_stats_moved": len(stats_moved),
-        "checkpoints": restored, "opt_leaves": len(opt),
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card,
+        "val_mixed_point_distance_mean_mm": result.scalars()["mixed_point_distance_mean_mm"],
+        "launches": launches, "backbone_stats_moved": len(stats_moved), **saved,
+        "peak_mem_gb": peak_gb, "card": card,
+    }
+
+
+def phase_train_multi(card: str, work: str) -> dict:
+    """Two objects a frame: the 400-frame two-object set, the artifact widened to
+    two classes, four reference steps, then an epoch through cli train's
+    trainer with validation once per class."""
+    import torch
+
+    from hmd_ego_pose_tpu_torch import cli
+    from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
+    from hmd_ego_pose_tpu_torch.models.weights import widen_classes
+    from hmd_ego_pose_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from hmd_ego_pose_tpu_torch.utils.logging import MetricLogger
+
+    with open(MULTI_REFERENCE) as f:
+        reference = json.load(f)
+    data = os.path.join(work, "multi2_v3_256")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["make-synthetic", "--out-dir", data, "--num-frames", "400", "--frame-size", "256",
+                  "--hand-render-version", "3", "--num-objects", "2"])
+    t_generate = time.perf_counter() - t0
+    with open(os.path.join(data, "data", "01", "gt_0.yml"), "rb") as f:
+        gt_hash = hashlib.sha256(f.read()).hexdigest()
+    if gt_hash != reference["gt_0_yml_sha256"]:
+        raise AssertionError(f"the port's two-object gt_0.yml hashes {gt_hash}, the JAX generator's "
+                             f"{reference['gt_0_yml_sha256']}")
+    params, bn_state, meta = restore_checkpoint(ARTIFACT, "cpu")
+    start = save_checkpoint(work, "multi2_start", widen_classes(params, 2), bn_state,
+                            metadata={"hand_relative": meta["hand_relative"]})
+    args = cli.build_parser().parse_args(["train", "--dataset-path", data, "--ckpt", start, "--epo", "1",
+                                          "--object-ids", "1,2"])
+    logger = MetricLogger(os.path.join(work, "runs"), stdout=False)
+    with contextlib.redirect_stdout(io.StringIO()):
+        ref_trainer = cli.build_trainer(args, logger=logger, checkpoint_dir=os.path.join(work, "multi_ref_ckpt"))
+    ref_gaps = hold_to_reference(
+        reference, lambda s: ref_trainer.step_fn(ref_trainer.data, fixed_batch(ref_trainer, s), None, None),
+        "multi-object training")
+    del ref_trainer
+    torch.cuda.empty_cache()
+
+    ckpt_dir = os.path.join(work, "multi_ckpt")
+    LAUNCHES.reset()
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer = cli.build_trainer(args, logger=logger, oversample=1, checkpoint_dir=ckpt_dir)
+    run = fit_timed(trainer)
+    launches = LAUNCHES.snapshot()
+    timed, batch = run["timed"], trainer.config.train.batch_size
+    steps = len(timed.step_ms)
+    if trainer.config.model.num_classes != 2 or trainer.config.data.max_objects != 2:
+        raise AssertionError(f"not a two-class, two-object run: {trainer.config.model}, {trainer.config.data}")
+    if steps != len(trainer.train_dataset) // batch:
+        raise AssertionError(f"{steps} steps for {len(trainer.train_dataset)} frames")
+    timed.check_finite()
+    if launches.get("target_assign", 0) != steps:
+        raise AssertionError(f"target_assign must launch once per step ({steps}), got {launches}")
+    if launches.get("min_distances", 0) != 2:
+        raise AssertionError(f"a two-class validation must launch min_distances twice, got {launches}")
+    saved = check_checkpoints(trainer, run["best"], ckpt_dir, steps, work)
+    _, result = run["epochs"][-1]
+    return {
+        "reference_max_rel_gap": ref_gaps, "reference_tolerance_rel": reference["tolerance_rel"],
+        "gt_0_yml_sha256": gt_hash, "generate_s": t_generate, **timed.summary(batch),
+        "frames": len(trainer.train_dataset), "val_frames": len(trainer.val_dataset), "fit_s": run["fit_s"],
+        "validate_s": run["val_s"][0] if run["val_s"] else None,
+        "val_per_class": {c: {k: r.scalars()[k] for k in ("num_matched", "mean_ap", "mixed_point_distance_mean_mm")}
+                          for c, r in sorted(result.per_class.items())},
+        "launches": launches, **saved, "card": card,
+    }
+
+
+def phase_train_windowed(card: str, data: str, work: str, resident_peak_gb: float) -> dict:
+    """The 600 train frames with a budget of a third of them (200 frames): three
+    windows, one resident at a time."""
+    import torch
+
+    from hmd_ego_pose_tpu_torch import cli
+    from hmd_ego_pose_tpu_torch.data.colibri import ColibriDataset
+    from hmd_ego_pose_tpu_torch.data.device_dataset import build_host_cache
+    from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
+    from hmd_ego_pose_tpu_torch.train import trainer as trainer_module
+    from hmd_ego_pose_tpu_torch.utils.logging import MetricLogger
+
+    cache = build_host_cache(ColibriDataset(data, 0, 1, "train"), 1)
+    per_frame, window = cache.bytes_per_frame(), cache.frames.shape[0] // 3
+    del cache
+    args = cli.build_parser().parse_args(["train", "--dataset-path", data, "--ckpt", ARTIFACT, "--epo", "1"])
+    LAUNCHES.reset()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer = cli.build_trainer(args, logger=MetricLogger(os.path.join(work, "runs"), stdout=False),
+                                    data_overrides={"device_resident_budget_bytes": window * per_frame + 1024},
+                                    oversample=1, checkpoint_dir=os.path.join(work, "windowed_ckpt"))
+    if trainer.path != "windowed" or trainer.window_frames != window:
+        raise AssertionError(f"expected windows of {window} frames, got the {trainer.path} path "
+                             f"({trainer.window_frames} frames)")
+    base = torch.cuda.memory_allocated()
+    resident, upload = [], trainer_module.upload_window
+
+    def one_window(cache, rows, device):
+        if trainer.data is not None:
+            raise AssertionError("a window was uploaded while the previous one was still held")
+        out = upload(cache, rows, device)
+        torch.cuda.synchronize()
+        resident.append(torch.cuda.memory_allocated() - base)
+        return out
+
+    timed = TimedStep(trainer.step_fn)
+    trainer.step_fn = timed
+    trainer_module.upload_window = one_window
+    try:
+        t0 = time.perf_counter()
+        metrics = trainer.train_epoch(0)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+    finally:
+        trainer_module.upload_window = upload
+    launches = LAUNCHES.snapshot()
+    batch, steps = trainer.config.train.batch_size, len(timed.step_ms)
+    window_bytes = window * per_frame
+    if trainer.windows != [window] * 3 or not steps == metrics["steps"] == sum(w // batch for w in trainer.windows):
+        raise AssertionError(f"windows {trainer.windows}, {steps} steps, epoch says {metrics['steps']}")
+    timed.check_finite()
+    if launches.get("target_assign", 0) != steps:
+        raise AssertionError(f"target_assign must launch once per step ({steps}), got {launches}")
+    # over the model as built: one window, and Adam's two moments from the first step on
+    adam_bytes = 2 * sum(p.numel() * p.element_size() for p in trainer.optimizer.params)
+    if max(resident) > window_bytes + adam_bytes + (1 << 20):
+        raise AssertionError(f"more than one window resident: {resident} bytes over the model's state, "
+                             f"a window is {window_bytes}, Adam's moments {adam_bytes}")
+    return {
+        **timed.summary(batch), "windows": trainer.windows, "window_mb": window_bytes / 1e6,
+        "split_mb": per_frame * len(trainer.train_dataset) / 1e6, "epoch_s": epoch_s,
+        "data_resident_mb_after_each_upload": [r / 1e6 for r in resident], "adam_moments_mb": adam_bytes / 1e6,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30, "resident_run_peak_mem_gb": resident_peak_gb,
+        "launches": launches, "card": card,
+    }
+
+
+def phase_train_host(card: str, data: str, work: str, resident: dict) -> dict:
+    """device_augment=False: the host input pipeline.  Four fixed steps
+    (augmentation off) held to the resident path's JAX reference, then one
+    augmented epoch (4 worker threads), then eight steps whose batches are
+    made in this thread."""
+    import numpy as np
+    import torch
+
+    from hmd_ego_pose_tpu_torch import cli
+    from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
+    from hmd_ego_pose_tpu_torch.utils.logging import MetricLogger
+
+    with open(TRAIN_REFERENCE) as f:
+        reference = json.load(f)
+    args = cli.build_parser().parse_args(["train", "--dataset-path", data, "--ckpt", ARTIFACT, "--epo", "1"])
+    logger = MetricLogger(os.path.join(work, "runs"), stdout=False)
+    off = {"device_augment": False, "use_6dof_augmentation": False, "use_colorspace_augmentation": False}
+    with contextlib.redirect_stdout(io.StringIO()):
+        ref_trainer = cli.build_trainer(args, logger=logger, data_overrides=off,
+                                        checkpoint_dir=os.path.join(work, "host_ref_ckpt"))
+        device_trainer = cli.build_trainer(args, logger=logger, checkpoint_dir=os.path.join(work, "host_ref_ckpt"))
+    batch = ref_trainer.config.train.batch_size
+    seeds = np.zeros(batch, np.int64)
+
+    def host_batch(s):
+        return ref_trainer.pipeline._make_batch(np.arange(batch * s, batch * (s + 1)), seeds)
+
+    # the same batch from the host preprocess and from the device one
+    host = ref_trainer.step_fn.prepare_host(host_batch(0))
+    dev = device_trainer.step_fn.prepare(device_trainer.data, fixed_batch(device_trainer, 0), None)
+    batch_gap = {name: float((a.double() - b.double()).abs().max()) for name, a, b in zip(host._fields, host, dev)}
+    del device_trainer
+    gaps = hold_to_reference(reference, lambda s: ref_trainer.step_fn.host_step(host_batch(s)),
+                             "host-pipeline training")
+    del ref_trainer
+    torch.cuda.empty_cache()
+
+    LAUNCHES.reset()
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer = cli.build_trainer(args, logger=logger, data_overrides={"device_augment": False}, oversample=1,
+                                    checkpoint_dir=os.path.join(work, "host_ckpt"))
+    timed = TimedStep(trainer.step_fn)
+    trainer.step_fn = timed
+    t0 = time.perf_counter()
+    metrics = trainer.train_epoch(0)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launches = LAUNCHES.snapshot()
+    steps = len(timed.step_ms)
+    if trainer.path != "host" or not steps == metrics["steps"] == len(trainer.train_dataset) // batch:
+        raise AssertionError(f"{steps} host steps on the {trainer.path} path, epoch says {metrics['steps']}")
+    timed.check_finite()
+    if launches.get("target_assign", 0) != steps:
+        raise AssertionError(f"target_assign must launch once per step ({steps}), got {launches}")
+    # eight more steps with each batch made in this thread before its step: the
+    # step's parts with no worker thread running beside the launches, and the
+    # host's time to make one augmented batch
+    serial = trainer.pipeline.batches(oversample=1, num_workers=1)
+    make_ms = []
+    for _ in range(8):
+        t = time.perf_counter()
+        made = next(serial)
+        make_ms.append((time.perf_counter() - t) * 1e3)
+        timed.host_step(made, None, trainer.generator)
+    serial.close()
+    timed.check_finite()
+    return {
+        "reference_max_rel_gap": gaps, "reference_tolerance_rel": reference["tolerance_rel"],
+        "host_vs_device_batch_max_abs": batch_gap, **timed.summary(batch, 0, steps), "epoch_s": epoch_s,
+        "serial": {**timed.summary(batch, steps), "make_batch_ms_p50": float(np.median(make_ms))},
+        "workers": trainer.config.data.num_workers,
+        "resident_step_ms_p50": resident["step_ms_p50"], "resident_images_per_s": resident["images_per_s"],
+        "launches": launches, "card": card,
+    }
+
+
+def phase_train_remat(card: str, data: str, work: str) -> dict:
+    """remat_backbone with the backbone trainable: the same state, batch and
+    drop-connect seed through a remat and a plain step; then four more steps
+    of each for their times."""
+    import numpy as np
+    import torch
+
+    from hmd_ego_pose_tpu_torch import cli
+    from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
+    from hmd_ego_pose_tpu_torch.utils.logging import MetricLogger
+
+    args = cli.build_parser().parse_args(["train", "--dataset-path", data, "--ckpt", ARTIFACT, "--epo", "1",
+                                          "--no-freeze-backbone"])
+    off = {"use_6dof_augmentation": False, "use_colorspace_augmentation": False}
+    runs, states, lr = {}, {}, None
+    LAUNCHES.reset()
+    for remat in (True, False):
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer = cli.build_trainer(args, logger=MetricLogger(os.path.join(work, "runs"), stdout=False),
+                                        data_overrides=off, model_overrides={"remat_backbone": remat},
+                                        checkpoint_dir=os.path.join(work, "remat_ckpt"))
+        lr = trainer.config.train.learning_rate
+        before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        ms, peaks, later = [], [], []
+        for s in range(5):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m = trainer.step_fn(trainer.data, fixed_batch(trainer, s), None, torch.Generator().manual_seed(5))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            if s == 0:
+                first = {k: float(v) for k, v in m.items()}
+                states[remat] = ({k: v.clone() for k, v in trainer.model.state_dict().items()}, first)
+            else:
+                later.append(float(m["loss"]))
+        runs["remat" if remat else "plain"] = {"step_ms": ms, "step_ms_p50_after_first": float(np.median(ms[1:])),
+                                               "peak_mem_gb_first_step": peaks[0],
+                                               "peak_mem_gb": max(peaks), "losses_first": first,
+                                               "losses_later": later}
+        del trainer
+        torch.cuda.empty_cache()
+    launches = LAUNCHES.snapshot()
+    (r_state, r_loss), (p_state, p_loss) = states[True], states[False]
+    if r_loss != p_loss:
+        raise AssertionError(f"remat changed the step's losses: {r_loss} against {p_loss}")
+    stats = [k for k in p_state if k.endswith(("running_mean", "running_var"))]
+    moved = [k for k in stats if not torch.equal(p_state[k], before[k])]
+    stat_gap = max(float((r_state[k] - p_state[k]).abs().max() / (p_state[k].abs().max() + 1e-12)) for k in stats)
+    # a second move would put each statistic m (1 - m) (batch - running) further, ~1e-2 relative
+    if not moved or stat_gap > 1e-5:
+        raise AssertionError(f"the BN statistics must move once, as without remat: {len(moved)} moved, "
+                             f"largest relative gap {stat_gap}")
+    params = [k for k in p_state if k not in stats]
+    bad = [k for k in params if not (torch.isfinite(r_state[k]).all() and torch.isfinite(p_state[k]).all())]
+    if bad:
+        raise AssertionError(f"non-finite parameters after one step: {bad[:5]}")
+    param_gap = max(float((r_state[k] - p_state[k]).abs().max()) for k in params)
+    # one Adam step moves an element by at most lr: two cuDNN backwards that
+    # differ in a noise-level gradient's sign put it at most 2 lr apart
+    if not param_gap <= 2 * lr + 1e-6:
+        raise AssertionError(f"remat and plain steps' parameters differ by {param_gap} > 2 lr")
+    later = [v for run in runs.values() for v in run["losses_later"]]
+    if not all(math.isfinite(v) for v in later):
+        raise AssertionError(f"non-finite losses in the later steps: {later}")
+    backbone_moved = any(not torch.equal(p_state[k], before[k]) for k in params if k.startswith("backbone_net."))
+    if not backbone_moved:
+        raise AssertionError("the backbone did not train (--no-freeze-backbone)")
+    if launches.get("target_assign", 0) != 10:
+        raise AssertionError(f"target_assign must launch once per step (10), got {launches}")
+    return {
+        **runs, "losses_equal": True, "bn_stats_moved": len(moved), "bn_stat_max_rel_gap": stat_gap,
+        "param_max_abs_gap": param_gap,
+        "params_differing": sum(int((r_state[k] != p_state[k]).sum()) for k in params),
+        "launches": launches, "card": card,
     }
 
 
@@ -1218,6 +1614,14 @@ def main() -> int:
         emit("evaluate", **evaluate)
         train = phase_train(card, data, work)
         emit("train", **train)
+        multi = phase_train_multi(card, work)
+        emit("train_multi", **multi)
+        windowed = phase_train_windowed(card, data, work, train["peak_mem_gb"])
+        emit("train_windowed", **windowed)
+        host = phase_train_host(card, data, work, train)
+        emit("train_host", **host)
+        remat = phase_train_remat(card, data, work)
+        emit("train_remat", **remat)
         export = phase_export(card, work)
         emit("export", **export)
 
@@ -1230,12 +1634,15 @@ def main() -> int:
 
     # every count is read from a main path's run; iou is on none of them since
     # target_assign took its place in training (the train phase asserts it never
-    # launches), so it is reported with the count of 0 and left out of this check
+    # launches), so it is reported with the count of 0 and left out of this check.
+    # target_assign is summed over the training runs, min_distances over the
+    # evaluation and the two-class validation
+    trainings = (train, multi, windowed, host, remat)
     launches = {"dequantize": serve["launches"].get("dequantize", 0),
-                "min_distances": evaluate["launches"].get("min_distances", 0),
-                "iou": train["launches"].get("iou", 0),
+                "min_distances": sum(p["launches"].get("min_distances", 0) for p in (evaluate, multi)),
+                "iou": sum(p["launches"].get("iou", 0) for p in trainings),
                 "quantize": export["launches"].get("quantize", 0),
-                "target_assign": train["launches"].get("target_assign", 0)}
+                "target_assign": sum(p["launches"].get("target_assign", 0) for p in trainings)}
     off_main_path = {"iou"}
     for name, n in launches.items():
         if name not in off_main_path and n == 0:

@@ -7,15 +7,16 @@
     python -m hmd_ego_pose_tpu_torch.cli export --ckpt trained/syn1000_phi0_576ep_handrel_int8.npz --quantize-int8
 
 ``train`` fine-tunes (or, without ``--ckpt``, trains from random weights) on
-a fold's train split resident on the device, validates on its val split
-after every ``--eval-every`` epochs and writes the best and ``last``
-checkpoints into ``train_weights/`` in the JAX package's npz layout
-(``train/trainer.py``).  ``--ckpt`` restores on the device (int8 leaves
-through the dequantize kernel) and resumes the optimizer moments and step
-count a ``last`` checkpoint carries; the hand convention comes from the
-checkpoint's metadata unless ``--hand-relative`` asks for it.  Flags and
-defaults are the JAX package's; ``--object-ids`` with more than one id
-raises (multi-object training is not ported).
+a fold's train split (resident on the device, in windows, or through the
+host input pipeline, as ``train/trainer.py`` chooses), validates on its val
+split after every ``--eval-every`` epochs and writes the best and ``last``
+checkpoints into ``train_weights/`` in the JAX package's npz layout.
+``--ckpt`` restores on the device (int8 leaves through the dequantize
+kernel) and resumes the optimizer moments and step count a ``last``
+checkpoint carries; the hand convention comes from the checkpoint's metadata
+unless ``--hand-relative`` asks for it.  ``--object-ids 1,2`` trains a
+multi-object scene (one class per id).  Flags and defaults are the JAX
+package's.
 
 ``serve`` restores the checkpoint on the device (int8 leaves dequantized by the
 CUDA kernel), folds the BNs, warms the engine up and answers pose requests
@@ -149,23 +150,26 @@ def train_config(args, **train_overrides):
     )
 
 
-def build_trainer(args, logger=None, **train_overrides):
+def build_trainer(args, logger=None, data_overrides=None, model_overrides=None, **train_overrides):
     """Everything ``cli train`` does before ``fit``: the datasets, the restore of
     ``--ckpt`` on the device (with its optimizer leaves and step count), the
     model report and the ``Trainer``.  ``train_overrides`` replace
     ``TrainConfig`` fields that have no flag (``oversample``,
-    ``checkpoint_dir``)."""
+    ``checkpoint_dir``), ``data_overrides`` and ``model_overrides`` (dicts)
+    those of ``DataConfig`` and ``ModelConfig`` (``device_augment``,
+    ``device_resident_budget_bytes``, ``remat_backbone``, ...)."""
     import dataclasses
 
     from hmd_ego_pose_tpu_torch.data.colibri import ColibriDataset
     from hmd_ego_pose_tpu_torch.train.checkpoint import restore_checkpoint, restore_opt_leaves
-    from hmd_ego_pose_tpu_torch.train.trainer import Trainer, check_supported
+    from hmd_ego_pose_tpu_torch.train.trainer import Trainer
     from hmd_ego_pose_tpu_torch.utils.device import resolve_device
     from hmd_ego_pose_tpu_torch.utils.model_stats import format_model_stats
 
     device = resolve_device(args.device)
     cfg = train_config(args, **train_overrides)
-    check_supported(cfg)
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, **(data_overrides or {})),
+                              model=dataclasses.replace(cfg.model, **(model_overrides or {})))
     ids = _object_ids(args)
     train_ds = ColibriDataset(args.dataset_path, args.fold, args.object_id, "train", object_ids=ids)
     val_ds = ColibriDataset(args.dataset_path, args.fold, args.object_id, "val", object_ids=ids)
@@ -297,7 +301,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fold", type=int, default=0, help="cross-validation fold [0..4]")
     p.add_argument("--object-id", type=int, default=1)
     p.add_argument("--object-ids", default=None,
-                   help="comma-separated ids of a multi-object scene (more than one is not ported)")
+                   help="comma-separated ids of a multi-object scene: one class per id, read from the "
+                        "first id's scene dir")
     p.add_argument("--iter", type=int, default=0, help="iterative refinement steps")
     p.add_argument("--hand-relative", action="store_true",
                    help="regress the hand relative to the object translation (ModelConfig.hand_relative); "

@@ -93,8 +93,8 @@ class ModelConfig:
     fusion_epsilon: float = 1e-4
     # compute dtype of the conv stack; parameters and BN statistics stay float32
     compute_dtype: str = "float32"
-    # per-block activation checkpointing of the backbone in training: not
-    # ported (the trainer raises when it is set)
+    # per-block activation checkpointing of the backbone in training: each
+    # MBConv block's activations are recomputed in the backward pass
     remat_backbone: bool = False
     # the hand head regresses joint offsets from the predicted object
     # translation; predict re-anchors them (models/hmd_ego_pose.py)
@@ -193,7 +193,7 @@ class DataConfig:
     translation_scale_norm: float = 1000.0  # dataset is in mm internally
     use_6dof_augmentation: bool = True
     use_colorspace_augmentation: bool = True
-    # padded ground-truth rows per frame (the port trains K = 1 only)
+    # padded ground-truth rows per frame (the objects of a multi-object scene)
     max_objects: int = 1
     chance_no_augmentation: float = 0.02
     scale_6dof_augmentation: Tuple[float, float] = (0.7, 1.3)
@@ -202,8 +202,10 @@ class DataConfig:
     # decode every frame and mask once into host RAM
     preload: bool = True
     preload_budget_bytes: int = 8 << 30
-    # augmentation and preprocessing on the device, and the whole train split
-    # resident on the device: the only training path the port has
+    # augmentation and preprocessing on the device (False: on the host, in the
+    # input pipeline), and the train split resident on the device: all of it
+    # within the budget, else one window of budget // bytes_per_frame frames at
+    # a time, else (a window smaller than a batch) the host input pipeline
     device_augment: bool = True
     device_resident: bool = True
     device_resident_budget_bytes: int = 8 << 30

@@ -6,14 +6,14 @@ training splits are a few hundred frames: the v3 set's 600 train frames at
 are uploaded once, and each step the host sends a (B,) index vector.
 
 ``build_host_cache`` decodes the split into host arrays, ``upload_window``
-uploads them, ``gather_raw_batch`` gathers a batch on the device.  The JAX
-package's windowed residency, for splits larger than the device, is not
-ported: the trainer raises over its budget.
+uploads them (all, or the rows of one window: a split larger than the
+trainer's budget goes up one window at a time), ``gather_raw_batch`` gathers
+a batch on the device.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -35,6 +35,10 @@ class HostCache(NamedTuple):
     gt_labels: np.ndarray  # (N, K) int32
     gt_valid: np.ndarray  # (N, K) bool
     gt_mask_values: np.ndarray  # (N, K) int32
+
+    def bytes_per_frame(self) -> int:
+        n = self.frames.shape[0]
+        return sum(a.nbytes for a in self) // max(1, n)
 
 
 class DeviceData(NamedTuple):
@@ -91,9 +95,12 @@ def build_host_cache(dataset, max_objects: int = 1) -> HostCache:
     return HostCache(frames, masks, cam4, boxes, rots, is_sym, trans, coords, labels, valid, mask_values)
 
 
-def upload_window(cache: HostCache, device: torch.device) -> DeviceData:
-    """Upload the whole cache to ``device``."""
-    return DeviceData(*(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in cache))
+def upload_window(cache: HostCache, rows: Optional[np.ndarray], device: torch.device) -> DeviceData:
+    """Upload the cache's ``rows`` (None: every frame) to ``device``, one copy per field."""
+    def sel(a):
+        return np.ascontiguousarray(a if rows is None else a[rows])
+
+    return DeviceData(*(torch.from_numpy(sel(a)).to(device) for a in cache))
 
 
 def gather_raw_batch(data: DeviceData, idx: torch.Tensor) -> RawBatch:

@@ -11,16 +11,28 @@ decode on the vectorised path.
 ``resize_bilinear`` and ``preprocess_image`` are the host preprocess of the
 JAX evaluator (its float64 numpy path, which its native uint8 path matches
 bit for bit).
+
+``get_rotation_matrix_2d`` and ``warp_affine`` are the host augmentation's
+warp (cv2.getRotationMatrix2D and cv2.warpAffine: inverse sampling, bilinear
+or nearest, zero border), as ``hmd_ego_pose_tpu/data/image.py`` has them: a
+uint8 image goes through the compiled copy of the JAX package's C++ warp
+(``data/native_warp.py``), anything else, or every image where no C++
+compiler is found, through the numpy version.  The two differ where a
+coordinate lands on a rounding tie: the C++ nearest warp rounds half away
+from zero (``lround``) where numpy rounds half to even, and the compiler may
+contract the coordinate's multiply-add.
 """
 
 from __future__ import annotations
 
+import math
 import struct
 import zlib
 from typing import Tuple
 
 import numpy as np
 
+from hmd_ego_pose_tpu_torch.data import native_warp
 from hmd_ego_pose_tpu_torch.ops import preprocess
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -121,6 +133,85 @@ def write_png(path: str, image: np.ndarray) -> None:
         f.write(_SIGNATURE + _chunk(b"IHDR", header) + _chunk(b"IDAT", zlib.compress(raw, 6))
                 + _chunk(b"IEND", b""))
 
+
+def get_rotation_matrix_2d(center: Tuple[float, float], angle_deg: float, scale: float) -> np.ndarray:
+    """cv2.getRotationMatrix2D: (2, 3) float64 forward affine, angle in
+    degrees, counter-clockwise positive, about ``center``."""
+    a = math.radians(angle_deg)
+    alpha = scale * math.cos(a)
+    beta = scale * math.sin(a)
+    cx, cy = center
+    return np.array(
+        [
+            [alpha, beta, (1 - alpha) * cx - beta * cy],
+            [-beta, alpha, beta * cx + (1 - alpha) * cy],
+        ],
+        dtype=np.float64,
+    )
+
+
+def _invert_affine(m: np.ndarray) -> np.ndarray:
+    a = m[:, :2]
+    t = m[:, 2]
+    inv_a = np.linalg.inv(a)
+    inv_t = -inv_a @ t
+    return np.concatenate([inv_a, inv_t[:, None]], axis=1)
+
+
+def warp_affine(image: np.ndarray, matrix: np.ndarray, out_size: Tuple[int, int],
+                interpolation: str = "bilinear") -> np.ndarray:
+    """Apply a forward (2, 3) affine to an (H, W) or (H, W, C) image
+    (cv2.warpAffine): ``out_size`` is (width, height), ``interpolation``
+    'bilinear' or 'nearest', zero outside the source."""
+    w, h = out_size
+    inv = _invert_affine(matrix)
+    if np.issubdtype(image.dtype, np.uint8):
+        native = native_warp.warp_affine_u8(image, inv, out_size, interpolation)
+        if native is not None:
+            return native
+
+    ys, xs = np.mgrid[0:h, 0:w]
+    src_x = inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2]
+    src_y = inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2]
+
+    squeeze = image.ndim == 2
+    img = image[:, :, None] if squeeze else image
+    ih, iw = img.shape[:2]
+
+    if interpolation == "nearest":
+        xi = np.round(src_x).astype(np.int64)
+        yi = np.round(src_y).astype(np.int64)
+        valid = (xi >= 0) & (xi < iw) & (yi >= 0) & (yi < ih)
+        xi, yi = np.clip(xi, 0, iw - 1), np.clip(yi, 0, ih - 1)
+        out = img[yi, xi].astype(img.dtype)
+        out[~valid] = 0
+    else:
+        x0 = np.floor(src_x).astype(np.int64)
+        y0 = np.floor(src_y).astype(np.int64)
+        fx = (src_x - x0)[..., None]
+        fy = (src_y - y0)[..., None]
+
+        def sample(yy, xx):
+            inside = (xx >= 0) & (xx < iw) & (yy >= 0) & (yy < ih)
+            s = img[np.clip(yy, 0, ih - 1), np.clip(xx, 0, iw - 1)].astype(np.float64)
+            s[~inside] = 0
+            return s
+
+        v00 = sample(y0, x0)
+        v01 = sample(y0, x0 + 1)
+        v10 = sample(y0 + 1, x0)
+        v11 = sample(y0 + 1, x0 + 1)
+        out = (
+            v00 * (1 - fx) * (1 - fy)
+            + v01 * fx * (1 - fy)
+            + v10 * (1 - fx) * fy
+            + v11 * fx * fy
+        )
+        if np.issubdtype(image.dtype, np.integer):
+            out = np.round(out).clip(np.iinfo(image.dtype).min, np.iinfo(image.dtype).max)
+        out = out.astype(image.dtype)
+
+    return out[:, :, 0] if squeeze else out
 
 
 def resize_bilinear(image: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:

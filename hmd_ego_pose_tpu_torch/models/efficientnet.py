@@ -12,6 +12,13 @@ blocks, at rate 0.2 * i / blocks for block i, when the forward is given a
 which torch cannot reproduce, so the masks are drawn from the generator (or
 handed to ``MBConv`` as they are, as the tests do).  Without a generator it
 is off, as with ``rng=None`` in JAX.
+
+``remat`` (``ModelConfig.remat_backbone``) wraps each MBConv block of a
+training forward in ``torch.utils.checkpoint`` (non-reentrant): the block
+keeps only its inputs, its drop-connect mask among them, and runs again in
+the backward pass.  The recompute leaves the BN running statistics alone
+(``BatchNorm.update_stats``), so they move once per step, as without remat;
+outputs and gradients are those of the plain forward.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
 from hmd_ego_pose_tpu_torch.config import EFFICIENTNET_PARAMS, MBCONV_STAGES
 from hmd_ego_pose_tpu_torch.nn.core import BatchNorm, Conv2dSame, sigmoid, swish
@@ -111,10 +119,30 @@ class MBConv(nn.Module):
         return self.spec["stride"] == 1 and self.spec["in_ch"] == self.spec["out_ch"]
 
 
+def _first_call_moves_stats(block: MBConv, keep_prob: float):
+    """``block`` as a function for ``checkpoint``: its first call (the forward)
+    moves the BN running statistics, later calls (the recompute) do not."""
+    calls = [0]
+    norms = [m for m in block.modules() if isinstance(m, BatchNorm)]
+
+    def run(x: torch.Tensor, keep_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        calls[0] += 1
+        for bn in norms:
+            bn.update_stats = calls[0] == 1
+        try:
+            return block(x, keep_mask, keep_prob)
+        finally:
+            for bn in norms:
+                bn.update_stats = True
+
+    return run
+
+
 class EfficientNet(nn.Module):
-    def __init__(self, coefficient: int = 0, eps: float = 1e-3, dtype: torch.dtype = torch.float32):
+    def __init__(self, coefficient: int = 0, eps: float = 1e-3, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
-        self.specs, self.dtype = block_specs(coefficient), dtype
+        self.specs, self.dtype, self.remat = block_specs(coefficient), dtype, remat
         stem = round_filters(32, EFFICIENTNET_PARAMS[coefficient][0])
         self._conv_stem = Conv2dSame(3, stem, 3, stride=2, bias=False, dtype=dtype)
         self._bn0 = BatchNorm(stem, eps, dtype)
@@ -132,10 +160,12 @@ class EfficientNet(nn.Module):
         features = []
         for i, (block, spec) in enumerate(zip(self._blocks, self.specs)):
             keep = 1.0 - DROP_CONNECT_RATE * i / n_blocks
-            if draws is not None and block.residual and keep < 1.0:
-                x = block(x, draws[i] < keep, keep)
+            mask = draws[i] < keep if draws is not None and block.residual and keep < 1.0 else None
+            if self.remat and self.training:
+                x = torch.utils.checkpoint.checkpoint(_first_call_moves_stats(block, keep), x, mask,
+                                                      use_reentrant=False)
             else:
-                x = block(x)
+                x = block(x, mask, keep)
             last_of_stage = i + 1 == len(self.specs) or self.specs[i + 1]["stage"] != spec["stage"]
             if last_of_stage and spec["stage"] in _FEATURE_STAGES:
                 features.append(x)
@@ -146,9 +176,10 @@ class EfficientNet(nn.Module):
 class Backbone(nn.Module):
     """Holds the network as ``.model`` (the reference's ``backbone_net.model.*`` keys)."""
 
-    def __init__(self, coefficient: int = 0, eps: float = 1e-3, dtype: torch.dtype = torch.float32):
+    def __init__(self, coefficient: int = 0, eps: float = 1e-3, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
-        self.model = EfficientNet(coefficient, eps, dtype)
+        self.model = EfficientNet(coefficient, eps, dtype, remat)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
         return self.model(x, generator)

@@ -45,7 +45,7 @@ class HMDEgoPose(nn.Module):
         ch, levels, repeats = config.fpn_num_filters, config.num_pyramid_levels, config.head_repeats
         na, eps, it = config.num_anchors_per_location, config.bn_epsilon, config.iter_steps
         self.dtype = dt = dtype_of(config.compute_dtype)
-        self.backbone_net = Backbone(config.backbone_coefficient, eps, dt)
+        self.backbone_net = Backbone(config.backbone_coefficient, eps, dt, config.remat_backbone)
         self.bifpn = BiFPN(ch, config.conv_channels, config.fpn_cell_repeats,
                            attention=config.phi < 6, eps=eps, fusion_eps=config.fusion_epsilon,
                            dtype=dt)

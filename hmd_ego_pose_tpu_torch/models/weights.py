@@ -198,3 +198,17 @@ def jax_leaf_paths(config: ModelConfig, exclude_backbone: bool = False) -> List[
     if exclude_backbone:
         entries = [e for e in entries if e[1][0] != "backbone"]
     return sorted(entries, key=lambda e: _tree_order(e[1]))
+
+
+def widen_classes(params, num_classes: int):
+    """A one-class model's JAX-layout ``params`` as a ``num_classes``-class
+    model's: the classifier header's last conv (kernel (1, 1, C, A) and bias
+    (A,) over A anchors of one class) gets each anchor's class column copied
+    to every class (output channel ``a * num_classes + c`` is channel ``a``),
+    as numpy; every other leaf is shared with ``params`` (host arrays or CPU
+    tensors).  The one rule by which the multi-object training references and
+    the card's multi-object run start from the shipped one-class artifact."""
+    pointwise = {k: np.repeat(np.asarray(v, np.float32), num_classes, axis=-1)
+                 for k, v in params["classifier"]["header"]["pointwise"].items()}
+    header = {**params["classifier"]["header"], "pointwise": pointwise}
+    return {**params, "classifier": {**params["classifier"], "header": header}}

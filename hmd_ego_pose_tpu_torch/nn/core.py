@@ -95,6 +95,11 @@ class BatchNorm(nn.Module):
     n / (n - 1) for n = N * H * W.  Parameter names follow
     ``nn.BatchNorm2d`` (weight, bias, running_mean, running_var) so
     state_dict keys match the reference's.
+
+    ``update_stats`` False keeps the running statistics where they are in
+    training mode: the recompute of a checkpointed block in the backward pass
+    runs its forward a second time, and must not move them twice
+    (``models/efficientnet.py``).
     """
 
     def __init__(self, channels: int, eps: float = 1e-3, dtype: torch.dtype = torch.float32,
@@ -105,6 +110,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.update_stats = True
         self.eval()  # an inference module until training asks (``model.train()``)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -119,17 +125,40 @@ class BatchNorm(nn.Module):
         # float32 n / max(n - 1, 1), as jnp computes it
         correction = float(np.float32(n) / np.float32(max(n - 1.0, 1.0)))
         m = self.momentum
-        with torch.no_grad():
-            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
-            self.running_var.copy_((1 - m) * self.running_var + m * var * correction)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var + m * var * correction)
         inv = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * inv[:, None, None]
         return (y + self.bias[:, None, None]).to(self.dtype)
 
 
+class _Sigmoid(torch.autograd.Function):
+    """1 / (1 + exp(-x)) whose derivative is s (1 - s), as that of the JAX
+    package's ``jax.nn.sigmoid`` (``lax.logistic``).  Differentiated op by op,
+    the formula's derivative exp(-x) / (1 + exp(-x))^2 is inf / inf, NaN,
+    wherever exp(-x) overflows (x below about -88 in float32): a trainable
+    backbone reaches such inputs."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        s = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        (s,) = ctx.saved_tensors
+        return grad * (s * (1.0 - s))
+
+
 def sigmoid(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """1 / (1 + exp(-x)) in ``dtype``, each step rounded to it."""
+    """1 / (1 + exp(-x)) in ``dtype``, each step rounded to it; under autograd
+    its derivative is s (1 - s) (``_Sigmoid``)."""
     x = x.to(dtype)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Sigmoid.apply(x)
     return 1.0 / (1.0 + torch.exp(-x))
 
 

@@ -25,8 +25,13 @@ examples would make hundreds of launches per step; here each slot groups
 the batch by op and runs every op once on its group (at most 13 op calls
 per slot), writing the group back by index.
 
-Batches hold one object per frame (K = 1, mask value 255); the JAX
-package's multi-object warp is not ported and raises.
+Objects.  A frame holds K objects (K = 1 in the colibri sets, mask value
+255); a multi-object scene's mask holds each object at its own pixel value
+(``RawBatch.gt_mask_values``).  The warp is shared by the objects of a
+frame; each object's labels and its bbox, from the warped mask at its value,
+are its own.  An object whose mask leaves the frame keeps its row with
+``valid`` cleared, and the frame falls back to its input only when every
+valid object left (``augment_6dof_device_multi`` of the JAX package).
 """
 
 from __future__ import annotations
@@ -396,22 +401,25 @@ class Augmented(NamedTuple):
 
 def augment_6dof_batch(images, masks, bboxes, rotations, translations, coords_3d, valid,
                        cx, cy, angle_deg, scale, mask_values: Optional[torch.Tensor] = None) -> Augmented:
-    """Warp B frames and their one-object labels about the principal point
-    (``augment_6dof_device_multi`` at K = 1): image by -angle, pose composed
-    with a +angle camera-Z rotation, Tz and the hand joints' z divided by the
-    scale, bbox recomputed from the warped mask.  An example whose object
-    leaves the frame keeps its input.  ``mask_values``: (B,) the object's
-    mask pixel value per frame (None: 255)."""
-    if bboxes.shape[1] != 1:
-        raise NotImplementedError("the 6-DoF warp of the PyTorch port takes one object per frame (K = 1)")
+    """Warp B frames and the labels of their K objects about the principal
+    point (``augment_6dof_device_multi`` of the JAX package, batched): image
+    by -angle, poses composed with a +angle camera-Z rotation, Tz and the hand
+    joints' z divided by the scale, each object's bbox recomputed from the
+    warped mask at its own pixel value.  An object whose mask leaves the frame
+    has its ``valid`` cleared; an example keeps its input when no valid object
+    is left.  ``mask_values``: (B, K) each object's mask pixel value (None:
+    255, one object per frame)."""
+    b, k = bboxes.shape[:2]
+    if mask_values is None:
+        if k != 1:
+            raise ValueError("K > 1 objects need per-object mask values (RawBatch.gt_mask_values)")
+        mask_values = torch.full((b, k), 255, dtype=torch.int32, device=masks.device)
     inv = inverse_affine(-angle_deg, scale, cx, cy)
     aug_image = warp_bilinear_u8(images, inv)
     aug_mask = warp_nearest_u8(masks, inv)
-    if mask_values is None:
-        obj_mask = aug_mask == 255
-    else:
-        obj_mask = aug_mask == mask_values.to(torch.uint8)[:, None, None]
-    new_bbox, obj_valid = bbox_from_mask(obj_mask)
+    obj_mask = aug_mask[:, None] == mask_values.to(torch.uint8)[:, :, None, None]  # (B, K, H, W)
+    new_bbox, obj_valid = bbox_from_mask(obj_mask.flatten(0, 1))
+    new_bbox, obj_valid = new_bbox.reshape(b, k, 4), obj_valid.reshape(b, k)
 
     zeros = torch.zeros_like(angle_deg)
     rot_z = axis_angle_to_matrix(torch.stack([zeros, zeros, angle_deg * (math.pi / 180.0)], dim=-1))
@@ -423,13 +431,12 @@ def augment_6dof_batch(images, masks, bboxes, rotations, translations, coords_3d
     new_c = torch.matmul(coords_3d, rz.transpose(-1, -2))
     new_c = torch.cat([new_c[..., :2], new_c[..., 2:] / scale[:, None, None, None]], dim=-1)
 
-    obj_valid = obj_valid[:, None]  # (B, K)
     keep = (obj_valid & valid).any(dim=1)
 
     def sel(a, b):
         return torch.where(keep.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
 
-    return Augmented(sel(aug_image, images), sel(new_bbox[:, None], bboxes), sel(new_rot, rotations),
+    return Augmented(sel(aug_image, images), sel(new_bbox, bboxes), sel(new_rot, rotations),
                      sel(new_t, translations), sel(new_c, coords_3d),
                      torch.where(keep[:, None], valid & obj_valid, valid), keep)
 
@@ -459,8 +466,6 @@ def augment_and_preprocess_batch(raw: RawBatch, draws: Optional[AugmentDraws], i
     off) preprocesses the frames as they are."""
     b, h, w, _ = raw.frames.shape
     k = raw.gt_boxes.shape[1]
-    if k != 1 and (draws is not None and use_6dof):
-        raise NotImplementedError("multi-object augmentation (K > 1) is not ported to the PyTorch package")
     dev = raw.frames.device
     img, bboxes, rots, transs, coords, valid = (raw.frames, raw.gt_boxes, raw.gt_rotations,
                                                  raw.gt_translations, raw.gt_coords_3d, raw.gt_valid)
@@ -468,10 +473,9 @@ def augment_and_preprocess_batch(raw: RawBatch, draws: Optional[AugmentDraws], i
         img = color_augment_batch(img, draws)
     if draws is not None and use_6dof:
         cam = raw.camera_fxfycxcy
-        mask_values = None if raw.gt_mask_values is None else raw.gt_mask_values[:, 0]
         a = augment_6dof_batch(img, raw.masks, bboxes, rots, transs, coords, valid, cam[:, 2], cam[:, 3],
                                draws.angles.to(device=dev, dtype=torch.float32),
-                               draws.scales.to(device=dev, dtype=torch.float32), mask_values)
+                               draws.scales.to(device=dev, dtype=torch.float32), raw.gt_mask_values)
         on = draws.apply.to(dev)
 
         def sel(aug, orig):

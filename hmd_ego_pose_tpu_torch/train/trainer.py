@@ -1,28 +1,43 @@
-"""The training loop: epochs over the resident split, validation, checkpoints, LR.
+"""The training loop: epochs, validation, checkpoints, LR.
 
-Counterpart of ``hmd_ego_pose_tpu/train/trainer.py`` on its device-resident
-path: oversampled epochs of the numpy sampler's indices, validation every
+Counterpart of ``hmd_ego_pose_tpu/train/trainer.py`` on one device:
+oversampled epochs of the numpy sampler's indices, validation every
 ``eval_every`` epochs through the evaluator (ADD-S on the min-distance
-kernel), ReduceLROnPlateau on the mixed point-distance mean, a
-metric-named best checkpoint and a rolling ``last`` checkpoint that carries
-the optimizer state, both in the JAX package's layout.
+kernel, once per class), ReduceLROnPlateau on the mixed point-distance mean,
+a metric-named best checkpoint and a rolling ``last`` checkpoint that
+carries the optimizer state, both in the JAX package's layout.
 
-Randomness comes from one host ``torch.Generator`` seeded from
-``TrainConfig.seed``: every augmentation draw and every drop-connect mask.
-The epoch indices come from ``np.random.RandomState(seed)`` as in the JAX
-package, so the port visits the frames in the same order.
+Where the batches come from (``path``), chosen as the JAX trainer chooses:
 
-Not ported, and refused here: the host input pipeline
-(``device_augment=False`` or ``device_resident=False``), the windowed
-residency of splits larger than ``device_resident_budget_bytes``, more
-than one object per frame, ``remat_backbone``, and meshes.
+* ``"resident"``: with ``device_resident`` and ``device_augment``, the
+  decoded split goes up once when it fits ``device_resident_budget_bytes``;
+  each step gathers its batch there by index and augments it on the device;
+* ``"windowed"``: a larger split goes up one window of
+  ``budget // bytes_per_frame`` frames at a time: each epoch permutes the
+  frames, cuts the permutation into windows and runs each window's own
+  oversampled index rows against it, the previous window freed before the
+  next one goes up (steps sample within the resident window); a tail
+  window too small for a batch is skipped that epoch.  The epoch's means
+  are the windows' means weighted by their steps;
+* ``"host"``: the host input pipeline (``data/pipeline.py``), when a window
+  would hold less than a batch, or without ``device_resident`` (raw batches,
+  augmented on the device) or ``device_augment`` (batches augmented and
+  preprocessed on the host); the epoch's means are the steps' mean.
+
+Randomness: the frame order, the windows and the host pipeline's per-example
+seeds come from ``np.random.RandomState(seed)`` (``InputPipeline.rng``),
+consumed in the JAX package's order, so for a seed the port visits the
+frames, windows and host batches the JAX package does.  The device
+augmentation's draws and the drop-connect masks come from one host
+``torch.Generator`` seeded from ``TrainConfig.seed``.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from hmd_ego_pose_tpu_torch.config import Config
@@ -31,7 +46,7 @@ from hmd_ego_pose_tpu_torch.data.pipeline import InputPipeline
 from hmd_ego_pose_tpu_torch.eval.evaluator import EvalResult, evaluate_model
 from hmd_ego_pose_tpu_torch.models.hmd_ego_pose import HMDEgoPose, init_weights
 from hmd_ego_pose_tpu_torch.models.weights import from_jax_params, to_jax_params
-from hmd_ego_pose_tpu_torch.ops.augment_device import draw_augment
+from hmd_ego_pose_tpu_torch.ops.augment_device import RawBatch, draw_augment
 from hmd_ego_pose_tpu_torch.train.checkpoint import checkpoint_name, save_checkpoint
 from hmd_ego_pose_tpu_torch.train.plateau import ReduceLROnPlateau
 from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES, TrainStep, make_eval_forward
@@ -39,23 +54,40 @@ from hmd_ego_pose_tpu_torch.utils.device import DeviceLike, resolve_device
 from hmd_ego_pose_tpu_torch.utils.logging import MetricLogger
 
 
-def check_supported(config: Config) -> None:
-    """Raise on the training features the port does not have."""
-    if not (config.data.device_resident and config.data.device_augment):
-        raise NotImplementedError(
-            "the PyTorch port trains only with the split resident on the device and augmented "
-            "there (device_resident and device_augment); the host input pipeline is not ported")
-    if config.data.max_objects != 1 or config.model.num_classes != 1:
-        raise NotImplementedError("multi-object training (--object-ids) is not ported to the PyTorch package")
-    if config.model.remat_backbone:
-        raise NotImplementedError("remat_backbone is not ported to the PyTorch package")
+def window_plan(rng: np.random.RandomState, n_frames: int, window_frames: int, batch_size: int,
+                oversample: int) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """One windowed epoch: (frame rows of the window, (steps, batch_size)
+    index rows into the window) per window that holds a batch, drawn from
+    ``rng`` in the JAX package's order (the permutation, then each kept
+    window's ``oversample`` permutations)."""
+    perm = rng.permutation(n_frames)
+    plan = []
+    for start in range(0, n_frames, window_frames):
+        rows = perm[start:start + window_frames]
+        steps = (len(rows) * oversample) // batch_size
+        if steps == 0:
+            continue
+        idx = np.concatenate([rng.permutation(len(rows)) for _ in range(oversample)])
+        plan.append((rows, idx[:steps * batch_size].reshape(steps, batch_size)))
+    if not plan:
+        raise ValueError(f"zero steps/epoch: batch_size {batch_size} exceeds every {window_frames}-frame "
+                         f"window (x oversample {oversample})")
+    return plan
+
+
+def combine_means(means_list: Sequence[Dict[str, torch.Tensor]], weights: Sequence[int]) -> Dict[str, torch.Tensor]:
+    """The weighted mean of per-window metric means (``Trainer._combine_means``
+    of the JAX package)."""
+    if len(means_list) == 1:
+        return dict(means_list[0])
+    total = sum(weights)
+    return {k: sum(m[k] * (s / total) for m, s in zip(means_list, weights)) for k in means_list[0]}
 
 
 class Trainer:
     def __init__(self, config: Config, train_dataset, val_dataset, device: DeviceLike = None,
                  logger: Optional[MetricLogger] = None, params=None, bn_state=None,
                  opt_leaves=None, start_step: int = 0):
-        check_supported(config)
         self.config = config
         self.device = dev = resolve_device(device)
         self.train_dataset, self.val_dataset = train_dataset, val_dataset
@@ -67,20 +99,26 @@ class Trainer:
         else:
             self.model.load_state_dict(from_jax_params(params, bn_state, config.model), strict=True)
 
-        self.pipeline = InputPipeline(train_dataset, config.data, config.train.batch_size,
-                                      seed=config.train.seed)
-        cache = build_host_cache(train_dataset, config.data.max_objects)
-        size = sum(a.nbytes for a in cache)
-        if size > config.data.device_resident_budget_bytes:
-            raise NotImplementedError(
-                f"the decoded split ({size} bytes) exceeds device_resident_budget_bytes; the "
-                "windowed residency of the JAX package is not ported")
-        self.frame_hw = cache.frames.shape[1:3]
-        self.data = upload_window(cache, dev)
+        dc, batch = config.data, config.train.batch_size
+        self.pipeline = InputPipeline(train_dataset, dc, batch, seed=config.train.seed,
+                                      image_size=config.model.image_size)
+        self.data = None  # the resident split, or the window of the moment
+        self.host_cache, self.window_frames, self.windows = None, 0, []
+        self.path = "host"
+        if dc.device_resident and dc.device_augment:
+            cache = build_host_cache(train_dataset, dc.max_objects)
+            if sum(a.nbytes for a in cache) <= dc.device_resident_budget_bytes:
+                self.data, self.path = upload_window(cache, None, dev), "resident"
+            else:
+                w = int(dc.device_resident_budget_bytes // max(1, cache.bytes_per_frame()))
+                if w >= batch:
+                    self.host_cache, self.window_frames, self.path = cache, w, "windowed"
+        self.frame_hw = train_dataset.load_image(0).shape[:2]
+        symmetric = any(bool(train_dataset.load_annotations(i)["rotations"][:, 3].any())
+                        for i in range(len(train_dataset)))
 
         model_points = train_dataset.model_points_for_loss(config.train.loss.num_model_points)
-        self.step_fn = TrainStep(self.model, config, model_points, dev,
-                                 symmetric=bool(cache.gt_is_sym.any()))
+        self.step_fn = TrainStep(self.model, config, model_points, dev, symmetric=symmetric)
         self.optimizer = self.step_fn.optimizer
         if opt_leaves is not None:
             self.optimizer.load_leaves(opt_leaves)
@@ -96,7 +134,7 @@ class Trainer:
         self.best_checkpoint: Optional[str] = None
 
     def draws(self):
-        """One batch's augmentation draws (None when both augmentations are off)."""
+        """One batch's device augmentation draws (None when both augmentations are off)."""
         dc = self.config.data
         if not (dc.use_colorspace_augmentation or dc.use_6dof_augmentation):
             return None
@@ -104,25 +142,58 @@ class Trainer:
         return draw_augment(self.generator, self.config.train.batch_size, h, w,
                             dc.chance_no_augmentation, dc.scale_6dof_augmentation)
 
-    def train_epoch(self, epoch: int) -> Dict[str, float]:
-        """One epoch of steps; returns the metric means, ``steps`` and ``epoch_seconds``."""
-        t0 = time.perf_counter()
-        idxs = self.pipeline.epoch_indices(self.config.train.oversample)
-        if idxs.shape[0] == 0:
-            raise ValueError(
-                f"zero steps/epoch: batch_size {self.config.train.batch_size} exceeds the "
-                f"{len(self.train_dataset)}-frame dataset (x oversample {self.config.train.oversample})")
+    def _resident_steps(self, idxs: np.ndarray) -> Dict[str, torch.Tensor]:
+        """Steps over the (steps, B) index rows into ``self.data``; the metric means, on the device."""
         sums = None
         for row in idxs:
             idx = torch.from_numpy(row.astype("int64")).to(self.device)
             metrics = self.step_fn(self.data, idx, self.draws(), self.generator)
             values = torch.stack([metrics[k] for k in METRIC_NAMES])
             sums = values if sums is None else sums + values
-        means = dict(zip(METRIC_NAMES, (sums / idxs.shape[0]).tolist()))  # the epoch's one read
-        self._steps_done += idxs.shape[0]
-        means["steps"] = idxs.shape[0]
-        means["epoch_seconds"] = time.perf_counter() - t0
-        return means
+        return dict(zip(METRIC_NAMES, sums / idxs.shape[0]))
+
+    def _windowed_epoch(self) -> Tuple[Dict[str, torch.Tensor], int]:
+        tc = self.config.train
+        plan = window_plan(self.pipeline.rng, self.host_cache.frames.shape[0], self.window_frames,
+                           tc.batch_size, tc.oversample)
+        means, steps = [], []
+        for rows, idxs in plan:
+            self.data = None  # free the previous window before the next upload: one window resident
+            self.data = upload_window(self.host_cache, rows, self.device)
+            means.append(self._resident_steps(idxs))
+            steps.append(idxs.shape[0])
+        self.windows = [len(rows) for rows, _ in plan]
+        return combine_means(means, steps), sum(steps)
+
+    def _host_epoch(self) -> Tuple[Dict[str, torch.Tensor], int]:
+        collected = []
+        for batch in self.pipeline.batches(oversample=self.config.train.oversample):
+            draws = self.draws() if isinstance(batch, RawBatch) else None
+            metrics = self.step_fn.host_step(batch, draws, self.generator)
+            collected.append(torch.stack([metrics[k] for k in METRIC_NAMES]))
+        if not collected:
+            return {}, 0
+        return dict(zip(METRIC_NAMES, torch.stack(collected).mean(dim=0))), len(collected)
+
+    def train_epoch(self, epoch: int) -> Dict[str, float]:
+        """One epoch of steps; returns the metric means, ``steps`` and ``epoch_seconds``."""
+        t0 = time.perf_counter()
+        if self.path == "resident":
+            idxs = self.pipeline.epoch_indices(self.config.train.oversample)
+            if idxs.shape[0] == 0:
+                raise ValueError(
+                    f"zero steps/epoch: batch_size {self.config.train.batch_size} exceeds the "
+                    f"{len(self.train_dataset)}-frame dataset (x oversample {self.config.train.oversample})")
+            means, n = self._resident_steps(idxs), idxs.shape[0]
+        elif self.path == "windowed":
+            means, n = self._windowed_epoch()
+        else:
+            means, n = self._host_epoch()
+        out = dict(zip(METRIC_NAMES, torch.stack([means[k] for k in METRIC_NAMES]).tolist())) if means else {}
+        self._steps_done += n
+        out["steps"] = n
+        out["epoch_seconds"] = time.perf_counter() - t0
+        return out
 
     def validate(self, max_images: Optional[int] = None) -> EvalResult:
         self.model.eval()

@@ -456,7 +456,7 @@ def test_epoch_indices_model_points_and_batch_match_jax(small_set):
         np.testing.assert_array_equal(a, b)
     idx = np.array([4, 0, 2])
     want = jax_device_dataset.gather_raw_batch(jax_device_dataset.upload_window(jcache), jnp.asarray(idx))
-    got = device_dataset.gather_raw_batch(device_dataset.upload_window(tcache, torch.device("cpu")),
+    got = device_dataset.gather_raw_batch(device_dataset.upload_window(tcache, None, torch.device("cpu")),
                                           torch.from_numpy(idx))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
