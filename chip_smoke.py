@@ -69,11 +69,26 @@ Phases, each printing one JSON line of its own:
                and the device preprocess of a seeded 300x300 frame, which must
                equal the CPU's bit for bit, with its time and that of a
                1080x1920 frame (to 256 px).
-9. serve    -- the serving path as ``cli serve`` builds it (restore, BN fold,
+9. serve    -- first the restore alone, three times: its host-to-device copies
+               must be one float32 copy (``utils/device.py::pack_transfer``)
+               and the int8 group's three (values, scales, table); its seconds.  Then
+               the serving path as ``cli serve`` builds it (restore, BN fold,
                engine warm-up) behind a ``PoseServer`` on 127.0.0.1, port 0; a
                ``PoseClient`` sends the six frames as RGB8 and the pose packets
-               are held to the goldens.  Kernel launch counts are reset just
-               before this phase and read just after it.
+               are held to the goldens.  Then ``cli.start_signaling`` registers
+               the server with a loopback node-dss ``SignalingServer``; an
+               HMD-side client offers five times, waits for each answer
+               (bootstrap ms) and dials the endpoint it names, over which the six frames go as
+               I420 and as NV12 (encoded here, BT.601): every answer a
+               detection and byte-equal to the server's packet for the RGB8
+               frame ``serving/frameio.py`` decodes from that payload, every
+               conversion of the server on the compiled path.  Round trip p50
+               and max per kind; three I420 requests under
+               ``utils/profiler.py::profile_trace``: host and device ms,
+               kernels, launch and aten calls, the top ten aten ops by self
+               device time, kernels by device time and host rows by self host
+               time, each per request.  Kernel launch counts are reset just before
+               the engine is built and read just after the phase.
 10. evaluate -- ``cli make-synthetic`` writes the 1000-frame, 256 px, seed-0,
                hand-render-v3 set into a temporary directory, whose
                ``gt_0.yml`` must hash as the JAX generator's did; then
@@ -177,6 +192,10 @@ ARTIFACT = os.path.join(HERE, "trained", "syn1000_phi0_576ep_handrel_int8.npz")
 GOLDEN = os.path.join(HERE, "tests", "goldens")
 EVAL_REFERENCE = os.path.join(HERE, "hmd_ego_pose_tpu_torch", "eval", "references", "handrel_v3_val.json")
 WATCHDOG_S = 900
+# the restore of the shipped artifact on the card: one packed float32 copy
+# (utils/device.py::pack_transfer) and the int8 group's values, scales and table
+RESTORE_UPLOADS = {"pack_transfer/float32": 1, "dequantize_group/values": 1,
+                   "dequantize_group/scales": 1, "dequantize/table": 1}
 # the odd shapes the kernel must also take: a single row, widths off 32/128
 ODD_SHAPES = ((1, 1), (1, 300), (5, 33), (7, 1000), (130, 97), (3, 129))
 # (T, P, Q) of the min-distance kernel: the evaluation's shape first, then a
@@ -292,6 +311,16 @@ def device_us(event) -> float:
     return float(getattr(event, "self_device_time_total", getattr(event, "self_cuda_time_total", 0.0)) or 0.0)
 
 
+def on_device(events) -> list:
+    """The rows of the card's own events (kernels, copies, sets).  A host-side
+    row (an aten op, a runtime call) also carries the device time of the
+    kernels it launched, and a range annotated on the device (the optimizer's
+    step) spans kernels, so a sum over every row counts kernels twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in events if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+
+
 def profiled_device_ms(fn, reps: int = 10):
     """Mean device time of ``fn()`` as torch.profiler sums its kernels and copies,
     for work that synchronises the host inside (where ``device_time_ms`` cannot
@@ -305,7 +334,7 @@ def profiled_device_ms(fn, reps: int = 10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    busy = sum(device_us(e) for e in prof.key_averages())
+    busy = sum(device_us(e) for e in on_device(prof.key_averages()))
     return busy / 1e3 / reps if busy else None
 
 
@@ -812,7 +841,7 @@ def profile_steps(trainer, steps: int = 4) -> dict:
             step(trainer.data, torch.from_numpy(row).to(trainer.device), trainer.draws(), trainer.generator)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
+    events = on_device(prof.key_averages())
     busy = sum(device_us(e) for e in events)
     top = sorted(events, key=device_us, reverse=True)[:6]
     return {
@@ -1453,21 +1482,169 @@ def phase_predict(dev, golden, frames, cameras) -> tuple:
     return fields, outputs, cams, cfg
 
 
+def rgb_to_yuv420(rgb):
+    """BT.601 limited-range RGB8 (H, W, 3), H and W even -> (I420, NV12) payloads:
+    what an HMD's encoder sends for the frame."""
+    import numpy as np
+
+    r, g, b = (rgb[..., c].astype(np.int32) for c in range(3))
+    y = np.clip(((66 * r + 129 * g + 25 * b + 128) >> 8) + 16, 16, 235).astype(np.uint8)
+    u = np.clip(((-38 * r - 74 * g + 112 * b + 128) >> 8) + 128, 16, 240)[::2, ::2].astype(np.uint8)
+    v = np.clip(((112 * r - 94 * g - 18 * b + 128) >> 8) + 128, 16, 240)[::2, ::2].astype(np.uint8)
+    return y.tobytes() + u.tobytes() + v.tobytes(), y.tobytes() + np.stack([u, v], -1).tobytes()
+
+
+def hmd_offers(url: str, offers: int = 5) -> tuple:
+    """The HMD's half of the node-dss bootstrap at ``url``, ``offers`` times:
+    offer to the workstation, wait for its answer.  Returns (the endpoint of
+    the last answer, ms from each offer to its answer)."""
+    from hmd_ego_pose_tpu_torch.serving.signaling_client import ANSWER, OFFER, Message, NodeDssSignalerClient
+
+    hmd = NodeDssSignalerClient(url, "hmd", "workstation", poll_interval=0.02, timeout=5.0)
+    times = []
+    for _ in range(offers):
+        t = time.perf_counter()
+        hmd.send(Message(OFFER, "pseudo-sdp"))
+        answer = hmd.wait_for(ANSWER, timeout=10.0)
+        times.append((time.perf_counter() - t) * 1e3)
+        if answer is None:
+            raise AssertionError("no ANSWER to the HMD's OFFER within 10 s")
+    return json.loads(answer.data), times
+
+
+def profile_requests(client, payloads, kind: int, size) -> dict:
+    """torch.profiler (``utils/profiler.py::profile_trace``) over one request of
+    each payload, per request: host milliseconds (the client's wall clock),
+    device milliseconds (the card's own events) and the device time the aten
+    ops account for, kernels, launch calls and aten calls (nested calls
+    included), the top ten aten ops by self device time, kernels by device
+    time and host rows by self host time."""
+    from torch.autograd import DeviceType
+
+    from hmd_ego_pose_tpu_torch.utils.profiler import profile_trace
+
+    n = len(payloads)
+    with tempfile.TemporaryDirectory(prefix="hegp_prof_") as log_dir:
+        with profile_trace(log_dir) as prof:
+            t = time.perf_counter()
+            for payload in payloads:
+                if client.infer_encoded(payload, kind, *size) is None:
+                    raise AssertionError("a profiled request got no detection")
+            host_ms = (time.perf_counter() - t) * 1e3 / n
+        trace_mb = os.path.getsize(prof.trace_path) / 1e6
+    events = prof.key_averages()
+    ops = [e for e in events if e.device_type == DeviceType.CPU]
+    kernels = [e for e in on_device(events) if not e.key.startswith(("Memcpy", "Memset"))]
+    device_ms = sum(device_us(e) for e in on_device(events)) / 1e3 / n
+    launch_calls = sum(e.count for e in ops if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+
+    def top10(rows, key):
+        return [{"name": e.key[:96], "ms_per_request": key(e) / 1e3 / n, "calls_per_request": e.count / n}
+                for e in sorted(rows, key=key, reverse=True)[:10] if key(e) > 0]
+
+    return {
+        "requests": n, "host_ms": host_ms, "device_ms": device_ms or None,
+        "device_busy_share": device_ms / host_ms if device_ms else None,
+        "ops_device_ms": sum(device_us(e) for e in ops) / 1e3 / n,
+        "kernels_per_request": sum(e.count for e in kernels) / n, "launch_calls_per_request": launch_calls / n,
+        "aten_calls_per_request": sum(e.count for e in ops if e.key.startswith("aten::")) / n,
+        "top10_ops_self_device": top10([e for e in ops if e.key.startswith("aten::")], device_us),
+        "top10_kernels": top10(kernels, device_us),
+        "top10_self_host": top10(ops, lambda e: float(e.self_cpu_time_total)),
+        "trace_mb": trace_mb,
+    }
+
+
+def serve_yuv(endpoint: dict, frames) -> dict:
+    """Over the endpoint the HMD was answered with: every frame as I420 and as
+    NV12, each answer a detection and byte-equal to the packet the same server
+    answers for the RGB8 frame ``serving/frameio.py`` decodes from that
+    payload; the server's conversions must all have taken the compiled path.
+    Then three I420 requests under the profiler."""
+    import numpy as np
+
+    from hmd_ego_pose_tpu_torch.serving import frameio, protocol
+    from hmd_ego_pose_tpu_torch.serving.server import PoseClient
+
+    size = frames.shape[1:3]
+    kinds = {"i420": (protocol.KIND_I420, frameio.i420_to_rgb), "nv12": (protocol.KIND_NV12, frameio.nv12_to_rgb)}
+    payloads = {name: [] for name in kinds}
+    for frame in frames:
+        i420, nv12 = rgb_to_yuv420(frame)
+        payloads["i420"].append(i420)
+        payloads["nv12"].append(nv12)
+    if endpoint["frame_kinds"] != ["rgb8", "i420", "nv12"]:
+        raise AssertionError(f"the answer names other frame kinds: {endpoint}")
+    rtts = {name: [] for name in kinds}
+    with PoseClient(endpoint["host"], endpoint["port"], timeout=60.0) as client:
+        want = {}
+        for name, (_, convert) in kinds.items():
+            for i, payload in enumerate(payloads[name]):
+                pose = client.infer(convert(np.frombuffer(payload, np.uint8), *size))
+                if pose is None:
+                    raise AssertionError(f"{name} frame {i}: the decoded RGB8 frame got no detection")
+                want[name, i] = protocol.encode_pose_packet(*pose)
+        frameio.CONVERSIONS.reset()
+        for name, (kind, _) in kinds.items():
+            for i, payload in enumerate(payloads[name]):
+                t = time.perf_counter()
+                pose = client.infer_encoded(payload, kind, *size)
+                rtts[name].append((time.perf_counter() - t) * 1e3)
+                if pose is None:
+                    raise AssertionError(f"{name} frame {i}: no detection served")
+                got = protocol.encode_pose_packet(*pose)
+                if got != want[name, i]:
+                    raise AssertionError(
+                        f"{name} frame {i}: packet {np.frombuffer(got, '<f4').tolist()} differs from the "
+                        f"decoded RGB8 frame's {np.frombuffer(want[name, i], '<f4').tolist()}")
+        conversions = frameio.CONVERSIONS.snapshot()
+        if conversions != {"native": 2 * len(frames)}:
+            raise AssertionError(f"the server's YUV conversions did not all take the compiled path: {conversions}")
+        profile = profile_requests(client, payloads["i420"][:3], protocol.KIND_I420, size)
+    return {
+        "frames_per_kind": len(frames), "byte_equal_to_rgb8_of_decoded": 2 * len(frames),
+        "conversions": conversions,
+        **{f"rtt_ms_{name}_p50": float(np.percentile(v, 50)) for name, v in rtts.items()},
+        **{f"rtt_ms_{name}_max": max(v) for name, v in rtts.items()},
+        "profile": profile,
+    }
+
+
 def phase_serve(dev, golden, frames, outputs, cams, cfg, card: str) -> dict:
     import numpy as np
+    import torch
 
     from hmd_ego_pose_tpu_torch import cli
     from hmd_ego_pose_tpu_torch.eval import golden as hold
     from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
+    from hmd_ego_pose_tpu_torch.serving import signaling
     from hmd_ego_pose_tpu_torch.serving.server import PoseClient, PoseServer
+    from hmd_ego_pose_tpu_torch.train.checkpoint import restore_checkpoint
+    from hmd_ego_pose_tpu_torch.utils.device import UPLOADS
+
+    # the restore alone, three times: its host-to-device copies and seconds
+    restore_s = []
+    for _ in range(3):
+        UPLOADS.reset()
+        t0 = time.perf_counter()
+        restore_checkpoint(ARTIFACT, dev)
+        torch.cuda.synchronize()
+        restore_s.append(time.perf_counter() - t0)
+        restore_uploads = UPLOADS.snapshot()
+        if restore_uploads != RESTORE_UPLOADS:
+            raise AssertionError(f"the restore's host-to-device copies are {restore_uploads}, not {RESTORE_UPLOADS}")
 
     LAUNCHES.reset()
+    UPLOADS.reset()
     t0 = time.perf_counter()
     engine = cli.build_engine(ARTIFACT, dev, frame_size=frames.shape[1], score_threshold=0.1)
     server = PoseServer(engine, host="127.0.0.1", port=0).start()
     t_start = time.perf_counter() - t0
+    if UPLOADS.snapshot() != RESTORE_UPLOADS:
+        raise AssertionError(f"cli serve's restore made the copies {UPLOADS.snapshot()}")
     host, port = server.address
     rtts, reports = [], []
+    sig = responder = None
     try:
         with PoseClient(host, port, timeout=60.0) as client:
             for i, frame in enumerate(frames):
@@ -1485,15 +1662,31 @@ def phase_serve(dev, golden, frames, outputs, cams, cfg, card: str) -> dict:
                 if not report["ok"]:
                     raise AssertionError(f"served pose off the golden: {report}")
                 reports.append(report)
+        # cli serve --signaling-url: the workstation answers the HMD's offer
+        sig = signaling.SignalingServer(port=0).start()
+        url = "http://%s:%d/" % sig.address
+        responder = cli.start_signaling(cli.build_parser().parse_args(["serve", "--signaling-url", url]),
+                                        server, poll_interval=0.02)
+        endpoint, bootstrap_ms = hmd_offers(url)
+        if (endpoint["host"], endpoint["port"]) != (host, port):
+            raise AssertionError(f"the answer names {endpoint}, the server listens on {host}:{port}")
+        yuv = serve_yuv(endpoint, frames)
         stats = engine.stats()
     finally:
+        if responder is not None:
+            responder.stop()
+        if sig is not None:
+            sig.stop()
         server.stop(timeout=10.0)
     launches = LAUNCHES.snapshot()
     return {
-        "frames": len(reports), "startup_s": t_start,
+        "frames": len(reports), "startup_s": t_start, "restore_s": restore_s,
+        "restore_uploads": restore_uploads,
         "worst": hold.worst(reports),
         "tie_switches": sum(r["tie_switch"] for r in reports),
         "rtt_ms_p50": float(np.percentile(rtts, 50)), "rtt_ms_max": max(rtts),
+        "signaling_bootstrap_ms": bootstrap_ms, "signaling_bootstrap_ms_p50": float(np.median(bootstrap_ms)),
+        "endpoint": endpoint, **yuv,
         "engine_stats": stats, "launches": launches, "card": card,
     }
 

@@ -107,6 +107,28 @@ def build_engine(ckpt: Optional[str], device=None, phi: int = 0, img_size: int =
     return engine
 
 
+def start_signaling(args, server, poll_interval: float = 0.5):
+    """Register ``server`` with the node-dss service at ``args.signaling_url``:
+    a started ``PoseEndpointResponder`` that answers each offer to
+    ``args.local_peer_id`` with the server's endpoint.  None without
+    ``--signaling-url``.  The endpoint's host is ``--advertise-host``, else the
+    bind host, with a wildcard bind (not dialable) advertised as 127.0.0.1."""
+    if not args.signaling_url:
+        return None
+    from hmd_ego_pose_tpu_torch.serving.signaling_client import NodeDssSignalerClient, PoseEndpointResponder
+
+    signaler = NodeDssSignalerClient(args.signaling_url, args.local_peer_id, args.remote_peer_id,
+                                     poll_interval=poll_interval)
+    host, port = server.address[:2]
+    if args.advertise_host:
+        host = args.advertise_host
+    elif host in ("0.0.0.0", "::"):
+        host = "127.0.0.1"  # wildcard bind is not dialable; --advertise-host for a LAN
+    responder = PoseEndpointResponder(signaler, host, port)
+    responder.start()
+    return responder
+
+
 def cmd_serve(args):
     from hmd_ego_pose_tpu_torch.serving.server import PoseServer
 
@@ -117,11 +139,16 @@ def cmd_serve(args):
     server = PoseServer(engine, host=args.host, port=args.port)
     server.start()
     print(f"pose server listening on {server.address}", flush=True)
+    responder = start_signaling(args, server)
+    if responder is not None:
+        print(f"answering offers for '{args.local_peer_id}' at {args.signaling_url}", flush=True)
     try:
         while True:
             time.sleep(30)
             print(json.dumps(engine.stats()), flush=True)
     except KeyboardInterrupt:
+        if responder is not None:
+            responder.stop()
         server.stop()
 
 
@@ -355,6 +382,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "scenes at s-x resolution")
     p.set_defaults(func=cmd_make_synthetic)
     p = sub.add_parser("serve", help="pose-streaming server over TCP")
+    p.add_argument("--signaling-url", default=None,
+                   help="node-dss signaling service to register with (e.g. http://host:3000/)")
+    p.add_argument("--local-peer-id", default="workstation")
+    p.add_argument("--remote-peer-id", default="hmd")
+    p.add_argument("--advertise-host", default=None,
+                   help="endpoint host to advertise in signaling answers (default: bind host)")
     p.add_argument("--ckpt", default=None, help=".npz checkpoint (fp32 or int8)")
     p.add_argument("--phi", type=int, default=0)
     p.add_argument("--img-size", type=int, default=256)

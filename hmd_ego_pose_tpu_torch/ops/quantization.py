@@ -36,6 +36,7 @@ import torch
 
 from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
 from hmd_ego_pose_tpu_torch.kernels import build
+from hmd_ego_pose_tpu_torch.utils.device import UPLOADS
 
 DEQUANTIZE_BLOCK_VALUES = 4096  # values per block of csrc/dequantize.cu: 256 threads x 16
 DEQUANTIZE_ALIGN = 16  # a dequantize group starts every leaf at a multiple of 16 values
@@ -90,6 +91,7 @@ def _launch(name: str, group: Group, table: Optional[torch.Tensor], *buffers: to
     device = buffers[0].device
     if table is None:
         table = torch.from_numpy(group.table).to(device)
+        UPLOADS.add(f"{name}/table")
     elif table.device != device or table.dtype != torch.int64 or tuple(table.shape) != group.table.shape:
         raise ValueError(f"the table must be the group's int64 {group.table.shape} on {device}")
     lib = build.library(name)
@@ -200,11 +202,15 @@ def dequantize_group(leaves: Sequence[Tuple[Any, Any]], device) -> List[torch.Te
     are packed on the host (``pack_dequantize_group``), uploaded (the
     values, the scales and the table: one copy each) and dequantized by
     ``dequantize_packed``.  Returns each leaf's (R, C) float32 result, in
-    order: views of one buffer on ``device``.
+    order: views of one buffer on ``device``.  The uploads are counted in
+    ``utils/device.py::UPLOADS`` (the table's in ``_launch``, on the card).
     """
     values, scales, group = pack_dequantize_group(leaves)
     device = torch.device(device)
-    out = dequantize_packed(torch.from_numpy(values).to(device), torch.from_numpy(scales).to(device), group)
+    values, scales = torch.from_numpy(values).to(device), torch.from_numpy(scales).to(device)
+    UPLOADS.add("dequantize_group/values")
+    UPLOADS.add("dequantize_group/scales")
+    out = dequantize_packed(values, scales, group)
     t = group.table
     return [p.view(r, c) for p, (r, c) in zip(_split(out, t[:, 2], t[:, 3] * t[:, 4]), t[:, 3:5].tolist())]
 

@@ -1,9 +1,9 @@
 """TCP pose-streaming server and a blocking client.
 
 Counterpart of ``hmd_ego_pose_tpu/serving/server.py``: clients send frame
-messages (``serving/protocol.py``), the server answers each with one 24-byte
-pose packet.  One receive thread per connection feeds the shared
-``InferenceEngine``, whose dispatcher batches across clients.  Every wait is
+messages (``serving/protocol.py``: RGB8, I420 or NV12), the server answers
+each with one 24-byte pose packet.  One receive thread per connection feeds
+the shared ``InferenceEngine``, whose dispatcher batches across clients.  Every wait is
 bounded: ``stop`` joins the acceptor thread with a timeout, and the client's
 socket has a timeout.
 """
@@ -99,8 +99,15 @@ class PoseClient:
         self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
 
     def infer(self, frame: np.ndarray):
-        """One frame -> (rotation_rad, translation_m), or None without a detection."""
-        self.sock.sendall(protocol.encode_frame_message(frame))
+        """One RGB8 frame -> (rotation_rad, translation_m), or None without a detection."""
+        return self._roundtrip(protocol.encode_frame_message(frame))
+
+    def infer_encoded(self, payload: bytes, kind: int, height: int, width: int):
+        """Send an I420/NV12 payload (the reference HMD's frame formats); as ``infer``."""
+        return self._roundtrip(protocol.encode_raw_frame_message(payload, kind, height, width))
+
+    def _roundtrip(self, message: bytes):
+        self.sock.sendall(message)
         packet = _recv_exact(self.sock, protocol.POSE_PACKET_BYTES)
         if packet is None:
             raise ConnectionError("server closed the connection")

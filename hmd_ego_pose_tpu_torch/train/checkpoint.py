@@ -21,8 +21,10 @@ its last axis).  Every int8 leaf, in tree order, is dequantized by one
 ``ops/quantization.dequantize_group``: the values and the scales packed on
 the host, uploaded once each and dequantized on the card by the CUDA kernel
 in one launch; the leaves come back as views of one buffer.  The float32
-leaves and ``bn/...`` are uploaded one by one.  The metadata sidecar ``<name>.json`` comes back
-as a dict.  Orbax directories are not read by the port yet.
+leaves and ``bn/...`` go up packed, one copy per dtype
+(``utils/device.py::pack_transfer``), also as views of one buffer.  The
+metadata sidecar ``<name>.json`` comes back as a dict.  Orbax directories
+are not read by the port yet.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch
 
 from hmd_ego_pose_tpu_torch.config import ModelConfig
 from hmd_ego_pose_tpu_torch.ops.quantization import dequantize_group, host_array, quantize_tree
-from hmd_ego_pose_tpu_torch.utils.device import DeviceLike, resolve_device
+from hmd_ego_pose_tpu_torch.utils.device import DeviceLike, pack_transfer, resolve_device
 
 
 def _unflatten(flat: Dict[str, Any]):
@@ -58,16 +60,6 @@ def _unflatten(flat: Dict[str, Any]):
         return {k: listify(v) for k, v in node.items()}
 
     return listify(root)
-
-
-def _map_tree(fn, tree, is_leaf):
-    if is_leaf(tree):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: _map_tree(fn, v, is_leaf) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map_tree(fn, v, is_leaf) for v in tree]
-    return fn(tree)
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
@@ -147,36 +139,44 @@ def meta_hand_relative(metadata: Dict[str, Any]) -> Optional[bool]:
     return None
 
 
-def _packed(node) -> bool:
-    return isinstance(node, dict) and ("fp32" in node or "int8" in node)
-
-
 def restore_checkpoint(path: str, device: DeviceLike = None) -> Tuple[Any, Any, Dict[str, Any]]:
-    """(params, bn_state, metadata): the JAX-layout trees as float32 tensors on ``device``."""
+    """(params, bn_state, metadata): the JAX-layout trees as tensors on ``device``.
+
+    The float32 leaves (``params/...`` of an npz file, the ``fp32`` leaves of
+    an int8 file, and ``bn/...``) go up in one ``utils/device.py::pack_transfer``
+    (one copy per dtype); the int8 leaves in one ``dequantize_group``.
+    """
     dev = resolve_device(device)
     if os.path.isdir(path):
         raise NotImplementedError(f"{path}: orbax checkpoints are not read by the PyTorch port")
     with np.load(path) as data:
         files = data.files
-        params_flat = {k[len("params/"):]: data[k] for k in files if k.startswith("params/")}
-        bn_flat = {k[len("bn/"):]: data[k] for k in files if k.startswith("bn/")}
         int8 = "__format__" in files and str(data["__format__"]) == "int8"
+        flat = {k: data[k] for k in files if k.startswith(("params/", "bn/"))}
 
-    def upload(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    params = _unflatten(params_flat)
-    if int8:
-        stored: List[Dict[str, np.ndarray]] = []
-        _map_tree(stored.append, params, _packed)
-        quantized = [(leaf["int8"].reshape(-1, leaf["int8"].shape[-1]), leaf["scales"])
-                     for leaf in stored if "int8" in leaf]
-        restored = iter(dequantize_group(quantized, dev) if quantized else ())
-        params = _map_tree(lambda leaf: upload(leaf["fp32"]) if "fp32" in leaf
-                           else next(restored).reshape(leaf["int8"].shape), params, _packed)
-    else:
-        params = _map_tree(upload, params, lambda x: isinstance(x, np.ndarray))
-    bn_state = _map_tree(upload, _unflatten(bn_flat), lambda x: isinstance(x, np.ndarray))
+    names: List[str] = []  # every leaf, in file order
+    host: Dict[str, np.ndarray] = {}
+    quantized: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+    for key, value in flat.items():
+        if int8 and key.startswith("params/"):
+            name, _, member = key.rpartition("/")
+            if member == "fp32":
+                host[name] = value
+            elif member == "int8":
+                quantized[name] = (value, flat[name + "/scales"])
+            else:
+                continue  # the scales and shape members of an int8 leaf
+        else:
+            name = key
+            host[name] = value
+        names.append(name)
+    tensors = pack_transfer(host, dev)
+    if quantized:
+        # stored int8 arrays may be Fortran-ordered: reshape gives row-major (R, C)
+        restored = dequantize_group([(v.reshape(-1, v.shape[-1]), sc) for v, sc in quantized.values()], dev)
+        tensors.update({name: r.view(v.shape) for (name, (v, _)), r in zip(quantized.items(), restored)})
+    params = _unflatten({n[len("params/"):]: tensors[n] for n in names if n.startswith("params/")})
+    bn_state = _unflatten({n[len("bn/"):]: tensors[n] for n in names if n.startswith("bn/")})
 
     metadata: Dict[str, Any] = {}
     meta_path = path[: -len(".npz")] + ".json"

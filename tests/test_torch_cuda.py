@@ -221,3 +221,42 @@ def test_group_wrappers_raise_on_mixed_devices_wrong_dtypes_and_empty_groups(cud
             quantize_group(bad, cuda_device)
     with pytest.raises(ValueError):
         dequantize(on_card[0], on_card[1].cpu())
+
+
+def test_pack_transfer_on_the_card_equals_per_leaf_uploads(cuda_device):
+    from hmd_ego_pose_tpu_torch.utils.device import UPLOADS, pack_transfer
+
+    rng = np.random.default_rng(3)
+    tree = {"a": rng.normal(size=(3, 5)).astype(np.float32),
+            "b": [np.asfortranarray(rng.normal(size=(4, 2, 3)).astype(np.float32)), np.int64(9)],
+            "c": (np.zeros((0,), np.float32), rng.integers(0, 9, size=(7,), dtype=np.int64))}
+    UPLOADS.reset()
+    got = pack_transfer(tree, cuda_device)
+    assert UPLOADS.snapshot() == {"pack_transfer/float32": 1, "pack_transfer/int64": 1}
+    pairs = [(got["a"], tree["a"]), (got["b"][0], tree["b"][0]), (got["b"][1], tree["b"][1]),
+             (got["c"][0], tree["c"][0]), (got["c"][1], tree["c"][1])]
+    for g, w in pairs:
+        one = torch.as_tensor(np.array(np.asarray(w), order="C")).to(cuda_device)
+        assert g.device.type == "cuda" and g.dtype == one.dtype and g.shape == one.shape
+        assert torch.equal(g, one)
+
+
+def test_packed_restore_on_the_card_equals_the_cpu_restore(cuda_device):
+    """The shipped artifact: one float32 copy and the int8 group's three (values,
+    scales, table), one dequantize launch, every leaf bit-equal to the CPU restore."""
+    from hmd_ego_pose_tpu_torch.train.checkpoint import _flatten, restore_checkpoint
+    from hmd_ego_pose_tpu_torch.utils.device import UPLOADS
+
+    UPLOADS.reset()
+    LAUNCHES.reset()
+    on_card = restore_checkpoint(chip_smoke.ARTIFACT, cuda_device)
+    torch.cuda.synchronize()
+    assert UPLOADS.snapshot() == {"pack_transfer/float32": 1, "dequantize_group/values": 1,
+                                  "dequantize_group/scales": 1, "dequantize/table": 1}
+    assert LAUNCHES.snapshot() == {"dequantize": 1}
+    on_cpu = restore_checkpoint(chip_smoke.ARTIFACT, "cpu")
+    assert on_card[2] == on_cpu[2]
+    got, want = _flatten(on_card[:2]), _flatten(on_cpu[:2])
+    assert list(got) == list(want) and len(got) == 452 + 137 + 306
+    for name in want:
+        assert got[name].device.type == "cuda" and chip_smoke.same_bits(got[name].cpu(), want[name]), name

@@ -24,7 +24,7 @@ from hmd_ego_pose_tpu_torch.data.image import read_png
 from hmd_ego_pose_tpu_torch.eval import golden as hold
 from hmd_ego_pose_tpu_torch.models import hmd_ego_pose
 from hmd_ego_pose_tpu_torch.ops.preprocess import preprocess_uint8_batch
-from hmd_ego_pose_tpu_torch.serving import protocol
+from hmd_ego_pose_tpu_torch.serving import frameio, protocol
 from hmd_ego_pose_tpu_torch.serving.server import PoseClient, PoseServer
 from hmd_ego_pose_tpu_torch.train.checkpoint import load_model
 from hmd_ego_pose_tpu_torch.utils.device import resolve_device
@@ -157,14 +157,27 @@ def test_concurrent_clients_get_their_own_poses():
 
 
 def test_protocol_round_trip_and_rgb8_only():
-    frame = np.random.default_rng(0).integers(0, 256, size=(4, 6, 3), dtype=np.uint8)
+    """Named for the RGB8-only refusal it pinned until the port decoded I420 and
+    NV12; it now holds the round trip of all three kinds."""
+    rng = np.random.default_rng(0)
+    frame = rng.integers(0, 256, size=(4, 6, 3), dtype=np.uint8)
     np.testing.assert_array_equal(protocol.decode_frame_message(protocol.encode_frame_message(frame)), frame)
+    planes = rng.integers(0, 256, size=4 * 6 * 3 // 2, dtype=np.uint8)
+    for kind, convert in ((protocol.KIND_I420, frameio.i420_to_rgb), (protocol.KIND_NV12, frameio.nv12_to_rgb)):
+        assert protocol.payload_size(kind, 4, 6) == 36
+        message = protocol.encode_raw_frame_message(planes.tobytes(), kind, 4, 6)
+        assert protocol.decode_frame_header(message[:protocol.HEADER_BYTES]) == (kind, 4, 6)
+        decoded = protocol.decode_frame_message(message)
+        assert decoded.shape == (4, 6, 3) and decoded.dtype == np.uint8
+        np.testing.assert_array_equal(decoded, convert(planes, 4, 6))
     packet = protocol.encode_pose_packet(np.array([0.1, 0.2, 0.3]), np.array([1.0, 2.0, 3.0]))
     assert len(packet) == protocol.POSE_PACKET_BYTES == 24
     rotation, translation = protocol.decode_pose_packet(packet)
     np.testing.assert_allclose(np.concatenate([rotation, translation]), [0.1, 0.2, 0.3, 1, 2, 3], rtol=1e-6)
     with pytest.raises(ValueError):
-        protocol.payload_size(1, 4, 6)  # I420 is not served by the port yet
+        protocol.payload_size(3, 4, 6)  # no fourth kind
+    with pytest.raises(ValueError):
+        protocol.decode_frame_message(protocol.encode_frame_message(frame)[:-1])  # a short payload
 
 
 def test_entry_points_refuse_cuda_without_a_card():

@@ -232,3 +232,74 @@ def test_int8_save_defaults_to_the_card(seeded_trees, tmp_path):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         checkpoint.save_checkpoint(str(tmp_path), "w", *seeded_trees, backend="int8")
+
+
+def _mixed_tree():
+    """Leaves of four dtypes, 0-d, empty and Fortran-ordered ones, in nested dicts, lists and tuples."""
+    rng = np.random.default_rng(11)
+    return {
+        "w": rng.normal(size=(3, 4)).astype(np.float32),
+        "f": np.asfortranarray(rng.normal(size=(5, 2, 3)).astype(np.float32)),
+        "blocks": [{"k": rng.normal(size=(2,)).astype(np.float32), "n": np.int64(7)},
+                   {"k": np.zeros((0, 3), np.float32), "n": np.arange(4, dtype=np.int64)}],
+        "pair": (np.array(True), rng.integers(-128, 128, size=(2, 3), dtype=np.int8)),
+        "scalar": np.float32(2.5),
+        "tensor": torch.arange(6, dtype=torch.float32).reshape(2, 3),
+    }
+
+
+def test_pack_transfer_equals_per_leaf_uploads_with_one_copy_per_dtype():
+    from hmd_ego_pose_tpu_torch.utils.device import UPLOADS, pack_transfer
+
+    tree = _mixed_tree()
+    UPLOADS.reset()
+    packed = pack_transfer(tree, "cpu")
+    assert UPLOADS.snapshot() == {"pack_transfer/float32": 1, "pack_transfer/int64": 1,
+                                  "pack_transfer/bool": 1, "pack_transfer/int8": 1}
+    assert isinstance(packed["pair"], tuple) and isinstance(packed["blocks"], list)
+    assert list(packed) == list(tree)
+    got, want = checkpoint._flatten(packed), checkpoint._flatten(tree)
+    assert list(got) == list(want)
+    for name, leaf in want.items():
+        one = torch.as_tensor(np.array(np.asarray(leaf), order="C")).to("cpu")
+        assert got[name].dtype == one.dtype and got[name].shape == one.shape, name
+        assert torch.equal(got[name], one), name
+    # the float32 leaves are views of one buffer, in tree order
+    floats = [got[k] for k in ("blocks/0/k", "blocks/1/k", "f", "scalar", "tensor", "w")]
+    assert len({t.untyped_storage().data_ptr() for t in floats}) == 1
+    assert pack_transfer({}, "cpu") == {}
+
+
+def test_packed_restore_of_the_artifact_bit_equal_to_jax():
+    from hmd_ego_pose_tpu_torch.utils.device import UPLOADS
+
+    UPLOADS.reset()
+    params, bn_state, meta = checkpoint.restore_checkpoint(ARTIFACT, device="cpu")
+    # one copy for the 452 float32 and 306 bn/ leaves, two for the int8 group's
+    # values and scales (its table goes up only for the kernel, on the card)
+    assert UPLOADS.snapshot() == {"pack_transfer/float32": 1, "dequantize_group/values": 1,
+                                  "dequantize_group/scales": 1}
+    want_params, want_bn, want_meta = jax_checkpoint.restore_checkpoint(ARTIFACT)
+    assert meta == want_meta
+    for got, want in ((params, want_params), (bn_state, want_bn)):
+        got = jax.tree.map(lambda t: t.numpy(), got)
+        assert jax.tree.structure(got) == jax.tree.structure(want)
+        for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+            assert g.dtype == np.float32 and g.shape == w.shape
+            np.testing.assert_array_equal(g, np.asarray(w))
+    assert len(jax.tree.leaves(params)) + len(jax.tree.leaves(bn_state)) == 452 + 137 + 306
+
+
+def test_packed_restore_of_an_fp32_checkpoint(trees, tmp_path):
+    from hmd_ego_pose_tpu_torch.utils.device import UPLOADS
+
+    params, bn_state = trees
+    path = jax_checkpoint.save_checkpoint(str(tmp_path), "fp32", params, bn_state)
+    UPLOADS.reset()
+    got_params, got_bn, _ = checkpoint.restore_checkpoint(path, device="cpu")
+    assert UPLOADS.snapshot() == {"pack_transfer/float32": 1}
+    for got, want in ((got_params, params), (got_bn, bn_state)):
+        got = jax.tree.map(lambda t: t.numpy(), got)
+        assert jax.tree.structure(got) == jax.tree.structure(want)
+        for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+            np.testing.assert_array_equal(g, w)
