@@ -25,28 +25,19 @@ Phases, each printing one JSON line of its own:
                and the launch alone (``launch_ms``), plain and
                ``torch.cdist(...).amin`` times at the evaluation's shape,
                beside the operations bound.
-5. kernel_iou -- the one-call anchor-IoU kernel against its plain version at
-               the train step's shape (16 images, the 12,276 anchors at 256
-               px shared by the batch, one box) and at K = 4, N off every
-               block, a single anchor and more boxes than one shared-memory
-               chunk, with degenerate boxes, for shared and per-image
-               anchors: bit equality required; call, launch and plain times
-               at the train shape beside the bytes bound (no single PyTorch
-               call computes it: library time null).  No main path launches
-               it any more: the kernels line gives it 0 launches and
-               ``"main_path": false``.
-6. kernel_target_assign -- the fused target-assignment kernel against its
+5. kernel_target_assign -- the fused target-assignment kernel against its
                plain version ``assign_targets_batch_reference`` on the card:
                the train shape (16 images, 12,276 anchors, K = 1, C = 1), the
                multi-object run's shape (K = 2, C = 2, one object's row
                invalidated), K = 3 padded with two classes, the hazard batch (a padded row after
                a valid row whose best anchor is anchor 0), K = 4 with repeated
                best anchors, images without valid ground truth and anchors
-               whose centre lies outside the image: all five outputs bit-equal,
+               whose centre lies outside the image, and a data-parallel rank's
+               shape (8 images): all five outputs bit-equal,
                one launch count per call; at the train shape the call, the
                launches alone, the plain version's call and device time, the
                host time of one call of each, beside the bytes bound.
-7. kernel_quantize -- the grouped int8 quantize kernel against its plain
+6. kernel_quantize -- the grouped int8 quantize kernel against its plain
                version on the card, as groups of one on the 137 dequantized
                int8 leaves of the shipped artifact and on seeded odd shapes (a
                single value and row, C off 32, C = 10, the largest leaf), zero
@@ -61,7 +52,7 @@ Phases, each printing one JSON line of its own:
                ``torch.quantize_per_channel`` loops (the last with the
                kernel's scales, and the count of int8 values it gets wrong),
                beside the bytes bound.
-8. predict  -- restore of ``trained/syn1000_phi0_576ep_handrel_int8.npz`` on the
+7. predict  -- restore of ``trained/syn1000_phi0_576ep_handrel_int8.npz`` on the
                card, then ``predict`` (phi-0, 256 px, bf16, score threshold
                0.1) of the six committed golden frames, held to
                ``tests/goldens/handrel_ckpt_expected.npz``
@@ -69,7 +60,7 @@ Phases, each printing one JSON line of its own:
                and the device preprocess of a seeded 300x300 frame, which must
                equal the CPU's bit for bit, with its time and that of a
                1080x1920 frame (to 256 px).
-9. serve    -- first the restore alone, three times: its host-to-device copies
+8. serve    -- first the restore alone, three times: its host-to-device copies
                must be one float32 copy (``utils/device.py::pack_transfer``)
                and the int8 group's three (values, scales, table); its seconds.  Then
                the serving path as ``cli serve`` builds it (restore, BN fold,
@@ -89,7 +80,7 @@ Phases, each printing one JSON line of its own:
                device time, kernels by device time and host rows by self host
                time, each per request.  Kernel launch counts are reset just before
                the engine is built and read just after the phase.
-10. evaluate -- ``cli make-synthetic`` writes the 1000-frame, 256 px, seed-0,
+9. evaluate -- ``cli make-synthetic`` writes the 1000-frame, 256 px, seed-0,
                hand-render-v3 set into a temporary directory, whose
                ``gt_0.yml`` must hash as the JAX generator's did; then
                ``cli evaluate`` of the shipped artifact on its 200 val frames
@@ -98,7 +89,7 @@ Phases, each printing one JSON line of its own:
                once (one class), and every scalar must lie within the stated
                tolerances of ``hmd_ego_pose_tpu_torch/eval/references/handrel_v3_val.json``
                (the JAX package's evaluation, ``scripts/make_eval_reference.py``).
-11. train   -- on the same set: first four fixed training steps (augmentation
+10. train   -- on the same set: first four fixed training steps (augmentation
                and drop-connect off) of ``cli train``'s trainer from the
                artifact, whose six loss terms must lie within the stated
                tolerance of ``hmd_ego_pose_tpu_torch/train/references/
@@ -108,15 +99,32 @@ Phases, each printing one JSON line of its own:
                trainer (``cli.build_trainer``: phi-0, 256 px, fp32, batch 16,
                Adam 1e-4, frozen backbone, oversample 1) for one epoch over the
                600 train frames and validation on the 200 val frames.  Every
-               loss finite, ``target_assign`` launched once per step and
-               ``iou`` never, ``dequantize`` once at the restore,
+               loss finite, ``target_assign`` launched once per step,
+               ``dequantize`` once at the restore,
                ``min_distances`` once; the backbone's
                parameters bit-identical and its BN statistics moved; the best
                and ``last`` checkpoints written and restored to the trained
                model, ``last`` with the optimizer's leaves.  Times: step p50 and
                max (synchronised) and its parts, images/s, epoch, validation
-               and start-up seconds, and a torch.profiler sample of four more
-               steps (device time per step, busy share).
+               and start-up seconds, and a torch.profiler sample of two more
+               steps (device time per step, busy share; four until PR 11: the
+               sample took 31 s of the script, nearly all the profiler's own).
+11. train_dp -- data-parallel training: two ranks of ``cli train``'s trainer
+               (``cli.build_trainer`` under torchrun's environment, global batch
+               16 split 8 + 8) share the one card over gloo, each a subprocess
+               of this script (``--train-dp-rank``), joined with a timeout.
+               Four fixed steps (augmentation and drop-connect off) held to
+               ``handrel_v3_train_steps.json`` within its tolerance and to the
+               train phase's own four steps within 1e-5 relative; then ``fit``
+               of one short epoch (8 augmented steps with drop-connect,
+               validation on rank 0 only, its metric broadcast, checkpoints by
+               rank 0 only): every step finite, the ranks' losses and state
+               digests (parameters and BN buffers) bit-identical after every
+               step, ``target_assign`` once per step on each rank, ``dequantize``
+               once per rank, ``min_distances`` on rank 0 only.  Step p50 against
+               the train phase's, the collective calls per step and their share
+               of the step.  With two or more cards the fixed steps run again
+               over NCCL, one card per rank; with one the line says so.
 12. train_multi -- ``cli make-synthetic --num-objects 2`` writes the 400-frame,
                256 px two-object set (fold 0: 240 train, 80 val), whose
                ``gt_0.yml`` must hash as the JAX generator's did; the artifact
@@ -130,8 +138,9 @@ Phases, each printing one JSON line of its own:
                checkpoints written and restored.
 13. train_windowed -- the v3 set's 600 train frames with
                ``device_resident_budget_bytes`` of a third of them: three
-               windows of 200 frames over one epoch, the step count the sum
-               over the windows, ``target_assign`` once per step; the device
+               windows of 200 frames over one epoch, each window's index rows
+               cut to its first 4 steps (12 steps; a full epoch's 36 until
+               PR 11), ``target_assign`` once per step; the device
                memory held after each window's upload, over the model as
                built, must stay within one window and Adam's moments (one
                window resident at a time), and the peak is reported beside
@@ -139,14 +148,17 @@ Phases, each printing one JSON line of its own:
 14. train_host -- ``device_augment=False``: four fixed steps of host batches
                (augmentation off) held to ``handrel_v3_train_steps.json``, the
                largest gap between the host-preprocessed and the
-               device-preprocessed batch of step 0 per field, then one
+               device-preprocessed batch of step 0 per field, then an
                augmented epoch through the host input pipeline (worker
-               threads): step times and images/s beside the resident run's.
+               threads) cut to its first 12 batches (37 until PR 11), then 4
+               steps of batches made serially: step times and images/s beside
+               the resident run's.
 15. train_remat -- ``--no-freeze-backbone``, the same state, batch and
                drop-connect seed through a remat and a plain step: losses
                equal, BN statistics moved once (as the plain step's within
                1e-5 relative), parameters finite and within 2 lr (one Adam
-               step); peak memory and step times of five steps of each.
+               step); peak memory and step times of three steps of each
+               (five until PR 11).
 16. export  -- ``cli export --ckpt trained/syn1000_phi0_576ep_handrel_int8.npz
                --quantize-int8`` on the card (phi-0, 256 px, fp32) into the
                temporary directory, with the launch counts reset just before
@@ -164,7 +176,7 @@ Phases, each printing one JSON line of its own:
 17. shutdown -- server and engine stopped, every thread joined with a timeout.
 
 Then the ``kernels`` JSON line (``target_assign``'s launches summed over the
-five training runs, ``min_distances``' over the evaluation and the two-class
+six training runs, both data-parallel ranks included, ``min_distances``' over the evaluation and the two-class
 validation), the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 non-zero without that line.  It exits non-zero at once without a CUDA device
@@ -212,14 +224,17 @@ MULTI_REFERENCE = os.path.join(HERE, "hmd_ego_pose_tpu_torch", "train", "referen
 # (B, N, K) of the IoU kernel besides the train step's (16, 12,276 anchors at
 # 256 px, 1): four boxes, N off every block size, a single anchor, and more
 # boxes than one shared-memory chunk (256)
-IOU_SHAPES = ((16, 12276, 4), (3, 4097, 2), (2, 1, 3), (2, 1000, 300))
 # the odd shapes the quantize kernel must also take: a single value, a single
 # row, C off 32, the largest leaf of the artifact, the smallest C (10)
 QUANT_SHAPES = ((1, 1), (1, 1280), (5, 33), (7, 1000), (1152, 320), (3, 10))
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line; ``t_s``: the script's seconds when it ended."""
+    print(json.dumps({"phase": phase, **fields, "t_s": time.perf_counter() - T0}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -580,70 +595,6 @@ def phase_min_distances(dev) -> dict:
     }
 
 
-def iou_inputs(rng, dev, b: int, n: int, k: int, image_size: int = 256):
-    """Seeded (N, 4) anchors (the 256 px pyramid's first N, tiled) and (B, K, 4)
-    boxes inside the image, with exact copies of anchors, zero-area, inverted
-    and far-away boxes among them (union <= 0 and disjoint pairs)."""
-    import numpy as np
-    import torch
-
-    from hmd_ego_pose_tpu_torch.config import AnchorConfig
-    from hmd_ego_pose_tpu_torch.ops.anchors import anchors_for_shape
-
-    pyramid = anchors_for_shape((image_size, image_size), AnchorConfig())[0]
-    anchors = np.resize(pyramid, (n, 4)).astype(np.float32)
-    xy = rng.uniform(0, image_size - 8, size=(b, k, 2))
-    wh = rng.uniform(4, image_size / 2, size=(b, k, 2))
-    boxes = np.concatenate([xy, xy + wh], axis=-1).astype(np.float32)
-    if k > 1:
-        boxes[:, 0] = anchors[rng.integers(0, n, size=b)]  # IoU exactly 1 somewhere
-        boxes[:, -1, 2:] = boxes[:, -1, :2]  # zero area
-    if k > 2:
-        boxes[:, 1] = boxes[:, 1, [2, 3, 0, 1]]  # inverted: negative area, union can be <= 0
-    if n > 2:
-        anchors[1, 2:] = anchors[1, :2]  # a zero-area anchor
-        anchors[2] = [1e4, 1e4, 1e4 + 8, 1e4 + 8]  # disjoint from every box
-    return torch.from_numpy(anchors).to(dev), torch.from_numpy(boxes).to(dev)
-
-
-def phase_iou(dev) -> dict:
-    import numpy as np
-    import torch
-
-    from hmd_ego_pose_tpu_torch.config import ModelConfig
-    from hmd_ego_pose_tpu_torch.kernels import LAUNCHES, bounds
-    from hmd_ego_pose_tpu_torch.ops.iou import iou_matrix, iou_matrix_reference
-
-    cfg = ModelConfig()
-    main_shape = (16, cfg.total_anchors, 1)
-    rng = np.random.default_rng(6)
-    max_err, checked = 0.0, []
-    LAUNCHES.reset()
-    for b, n, k in (main_shape,) + IOU_SHAPES:
-        anchors, boxes = iou_inputs(rng, dev, b, n, k)
-        for a in (anchors, anchors.expand(b, n, 4).contiguous()):  # shared and per-image anchors
-            got, want = iou_matrix(a, boxes), iou_matrix_reference(a, boxes)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"iou_matrix differs from its plain version at {(b, n, k)}: "
-                                     f"max |diff| {(got - want).abs().max().item()}")
-            max_err = max(max_err, (got - want).abs().max().item())
-        checked.append([b, n, k])
-        if (b, n, k) == main_shape:
-            main_inputs = (anchors, boxes)
-    checks = LAUNCHES.get("iou")  # one per shape and anchor layout; no main path launches iou
-    anchors, boxes = main_inputs
-    ms = cuda_time_ms(lambda: iou_matrix(anchors, boxes), reps=200)
-    launch_ms = device_time_ms(lambda: iou_matrix(anchors, boxes))
-    plain_ms = cuda_time_ms(lambda: iou_matrix_reference(anchors, boxes), reps=200)
-    return {
-        "shapes": checked, "bit_equal": True, "max_abs_err": max_err, "train_shape": list(main_shape),
-        "checks": checks, "kernel_ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms, "library_ms": None,
-        "library": "none (no single torch call computes a box IoU matrix)",
-        **bounds.bound(*bounds.iou_work(main_shape[1], main_shape[2], main_shape[0], shared_anchors=True)),
-    }
-
-
 def target_batch(rng, b: int, k: int, num_classes: int, image_size: int = 256):
     """Seeded padded ground truth of B images: (boxes, int32 labels, transformation
     (B, K, 8), coords (B, K, 63), bool valid) as numpy; boxes partly outside the
@@ -689,6 +640,7 @@ def target_cases(rng) -> dict:
         "k4_repeated_best": (repeated, 1, 256),
         "outside_image_c2": (target_batch(rng, 4, 3, 2, image_size=192), 2, 192),  # 256 px anchors, 192 px image
         "k300_chunked": (target_batch(rng, 2, 300, 1), 1, 256),
+        "train_dp_rank_b8": (target_batch(rng, 8, 1, 1), 1, 256),  # a data-parallel rank's 8 of 16 rows
     }
 
 
@@ -825,7 +777,7 @@ class TimedStep:
             raise AssertionError(f"non-finite losses at steps {bad}: {[self.losses[i] for i in bad]}")
 
 
-def profile_steps(trainer, steps: int = 4) -> dict:
+def profile_steps(trainer, steps: int = 2) -> dict:
     """Device busy share of a few more (unsynchronised) train steps under
     torch.profiler, and the kernels that take the most device time; None
     where the profiler sees no device time."""
@@ -958,9 +910,14 @@ def phase_train(card: str, data: str, work: str) -> dict:
     with contextlib.redirect_stdout(quiet):
         ref_trainer = cli.build_trainer(args, logger=MetricLogger(os.path.join(work, "runs"), stdout=False),
                                         checkpoint_dir=os.path.join(work, "ref_ckpt"))
-    ref_gaps = hold_to_reference(
-        reference, lambda s: ref_trainer.step_fn(ref_trainer.data, fixed_batch(ref_trainer, s), None, None),
-        "training")
+    ref_steps = []
+
+    def ref_step(s):
+        metrics = ref_trainer.step_fn(ref_trainer.data, fixed_batch(ref_trainer, s), None, None)
+        ref_steps.append({k: float(v) for k, v in metrics.items()})
+        return metrics
+
+    ref_gaps = hold_to_reference(reference, ref_step, "training")
     del ref_trainer
     torch.cuda.empty_cache()
 
@@ -987,8 +944,8 @@ def phase_train(card: str, data: str, work: str) -> dict:
     if trainer.path != "resident" or steps != frames // batch:
         raise AssertionError(f"{steps} steps for {frames} frames at batch {batch} on the {trainer.path} path")
     timed.check_finite()
-    if launches.get("target_assign", 0) != steps or launches.get("iou", 0) != 0:
-        raise AssertionError(f"target_assign must launch once per step ({steps}) and iou never, got {launches}")
+    if launches.get("target_assign", 0) != steps:
+        raise AssertionError(f"target_assign must launch once per step ({steps}), got {launches}")
     if launches_restore.get("dequantize", 0) != 1 or launches.get("dequantize", 0) != 1:
         raise AssertionError(f"the restore must launch dequantize once, got {launches_restore}")
     if launches.get("min_distances", 0) != 1:
@@ -1004,17 +961,226 @@ def phase_train(card: str, data: str, work: str) -> dict:
     saved = check_checkpoints(trainer, run["best"], ckpt_dir, steps, work)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
 
+    t_profile = time.perf_counter()
     profile = profile_steps(trainer)
+    profile["profile_s"] = time.perf_counter() - t_profile
     train_metrics, result = run["epochs"][-1]
     return {
         "reference_max_rel_gap": ref_gaps, "reference_tolerance_rel": reference["tolerance_rel"],
-        **timed.summary(batch), "batch": batch, "frames": frames, "val_frames": len(trainer.val_dataset),
+        "reference_steps": ref_steps, **timed.summary(batch), "batch": batch, "frames": frames,
+        "val_frames": len(trainer.val_dataset),
         "startup_s": t_startup, "fit_s": run["fit_s"], "epoch_s": train_metrics["epoch_seconds"],
         "validate_s": run["val_s"][0] if run["val_s"] else None, "profile": profile,
         "epoch_means": {k: train_metrics[k] for k in METRIC_NAMES},
         "val_mixed_point_distance_mean_mm": result.scalars()["mixed_point_distance_mean_mm"],
         "launches": launches, "backbone_stats_moved": len(stats_moved), **saved,
         "peak_mem_gb": peak_gb, "card": card,
+    }
+
+
+DP_AUG_STEPS = 8
+# the windowed and host variants' steps (PR 12 cut them from a full epoch, 36-37
+# steps, to pay for train_dp: each still runs the trainer's epoch code)
+VARIANT_STEPS = 12
+DP_RANK_TIMEOUT_S = 240
+
+
+def train_dp_rank(mode: str, data: str, work: str) -> dict:
+    """One data-parallel rank (run as ``chip_smoke.py --train-dp-rank MODE DATA WORK``
+    under torchrun's environment): ``cli.build_trainer`` on the v3 set at global
+    batch 16, four fixed steps (augmentation and drop-connect off) on its rows
+    of the reference batches, then (mode ``gloo``) ``fit`` of one short epoch:
+    ``DP_AUG_STEPS`` augmented steps with drop-connect, validation on rank 0,
+    the metric broadcast, checkpoints by rank 0.  Mode ``gloo``: the ranks
+    share card 0; ``nccl``: rank r on card r, the fixed steps only."""
+    import torch
+    import torch.distributed as dist
+
+    from hmd_ego_pose_tpu_torch import cli
+    from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
+    from hmd_ego_pose_tpu_torch.parallel import distributed
+    from hmd_ego_pose_tpu_torch.parallel.mesh import shard_batch, state_digest
+    from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES
+    from hmd_ego_pose_tpu_torch.utils.logging import MetricLogger
+
+    class DigestStep(TimedStep):
+        """A timed step that records the state digest after each step."""
+
+        def __init__(self, step, model):
+            super().__init__(step)
+            self.model, self.digests = model, []
+
+        def _timed(self, prepare, generator):
+            metrics = super()._timed(prepare, generator)
+            self.digests.append(state_digest(self.model))
+            return metrics
+
+    shared = mode == "gloo"
+    device = "cuda:0" if shared else f"cuda:{os.environ['LOCAL_RANK']}"
+    distributed.initialize(device, shared_device=shared, timeout=120.0)
+    rank = dist.get_rank()
+    args = cli.build_parser().parse_args(["train", "--dataset-path", data, "--ckpt", ARTIFACT, "--epo", "1",
+                                          "--device", device])
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        logger = MetricLogger(os.path.join(work, "runs"), stdout=False) if rank == 0 else None
+        trainer = cli.build_trainer(args, logger=logger, checkpoint_dir=os.path.join(work, "ckpt"))
+    torch.cuda.synchronize()
+    out = {"rank": rank, "world": trainer.mesh.world, "backend": dist.get_backend(), "device": str(trainer.device),
+           "rows": [trainer.rows.start, trainer.rows.stop], "startup_s": time.perf_counter() - t0,
+           "restore_launches": LAUNCHES.snapshot()}
+    fixed, digests = [], []
+    for s in range(4):
+        metrics = trainer.step_fn(trainer.data, shard_batch(trainer.mesh, fixed_batch(trainer, s)), None, None)
+        fixed.append({k: float(metrics[k]) for k in METRIC_NAMES})
+        digests.append(state_digest(trainer.model))
+    out.update(fixed=fixed, fixed_digests=digests)
+    if shared:
+        # fit runs the trainer's own epoch code, its epoch cut to the first
+        # DP_AUG_STEPS index rows the sampler draws
+        timed = DigestStep(trainer.step_fn, trainer.model)
+        trainer.step_fn = timed
+        epoch_indices = trainer.pipeline.epoch_indices
+        trainer.pipeline.epoch_indices = lambda oversample=1: epoch_indices(oversample)[:DP_AUG_STEPS]
+        epochs = []
+        trainer.mesh.stats.reset()
+        t = time.perf_counter()
+        best = trainer.fit(epochs=1, on_epoch_end=lambda epoch, metrics, result: epochs.append(metrics))
+        fit_s = time.perf_counter() - t
+        if (trainer.path != "resident" or [m["steps"] for m in epochs] != [DP_AUG_STEPS]
+                or len(timed.step_ms) != DP_AUG_STEPS):
+            raise AssertionError(f"rank {rank}: {len(timed.step_ms)} steps on the {trainer.path} path, "
+                                 f"the epoch says {epochs}")
+        stats = trainer.mesh.stats.snapshot()
+        step_s = sum(timed.step_ms) / 1e3
+        step_kinds = ("bn", "bn_backward", "grads", "metrics")  # a step's collectives
+        collective_s = sum(v for k, v in stats["seconds"].items() if k in step_kinds)
+        timed.check_finite()
+        out.update(
+            augmented=timed.summary(trainer.config.train.batch_size), augmented_losses=timed.losses,
+            augmented_digests=timed.digests, fit_s=fit_s, best=best, lr=trainer.optimizer.learning_rate,
+            plateau=dict(vars(trainer.scheduler)),
+            collective_calls_per_step={k: v / DP_AUG_STEPS for k, v in stats["calls"].items() if k in step_kinds},
+            collective_share_of_step=collective_s / step_s, collective_ms_per_step=collective_s * 1e3 / DP_AUG_STEPS,
+            epoch_means={k: epochs[0][k] for k in METRIC_NAMES},
+            files=sorted(os.path.relpath(os.path.join(r, f), work) for r, _, fs in os.walk(work) for f in fs))
+    out["launches"] = LAUNCHES.snapshot()
+    dist.destroy_process_group()
+    return out
+
+
+def run_dp_ranks(mode: str, data: str, work: str) -> list:
+    """Two ranks of ``train_dp_rank`` as subprocesses of this script (a free
+    127.0.0.1 port, torchrun's environment); each is joined with a timeout and
+    killed past it; a rank that fails or times out raises.  Returns each rank's
+    JSON line."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for rank in range(2):
+        rank_work = os.path.join(work, f"{mode}_rank{rank}")
+        os.makedirs(rank_work, exist_ok=True)
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(rank),
+                   LOCAL_RANK=str(rank), PYTHONPATH=HERE)
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--train-dp-rank", mode, data,
+                                       rank_work], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True, cwd=rank_work))
+    deadline, results, failed = time.monotonic() + DP_RANK_TIMEOUT_S, [], []
+    try:
+        for rank, proc in enumerate(procs):
+            try:
+                stdout, stderr = proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                stdout, stderr = proc.communicate()
+                failed.append(f"rank {rank} timed out after {DP_RANK_TIMEOUT_S} s:\n{stderr[-3000:]}")
+                continue
+            if proc.returncode != 0:
+                failed.append(f"rank {rank} exited {proc.returncode}:\n{stderr[-3000:]}")
+                continue
+            results.append(json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    if failed:
+        raise AssertionError(f"data-parallel ranks ({mode}) failed:\n" + "\n".join(failed))
+    return results
+
+
+def hold_dp_fixed(ranks: list, reference: dict, single_steps: list) -> dict:
+    """The fixed steps: the ranks' logged losses equal, each step's state digest
+    the same on both ranks, the six terms within the reference's tolerance of
+    the JAX package's and within 1e-5 relative of the single-process steps."""
+    from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES
+
+    zero, one = ranks
+    if zero["fixed"] != one["fixed"] or zero["fixed_digests"] != one["fixed_digests"]:
+        raise AssertionError("the ranks' fixed steps differ: losses or parameters and BN buffers not bit-identical")
+    steps = iter(zero["fixed"])
+    ref_gaps = hold_to_reference(reference, lambda s: next(steps), "data-parallel training")
+    terms = dict(zip(LOSS_TERMS, METRIC_NAMES))
+    single_gap = max(abs(got[name] - want[name]) / max(abs(want[name]), 1e-12)
+                     for got, want in zip(zero["fixed"], single_steps) for name in terms.values())
+    if not single_gap <= 1e-5:
+        raise AssertionError(f"the data-parallel steps are {single_gap:.3g} relative off the single-process "
+                             f"steps (> 1e-5): {zero['fixed']} against {single_steps}")
+    return {"reference_max_rel_gap": ref_gaps, "single_process_max_rel_gap": single_gap}
+
+
+def phase_train_dp(card: str, data: str, work: str, train: dict) -> dict:
+    """Data-parallel training: two gloo ranks sharing the one card (each a
+    subprocess running ``train_dp_rank``), global batch 16 split 8 + 8."""
+    import torch
+
+    with open(TRAIN_REFERENCE) as f:
+        reference = json.load(f)
+    dp_work = os.path.join(work, "dp")
+    t0 = time.perf_counter()
+    ranks = run_dp_ranks("gloo", data, dp_work)
+    run_s = time.perf_counter() - t0
+    zero, one = ranks
+    held = hold_dp_fixed(ranks, reference, train["reference_steps"])
+    if (zero["augmented_digests"] != one["augmented_digests"] or zero["augmented_losses"] != one["augmented_losses"]
+            or zero["epoch_means"] != one["epoch_means"]):
+        raise AssertionError("the ranks' augmented steps differ: not bit-identical")
+    if zero["backend"] != "gloo" or [r["rows"] for r in ranks] != [[0, 8], [8, 16]]:
+        raise AssertionError(f"expected two gloo ranks of 8 rows: {[(r['backend'], r['rows']) for r in ranks]}")
+    if (zero["lr"] != one["lr"] or zero["plateau"] != one["plateau"]
+            or os.path.basename(zero["best"]) != os.path.basename(one["best"])):
+        raise AssertionError(f"the ranks' plateau or best checkpoint differ: {zero['plateau']}, {one['plateau']}")
+    if one["files"] or os.path.join("ckpt", "last.npz") not in zero["files"]:
+        raise AssertionError(f"only rank 0 writes checkpoints: rank 0 {zero['files']}, rank 1 {one['files']}")
+    steps = 4 + DP_AUG_STEPS
+    for r in ranks:
+        if r["launches"].get("target_assign", 0) != steps or r["restore_launches"].get("dequantize", 0) != 1:
+            raise AssertionError(f"rank {r['rank']}: target_assign must launch once per step ({steps}) and "
+                                 f"dequantize once at the restore: {r['launches']}")
+    if zero["launches"].get("min_distances", 0) != 1 or one["launches"].get("min_distances", 0) != 0:
+        raise AssertionError(f"validation must run on rank 0 only: {[r['launches'] for r in ranks]}")
+    nccl = "not run: 1 card"
+    if torch.cuda.device_count() >= 2:
+        nccl_ranks = run_dp_ranks("nccl", data, os.path.join(work, "dp_nccl"))
+        if nccl_ranks[0]["backend"] != "nccl" or nccl_ranks[1]["device"] != "cuda:1":
+            raise AssertionError(f"not NCCL across cards: {[(r['backend'], r['device']) for r in nccl_ranks]}")
+        nccl = hold_dp_fixed(nccl_ranks, reference, train["reference_steps"])
+    aug = zero["augmented"]
+    return {
+        **held, "ranks": 2, "backend": "gloo", "shared_card": True, "batch_per_rank": 8,
+        "augmented": aug, "single_process_step_ms_p50": train["step_ms_p50"],
+        "step_vs_single_process": aug["step_ms_p50"] / train["step_ms_p50"],
+        "collective_calls_per_step": zero["collective_calls_per_step"],
+        "collective_ms_per_step": zero["collective_ms_per_step"],
+        "collective_share_of_step": zero["collective_share_of_step"],
+        "fit_s": zero["fit_s"], "startup_s": [r["startup_s"] for r in ranks], "ranks_s": run_s,
+        "val_metric_broadcast": zero["plateau"]["best"],
+        "launches": {"target_assign": sum(r["launches"].get("target_assign", 0) for r in ranks)},
+        "launches_per_rank": [r["launches"] for r in ranks], "nccl": nccl, "card": card,
     }
 
 
@@ -1125,18 +1291,24 @@ def phase_train_windowed(card: str, data: str, work: str, resident_peak_gb: floa
 
     timed = TimedStep(trainer.step_fn)
     trainer.step_fn = timed
-    trainer_module.upload_window = one_window
+    plan = trainer_module.window_plan
+    per_window = VARIANT_STEPS // 3
+
+    def short_plan(*a, **kw):  # each window's index rows cut to its first per_window steps
+        return [(rows, idxs[:per_window]) for rows, idxs in plan(*a, **kw)]
+
+    trainer_module.upload_window, trainer_module.window_plan = one_window, short_plan
     try:
         t0 = time.perf_counter()
         metrics = trainer.train_epoch(0)
         torch.cuda.synchronize()
         epoch_s = time.perf_counter() - t0
     finally:
-        trainer_module.upload_window = upload
+        trainer_module.upload_window, trainer_module.window_plan = upload, plan
     launches = LAUNCHES.snapshot()
     batch, steps = trainer.config.train.batch_size, len(timed.step_ms)
     window_bytes = window * per_frame
-    if trainer.windows != [window] * 3 or not steps == metrics["steps"] == sum(w // batch for w in trainer.windows):
+    if trainer.windows != [window] * 3 or not steps == metrics["steps"] == 3 * per_window:
         raise AssertionError(f"windows {trainer.windows}, {steps} steps, epoch says {metrics['steps']}")
     timed.check_finite()
     if launches.get("target_assign", 0) != steps:
@@ -1157,9 +1329,9 @@ def phase_train_windowed(card: str, data: str, work: str, resident_peak_gb: floa
 
 def phase_train_host(card: str, data: str, work: str, resident: dict) -> dict:
     """device_augment=False: the host input pipeline.  Four fixed steps
-    (augmentation off) held to the resident path's JAX reference, then one
-    augmented epoch (4 worker threads), then eight steps whose batches are
-    made in this thread."""
+    (augmentation off) held to the resident path's JAX reference, then an
+    augmented epoch cut to ``VARIANT_STEPS`` batches (4 worker threads), then
+    four steps whose batches are made in this thread."""
     import numpy as np
     import torch
 
@@ -1198,23 +1370,27 @@ def phase_train_host(card: str, data: str, work: str, resident: dict) -> dict:
                                     checkpoint_dir=os.path.join(work, "host_ckpt"))
     timed = TimedStep(trainer.step_fn)
     trainer.step_fn = timed
+    # the epoch cut to its first VARIANT_STEPS batches (the sampler's rows as drawn)
+    epoch_indices = trainer.pipeline.epoch_indices
+    trainer.pipeline.epoch_indices = lambda oversample=1: epoch_indices(oversample)[:VARIANT_STEPS]
     t0 = time.perf_counter()
     metrics = trainer.train_epoch(0)
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
+    trainer.pipeline.epoch_indices = epoch_indices
     launches = LAUNCHES.snapshot()
     steps = len(timed.step_ms)
-    if trainer.path != "host" or not steps == metrics["steps"] == len(trainer.train_dataset) // batch:
+    if trainer.path != "host" or not steps == metrics["steps"] == VARIANT_STEPS:
         raise AssertionError(f"{steps} host steps on the {trainer.path} path, epoch says {metrics['steps']}")
     timed.check_finite()
     if launches.get("target_assign", 0) != steps:
         raise AssertionError(f"target_assign must launch once per step ({steps}), got {launches}")
-    # eight more steps with each batch made in this thread before its step: the
+    # four more steps with each batch made in this thread before its step: the
     # step's parts with no worker thread running beside the launches, and the
     # host's time to make one augmented batch
     serial = trainer.pipeline.batches(oversample=1, num_workers=1)
     make_ms = []
-    for _ in range(8):
+    for _ in range(4):
         t = time.perf_counter()
         made = next(serial)
         make_ms.append((time.perf_counter() - t) * 1e3)
@@ -1233,7 +1409,7 @@ def phase_train_host(card: str, data: str, work: str, resident: dict) -> dict:
 
 def phase_train_remat(card: str, data: str, work: str) -> dict:
     """remat_backbone with the backbone trainable: the same state, batch and
-    drop-connect seed through a remat and a plain step; then four more steps
+    drop-connect seed through a remat and a plain step; then two more steps
     of each for their times."""
     import numpy as np
     import torch
@@ -1255,7 +1431,7 @@ def phase_train_remat(card: str, data: str, work: str) -> dict:
         lr = trainer.config.train.learning_rate
         before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
         ms, peaks, later = [], [], []
-        for s in range(5):
+        for s in range(3):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -1300,8 +1476,8 @@ def phase_train_remat(card: str, data: str, work: str) -> dict:
     backbone_moved = any(not torch.equal(p_state[k], before[k]) for k in params if k.startswith("backbone_net."))
     if not backbone_moved:
         raise AssertionError("the backbone did not train (--no-freeze-backbone)")
-    if launches.get("target_assign", 0) != 10:
-        raise AssertionError(f"target_assign must launch once per step (10), got {launches}")
+    if launches.get("target_assign", 0) != 6:
+        raise AssertionError(f"target_assign must launch once per step (6), got {launches}")
     return {
         **runs, "losses_equal": True, "bn_stats_moved": len(moved), "bn_stat_max_rel_gap": stat_gap,
         "param_max_abs_gap": param_gap,
@@ -1766,6 +1942,10 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if sys.argv[1:2] == ["--train-dp-rank"]:  # one rank of the train_dp phase
+        print(json.dumps(train_dp_rank(*sys.argv[2:5])), flush=True)
+        faulthandler.cancel_dump_traceback_later()
+        return 0
     from hmd_ego_pose_tpu_torch.kernels import build
     from hmd_ego_pose_tpu_torch.utils.device import resolve_device
 
@@ -1784,9 +1964,6 @@ def main() -> int:
 
     min_dist = phase_min_distances(dev)
     emit("kernel_min_distances", card=card, **min_dist)
-
-    iou = phase_iou(dev)
-    emit("kernel_iou", card=card, **iou)
 
     targets = phase_target_assign(dev)
     emit("kernel_target_assign", card=card, **targets)
@@ -1807,6 +1984,8 @@ def main() -> int:
         emit("evaluate", **evaluate)
         train = phase_train(card, data, work)
         emit("train", **train)
+        dp = phase_train_dp(card, data, work, train)
+        emit("train_dp", **dp)
         multi = phase_train_multi(card, work)
         emit("train_multi", **multi)
         windowed = phase_train_windowed(card, data, work, train["peak_mem_gb"])
@@ -1825,20 +2004,16 @@ def main() -> int:
     emit("shutdown", threads_alive=[t.name for t in threading.enumerate() if t.is_alive()],
          total_s=time.perf_counter() - t_all)
 
-    # every count is read from a main path's run; iou is on none of them since
-    # target_assign took its place in training (the train phase asserts it never
-    # launches), so it is reported with the count of 0 and left out of this check.
-    # target_assign is summed over the training runs, min_distances over the
-    # evaluation and the two-class validation
-    trainings = (train, multi, windowed, host, remat)
+    # every count is read from a main path's run: target_assign summed over the
+    # training runs (the data-parallel one's over its two ranks), min_distances
+    # over the evaluation and the two-class validation
+    trainings = (train, multi, windowed, host, remat, dp)
     launches = {"dequantize": serve["launches"].get("dequantize", 0),
                 "min_distances": sum(p["launches"].get("min_distances", 0) for p in (evaluate, multi)),
-                "iou": sum(p["launches"].get("iou", 0) for p in trainings),
                 "quantize": export["launches"].get("quantize", 0),
                 "target_assign": sum(p["launches"].get("target_assign", 0) for p in trainings)}
-    off_main_path = {"iou"}
     for name, n in launches.items():
-        if name not in off_main_path and n == 0:
+        if n == 0:
             raise AssertionError(f"the main path never launched the {name} kernel")
     print(json.dumps({"kernels": [
         {
@@ -1868,21 +2043,6 @@ def main() -> int:
             "bound_ms": min_dist["bound_ms"],
             "bound_by": min_dist["bound_by"],
             "library_ms": min_dist["library_ms"],
-        },
-        {
-            "name": "iou",
-            "route": "cuda",
-            "source": "hmd_ego_pose_tpu_torch/csrc/iou.cu",
-            "replaces": "hmd_ego_pose_tpu/ops/pallas_kernels.py:69",
-            "launches": launches["iou"],
-            "main_path": False,  # the train path launches target_assign in its place
-            "max_abs_err": iou["max_abs_err"],
-            "ms": iou["kernel_ms"],
-            "launch_ms": iou["launch_ms"],
-            "plain_ms": iou["plain_ms"],
-            "bound_ms": iou["bound_ms"],
-            "bound_by": iou["bound_by"],
-            "library_ms": iou["library_ms"],
         },
         {
             "name": "quantize",

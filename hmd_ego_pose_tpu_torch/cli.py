@@ -11,12 +11,16 @@ a fold's train split (resident on the device, in windows, or through the
 host input pipeline, as ``train/trainer.py`` chooses), validates on its val
 split after every ``--eval-every`` epochs and writes the best and ``last``
 checkpoints into ``train_weights/`` in the JAX package's npz layout.
-``--ckpt`` restores on the device (int8 leaves through the dequantize
-kernel) and resumes the optimizer moments and step count a ``last``
-checkpoint carries; the hand convention comes from the checkpoint's metadata
-unless ``--hand-relative`` asks for it.  ``--object-ids 1,2`` trains a
-multi-object scene (one class per id).  Flags and defaults are the JAX
-package's.
+Launched by ``torchrun --nproc-per-node N -m hmd_ego_pose_tpu_torch.cli
+train ...`` it trains data-parallel (``parallel/``): one rank per card over
+NCCL, or with ``--device cpu`` gloo ranks on the CPU; the global
+``--batch-size`` is split over the ranks, and only rank 0 validates, logs
+and writes checkpoints.  ``--ckpt`` restores on the device (int8 leaves
+through the dequantize kernel) and resumes the optimizer moments and step
+count a ``last`` checkpoint carries; the hand convention comes from the
+checkpoint's metadata unless ``--hand-relative`` asks for it.
+``--object-ids 1,2`` trains a multi-object scene (one class per id).  Flags
+and defaults are the JAX package's.
 
 ``serve`` restores the checkpoint on the device (int8 leaves dequantized by the
 CUDA kernel), folds the BNs, warms the engine up and answers pose requests
@@ -188,12 +192,17 @@ def build_trainer(args, logger=None, data_overrides=None, model_overrides=None, 
     import dataclasses
 
     from hmd_ego_pose_tpu_torch.data.colibri import ColibriDataset
+    from hmd_ego_pose_tpu_torch.parallel import distributed
+    from hmd_ego_pose_tpu_torch.parallel.mesh import make_mesh
     from hmd_ego_pose_tpu_torch.train.checkpoint import restore_checkpoint, restore_opt_leaves
     from hmd_ego_pose_tpu_torch.train.trainer import Trainer
-    from hmd_ego_pose_tpu_torch.utils.device import resolve_device
     from hmd_ego_pose_tpu_torch.utils.model_stats import format_model_stats
 
-    device = resolve_device(args.device)
+    # under torchrun: join the process group and train data-parallel on this
+    # rank's device; without it the mesh is of one process
+    distributed.initialize(args.device)
+    device = distributed.local_device(args.device)
+    mesh = make_mesh(device=device)
     cfg = train_config(args, **train_overrides)
     cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, **(data_overrides or {})),
                               model=dataclasses.replace(cfg.model, **(model_overrides or {})))
@@ -218,14 +227,21 @@ def build_trainer(args, logger=None, data_overrides=None, model_overrides=None, 
                 print(f"checkpoint metadata records hand_relative={recorded}: training with it")
                 cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, hand_relative=recorded))
     trainer = Trainer(cfg, train_ds, val_ds, device=device, logger=logger, params=params,
-                      bn_state=bn_state, opt_leaves=opt_leaves, start_step=start_step)
-    print(format_model_stats(trainer.model, cfg.model.image_size, batch_size=1))
+                      bn_state=bn_state, opt_leaves=opt_leaves, start_step=start_step, mesh=mesh)
+    if trainer.is_main:
+        print(format_model_stats(trainer.model, cfg.model.image_size, batch_size=1))
     return trainer
 
 
 def cmd_train(args):
+    import torch.distributed as dist
+
     trainer = build_trainer(args)
-    best = trainer.fit()
+    try:
+        best = trainer.fit()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     print(f"best checkpoint: {best}")
     return best
 

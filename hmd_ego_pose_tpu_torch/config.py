@@ -1,4 +1,4 @@
-"""Model, anchor, training, data, evaluation and serving configuration for the PyTorch port.
+"""Model, anchor, training, data, evaluation, serving and mesh configuration for the PyTorch port.
 
 A copy of the configuration dataclasses and per-phi tables of
 ``hmd_ego_pose_tpu/config.py`` that inference, evaluation and training need.  The port keeps its own
@@ -243,3 +243,29 @@ class ServingConfig:
     # wire format: 24-byte little-endian packet of 6 float32 [rvec, tvec]
     pose_packet_floats: int = 6
     queue_depth: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """Device-mesh layout (``hmd_ego_pose_tpu/config.py::ParallelConfig``).
+
+    The port trains data-parallel over ``torch.distributed`` ranks
+    (``parallel/mesh.py``): the batch is split over the ``data`` axis and the
+    BN statistics, gradients and logged losses are all-reduced over it.  The
+    ``model`` and ``space`` axes are not ported: ROADMAP Queue A, item 7
+    (the engine's mesh and the ``space``/``model`` axes) holds them, and a
+    size above 1 raises.
+    """
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    spatial_axis: str = "space"
+    data_parallel: int = -1  # -1: use all remaining ranks
+    model_parallel: int = 1
+    spatial_parallel: int = 1
+
+    def __post_init__(self):
+        for name in ("model_parallel", "spatial_parallel"):
+            if getattr(self, name) > 1:
+                raise ValueError(f"{name}={getattr(self, name)}: the port's mesh has the data axis only; the "
+                                 f"model and space axes are ROADMAP Queue A item 7 (engine mesh, space/model axes)")

@@ -1,9 +1,9 @@
-// The anchor / ground-truth IoU arithmetic (iou.cu, target_assign.cu).
+// The anchor / ground-truth IoU arithmetic of target_assign.cu.
 //
 // Written with the _rn intrinsics in the order of the plain PyTorch version
 // ops/iou.py::iou_matrix_reference (the jnp order of
 // hmd_ego_pose_tpu/ops/iou.py): nvcc would otherwise contract a*b + c into
-// an FMA, and both kernels are bit-equal to their plain versions.  min and
+// an FMA, and the kernel is bit-equal to its plain version.  min and
 // max propagate NaN, as torch.minimum / torch.maximum do.
 #pragma once
 

@@ -49,7 +49,7 @@
 //
 // Numerics: every output is bit-equal to the plain version
 // ops/target_assign.py::assign_targets_batch_reference on the card.  The IoU
-// is iou.cuh's, shared with iou.cu (_rn intrinsics in iou_matrix_reference's
+// is iou.cuh's (_rn intrinsics in iou_matrix_reference's
 // order, so nvcc contracts nothing into an FMA).  The IoU is never NaN (a NaN
 // union fails the union > 0 test and gives 0), so plain comparisons give
 // torch.argmax / torch.amax.  bbox_transform: wa / 2.0 is an exact halving

@@ -161,12 +161,17 @@ class InputPipeline:
         usable = (len(idx) // self.batch_size) * self.batch_size
         return idx[:usable].reshape(-1, self.batch_size)
 
-    def batches(self, oversample: int = 1, num_workers: Optional[int] = None
-                ) -> Iterator[Union[Batch, RawBatch]]:
+    def batches(self, oversample: int = 1, num_workers: Optional[int] = None,
+                rows: slice = slice(None)) -> Iterator[Union[Batch, RawBatch]]:
         """The batches of one (oversampled) epoch, made by ``num_workers`` threads
-        (``DataConfig.num_workers`` by default; at most one: made in this thread)."""
+        (``DataConfig.num_workers`` by default; at most one: made in this thread).
+
+        ``rows``: the examples of each batch to make (a data-parallel rank's
+        rows); the indices and seeds of the whole batch are drawn all the same,
+        so every rank's stream advances as one process's would."""
         groups = self.epoch_indices(oversample)
         seeds = self.rng.randint(0, 2 ** 31 - 1, size=groups.shape)
+        groups, seeds = groups[:, rows], seeds[:, rows]
         workers = num_workers if num_workers is not None else self.cfg.num_workers
         make = self._make_raw_batch if self.cfg.device_augment else self._make_batch
 

@@ -1,15 +1,21 @@
-"""Hand-written CUDA kernels: build (``build.py``) and launch counts.
+"""Hand-written CUDA kernels: build (``build.py``), launch and launch counts.
 
-Each kernel wrapper adds one to its count where it launches its kernel, and
-nowhere else, so a run can show that a path really went through the kernel
-(``chip_smoke.py`` resets the counts just before the serving and the
-evaluation paths and reads them just after each).
+Every kernel wrapper launches through ``launch``, which adds one to the
+kernel's count where it launches it, and nowhere else, so a run can show
+that a path really went through the kernel (``chip_smoke.py`` resets the
+counts just before the serving and the evaluation paths and reads them just
+after each).  ``launch`` makes the tensors' device the current one for the
+call: a ``<<<...>>>`` launch goes to the calling thread's current device,
+which need not be the tensors' (a rank on ``cuda:1`` of a process whose
+current device is ``cuda:0``).
 """
 
 from __future__ import annotations
 
 import threading
 from typing import Dict
+
+import torch
 
 
 class LaunchCounts:
@@ -37,3 +43,18 @@ class LaunchCounts:
 
 
 LAUNCHES = LaunchCounts()
+
+
+def launch(name: str, function: str, device: torch.device, *args) -> None:
+    """Call ``function`` of ``csrc/<name>.cu``'s library with ``args`` and the
+    current stream of ``device``, with ``device`` the current device; raises
+    on a launch error, else counts one launch of ``name``."""
+    from hmd_ego_pose_tpu_torch.kernels import build
+
+    lib = build.library(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, function)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    LAUNCHES.add(name)

@@ -39,7 +39,6 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {
     "dequantize": {"hegp_dequantize_group": (_P, _P, _P, _P, _I, _I, _P)},
-    "iou": {"hegp_iou": (_P, _P, _P, _I, _I, _I, _I, _P)},
     "min_distances": {"hegp_min_distances": (_P, _P, _P, _I, _I, _I, _P)},
     "quantize": {"hegp_quantize_group": (_P, _P, _P, _P, _I, _I, _P)},
     "target_assign": {"hegp_target_assign": (_P,) * 12 + (_I,) * 6 + (_F,) * 3 + (_P,)},

@@ -11,7 +11,9 @@ blocks, at rate 0.2 * i / blocks for block i, when the forward is given a
 ``torch.Generator``: the JAX package draws its masks from ``jax.random``,
 which torch cannot reproduce, so the masks are drawn from the generator (or
 handed to ``MBConv`` as they are, as the tests do).  Without a generator it
-is off, as with ``rng=None`` in JAX.
+is off, as with ``rng=None`` in JAX.  Under a data-parallel mesh
+(``mesh``) every rank draws the masks of the global batch and takes its
+rows' columns, so a rank drops what one process would drop for those rows.
 
 ``remat`` (``ModelConfig.remat_backbone``) wraps each MBConv block of a
 training forward in ``torch.utils.checkpoint`` (non-reentrant): the block
@@ -32,6 +34,7 @@ import torch.utils.checkpoint
 
 from hmd_ego_pose_tpu_torch.config import EFFICIENTNET_PARAMS, MBCONV_STAGES
 from hmd_ego_pose_tpu_torch.nn.core import BatchNorm, Conv2dSame, sigmoid, swish
+from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL
 
 _FEATURE_STAGES = (3, 5, 7)
 DROP_CONNECT_RATE = 0.2
@@ -143,6 +146,7 @@ class EfficientNet(nn.Module):
                  remat: bool = False):
         super().__init__()
         self.specs, self.dtype, self.remat = block_specs(coefficient), dtype, remat
+        self.mesh = LOCAL  # a DataMesh: drop-connect masks drawn for the global batch
         stem = round_filters(32, EFFICIENTNET_PARAMS[coefficient][0])
         self._conv_stem = Conv2dSame(3, stem, 3, stride=2, bias=False, dtype=dtype)
         self._bn0 = BatchNorm(stem, eps, dtype)
@@ -154,9 +158,11 @@ class EfficientNet(nn.Module):
         n_blocks = len(self.specs)
         draws = None
         if self.training and generator is not None:
-            # every block's uniforms in one draw and one copy to the device
-            draws = torch.rand((n_blocks, x.shape[0]), generator=generator,
-                               device=generator.device).to(x.device)
+            # every block's uniforms in one draw and one copy to the device;
+            # under a mesh the global batch's, of which this rank takes its columns
+            draws = torch.rand((n_blocks, x.shape[0] * self.mesh.world), generator=generator,
+                               device=generator.device)
+            draws = draws[:, self.mesh.rows(draws.shape[1])].to(x.device)
         features = []
         for i, (block, spec) in enumerate(zip(self._blocks, self.specs)):
             keep = 1.0 - DROP_CONNECT_RATE * i / n_blocks

@@ -39,6 +39,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL
+
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     """TF SAME padding (lo, hi) for one spatial dim, extra pixel on the high side."""
@@ -99,7 +101,16 @@ class BatchNorm(nn.Module):
     ``update_stats`` False keeps the running statistics where they are in
     training mode: the recompute of a checkpointed block in the backward pass
     runs its forward a second time, and must not move them twice
-    (``models/efficientnet.py``).
+    (``models/efficientnet.py``).  It still all-reduces under a mesh: every
+    rank recomputes in the same order, so the collectives line up.
+
+    ``mesh`` (a ``parallel/mesh.py::DataMesh``, set by ``replicate``; a mesh
+    of one by default): the cross-replica statistics of the JAX package's
+    ``axis_name`` path, which is what GSPMD computes for a batch sharded over
+    ``data``.  In training mode
+    ``[mean, mean_sq]`` of the local rows is all-reduced (mean over the W
+    ranks) in one call, differentiably, and the correction takes the global
+    n = W * N * H * W.
     """
 
     def __init__(self, channels: int, eps: float = 1e-3, dtype: torch.dtype = torch.float32,
@@ -111,6 +122,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
         self.update_stats = True
+        self.mesh = LOCAL
         self.eval()  # an inference module until training asks (``model.train()``)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -120,8 +132,11 @@ class BatchNorm(nn.Module):
             return (y + self.bias[:, None, None]).to(self.dtype)
         xf = x.float()
         mean = torch.mean(xf, dim=(0, 2, 3))
-        var = torch.mean(xf * xf, dim=(0, 2, 3)) - mean * mean
+        mean_sq = torch.mean(xf * xf, dim=(0, 2, 3))
         n = x.shape[0] * x.shape[2] * x.shape[3]
+        mean, mean_sq = self.mesh.all_reduce_mean([mean, mean_sq], "bn")
+        n *= self.mesh.world
+        var = mean_sq - mean * mean
         # float32 n / max(n - 1, 1), as jnp computes it
         correction = float(np.float32(n) / np.float32(max(n - 1.0, 1.0)))
         m = self.momentum

@@ -345,6 +345,23 @@ def draw_augment(generator: torch.Generator, batch: int, height: int, width: int
     return draws
 
 
+def take_rows(draws: AugmentDraws, rows: slice) -> AugmentDraws:
+    """The draws of the examples ``rows`` (contiguous) of a batch's draws: a
+    data-parallel rank draws for the global batch, as one process would, and
+    keeps its rows; each slot's noise keeps the draws of its rows' noise
+    examples, in order."""
+    b = draws.apply.shape[0]
+    picked = range(b)[rows]
+    noise = {}
+    for slot, values in draws.noise.items():
+        order = [e for e, op in enumerate(slot_ops(draws, slot)) if op == GAUSSIAN_NOISE]
+        mine = [i for i, e in enumerate(order) if e in picked]
+        if mine:
+            noise[slot] = values[mine[0]:mine[-1] + 1]
+    return AugmentDraws(draws.apply[rows], draws.n_slots[rows], draws.op_ids[rows], draws.magnitudes[rows],
+                        draws.factors[rows], draws.cutout_yx[rows], noise, draws.angles[rows], draws.scales[rows])
+
+
 def color_augment_batch(images_u8: torch.Tensor, draws: AugmentDraws) -> torch.Tensor:
     """(B, H, W, 3) uint8 -> colour-augmented uint8: per slot, the batch grouped
     by op and each op run once on its group."""

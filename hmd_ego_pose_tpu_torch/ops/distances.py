@@ -17,8 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
-from hmd_ego_pose_tpu_torch.kernels import build
+from hmd_ego_pose_tpu_torch.kernels import launch
 
 # pairs per step of the plain version: bounds its (chunk, P, Q) planes
 _REFERENCE_ELEMENTS = 1 << 24
@@ -77,11 +76,6 @@ def min_distances(points_gt: torch.Tensor, points_pred: torch.Tensor) -> torch.T
     out = torch.empty((t, p), dtype=torch.float32, device=points_gt.device)
     if t == 0 or p == 0:
         return out
-    lib = build.library("min_distances")
-    stream = torch.cuda.current_stream(points_gt.device).cuda_stream
-    rc = lib.hegp_min_distances(points_gt.data_ptr(), points_pred.data_ptr(), out.data_ptr(),
-                                t, p, q, stream)
-    if rc != 0:
-        raise RuntimeError(f"min_distances kernel launch failed: cudaError {rc}")
-    LAUNCHES.add("min_distances")
+    launch("min_distances", "hegp_min_distances", points_gt.device, points_gt.data_ptr(),
+           points_pred.data_ptr(), out.data_ptr(), t, p, q)
     return out

@@ -34,8 +34,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tu
 import numpy as np
 import torch
 
-from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
-from hmd_ego_pose_tpu_torch.kernels import build
+from hmd_ego_pose_tpu_torch.kernels import launch
 from hmd_ego_pose_tpu_torch.utils.device import UPLOADS
 
 DEQUANTIZE_BLOCK_VALUES = 4096  # values per block of csrc/dequantize.cu: 256 threads x 16
@@ -94,13 +93,8 @@ def _launch(name: str, group: Group, table: Optional[torch.Tensor], *buffers: to
         UPLOADS.add(f"{name}/table")
     elif table.device != device or table.dtype != torch.int64 or tuple(table.shape) != group.table.shape:
         raise ValueError(f"the table must be the group's int64 {group.table.shape} on {device}")
-    lib = build.library(name)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, f"hegp_{name}_group")(*(b.data_ptr() for b in buffers), table.data_ptr(),
-                                             len(group.table), group.blocks, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    LAUNCHES.add(name)
+    launch(name, f"hegp_{name}_group", device, *(b.data_ptr() for b in buffers), table.data_ptr(),
+           len(group.table), group.blocks)
 
 
 def _check_packed(name: str, group: Group, *buffers: Tuple[torch.Tensor, torch.dtype, int]) -> torch.device:

@@ -41,8 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
-from hmd_ego_pose_tpu_torch.kernels import build
+from hmd_ego_pose_tpu_torch.kernels import launch
 from hmd_ego_pose_tpu_torch.ops.iou import iou_matrix_reference
 
 
@@ -209,13 +208,8 @@ def assign_targets_batch(
     if b == 0 or n == 0:
         return out
     best = torch.empty((b, k), dtype=torch.int32, device=device)  # scratch: best anchor per row
-    lib = build.library("target_assign")
-    stream = torch.cuda.current_stream(device).cuda_stream
     # thresholds and the image size compare in float32, as torch compares a float32 tensor with a scalar
     scalars = (float(np.float32(image_size)), float(np.float32(positive_overlap)), float(np.float32(negative_overlap)))
-    rc = lib.hegp_target_assign(*(x.data_ptr() for x in args), best.data_ptr(), *(x.data_ptr() for x in out),
-                                b, n, k, num_classes, dt, dc, *scalars, stream)
-    if rc != 0:
-        raise RuntimeError(f"target_assign kernel launch failed: cudaError {rc}")
-    LAUNCHES.add("target_assign")
+    launch("target_assign", "hegp_target_assign", device, *(x.data_ptr() for x in args), best.data_ptr(),
+           *(x.data_ptr() for x in out), b, n, k, num_classes, dt, dc, *scalars)
     return out

@@ -81,6 +81,11 @@ def checkpoint_name(dataset: str, fold: int, iters: int, metric: float, epoch: i
     return f"{dataset}__fold_{fold}__iter_{iters}__mixed_t_mean_{metric:.2f}__epo_{epoch}"
 
 
+def checkpoint_path(directory: str, name: str) -> str:
+    """Where ``save_checkpoint(directory, name, ...)`` writes its ``.npz``."""
+    return os.path.join(directory, name + ".npz")
+
+
 def save_checkpoint(directory: str, name: str, params, bn_state,
                     metadata: Optional[Dict[str, Any]] = None, backend: str = "npz",
                     opt_leaves: Optional[List[Any]] = None, device: DeviceLike = None) -> str:
@@ -105,7 +110,7 @@ def save_checkpoint(directory: str, name: str, params, bn_state,
     for i, leaf in enumerate(() if int8 else opt_leaves or ()):
         flat[f"opt/{i:05d}"] = host_array(leaf)
     os.makedirs(directory, exist_ok=True)
-    path = os.path.join(directory, name + ".npz")
+    path = checkpoint_path(directory, name)
     np.savez(path, **flat)
     with open(os.path.join(directory, name + ".json"), "w") as f:
         json.dump(metadata or {}, f, indent=2)

@@ -17,7 +17,19 @@ Counterpart of ``hmd_ego_pose_tpu/train/state.py`` (optax):
   gradient becomes ``(g / norm) * limit``, with no epsilon
   (``torch.nn.utils.clip_grad_norm_`` adds 1e-6, so it is not used);
 * the learning rate is injected: ``set_learning_rate`` writes it into the
-  parameter groups.
+  parameter groups;
+* under a data-parallel mesh (``parallel/mesh.py``) the gradients are
+  averaged over the ranks before the clip, in one all-reduce of the
+  trainable gradients packed into one buffer, so the clip's norm is the
+  global one, as optax's is under GSPMD.  Not ``DistributedDataParallel``:
+  the BN buffers already agree (its buffer broadcast is not wanted), and
+  one explicit all-reduce after ``backward()`` needs no hooks.  It holds
+  with frozen parameters (they are not in ``params`` on any rank), with
+  drop-connect (a mask multiplies, it cuts no edge of the graph) and with
+  ``torch.utils.checkpoint`` (the recompute has run when ``backward()``
+  returns).  The graph depends on the config, not on the rows, so the same
+  parameters have gradients on every rank and every rank packs the same
+  layout.  In a single process (a mesh of one) the all-reduce is a no-op.
 
 ``leaves()`` and ``load_leaves()`` carry the state in the layout of the JAX
 package's checkpoints, ``jax.tree.leaves`` of its optax state:
@@ -40,6 +52,7 @@ import torch
 
 from hmd_ego_pose_tpu_torch.config import ModelConfig, TrainConfig
 from hmd_ego_pose_tpu_torch.models.weights import jax_leaf_paths
+from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL, DataMesh
 
 # optax's injected hyperparameters are float32 scalars, so it computes
 # 1 - b2 in float32 (0.00099998713, 1.3e-5 below 0.001); torch takes the
@@ -68,8 +81,9 @@ class Optimizer:
     """``torch.optim`` over the trainable parameters of an ``HMDEgoPose``, with
     optax's clip, freeze and injected learning rate."""
 
-    def __init__(self, model: torch.nn.Module, config: TrainConfig, model_config: ModelConfig):
-        self.config = config
+    def __init__(self, model: torch.nn.Module, config: TrainConfig, model_config: ModelConfig,
+                 mesh: DataMesh = LOCAL):
+        self.config, self.mesh = config, mesh
         self.entries = jax_leaf_paths(model_config, exclude_backbone=config.freeze_backbone)
         named = dict(model.named_parameters())
         self.params = [named[key] for key, _, _ in self.entries]
@@ -105,6 +119,9 @@ class Optimizer:
 
     def step(self) -> None:
         """One update from the gradients on the parameters; clears them after."""
+        # every trainable gradient becomes its mean over the mesh's ranks (one
+        # all-reduce); every rank runs the same graph, so the same ones exist
+        self.mesh.mean_([p.grad for p in self.params if p.grad is not None], "grads")
         if self.config.clip_grad_norm and self.config.clip_grad_norm > 0:
             self.clip_gradients()
         self.opt.step()

@@ -20,6 +20,11 @@ eagerly in Python, one step at a time, with the same per-step semantics:
 5. the loss (``losses.py``), ``backward()``, and the optimizer's update
    (``train/state.py``).
 
+Under a data-parallel mesh (``mesh``, ``parallel/mesh.py``) each rank runs
+steps 1-5 on its B / W rows of the global batch: the BNs and the gradients
+reduce over the ranks, and the returned losses are all-reduced (mean over
+ranks, one call), so they are the global batch's, as the JAX package logs.
+
 Losses stay on the device: nothing is read back inside a step.
 """
 
@@ -39,6 +44,7 @@ from hmd_ego_pose_tpu_torch.ops.anchors import device_anchors
 from hmd_ego_pose_tpu_torch.ops.augment_device import AugmentDraws, Batch, RawBatch, augment_and_preprocess_batch
 from hmd_ego_pose_tpu_torch.ops.decode import decode_translation, hand_to_relative
 from hmd_ego_pose_tpu_torch.ops.target_assign import assign_targets_batch
+from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL, DataMesh
 from hmd_ego_pose_tpu_torch.train.state import Optimizer
 
 METRIC_NAMES = ("loss", "classification_loss", "regression_loss", "rotation_loss",
@@ -83,13 +89,13 @@ class TrainStep:
     updates the model in place and returns the batch's losses (device scalars)."""
 
     def __init__(self, model: torch.nn.Module, config: Config, model_points, device: torch.device,
-                 symmetric: Optional[bool] = None):
-        self.model, self.config, self.device = model, config, device
+                 symmetric: Optional[bool] = None, mesh: DataMesh = LOCAL):
+        self.model, self.config, self.device, self.mesh = model, config, device, mesh
         self.loss_cfg = effective_loss_config(config)
         self.model_points = torch.as_tensor(np.asarray(model_points, np.float32)).to(device)
         self.anchors, self.trans_anchors = device_anchors(config.model.image_size, config.model.anchors, device)
         self.symmetric = symmetric
-        self.optimizer = Optimizer(model, config.train, config.model)
+        self.optimizer = Optimizer(model, config.train, config.model, mesh)
 
     def prepare(self, data: DeviceData, idx: torch.Tensor, draws: Optional[AugmentDraws]) -> Batch:
         """Steps 1-2: gather and augment + preprocess."""
@@ -120,7 +126,8 @@ class TrainStep:
         self.optimizer.step()
         values = (bundle.total, bundle.classification, bundle.regression, bundle.rotation,
                   bundle.translation, bundle.hand)
-        return {name: v.detach() for name, v in zip(METRIC_NAMES, values)}
+        values = self.mesh.all_reduce_mean([v.detach() for v in values], "metrics")
+        return dict(zip(METRIC_NAMES, values))
 
     def __call__(self, data: DeviceData, idx: torch.Tensor, draws: Optional[AugmentDraws] = None,
                  generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:

@@ -1,6 +1,6 @@
 """The training loop: epochs, validation, checkpoints, LR.
 
-Counterpart of ``hmd_ego_pose_tpu/train/trainer.py`` on one device:
+Counterpart of ``hmd_ego_pose_tpu/train/trainer.py``:
 oversampled epochs of the numpy sampler's indices, validation every
 ``eval_every`` epochs through the evaluator (ADD-S on the min-distance
 kernel, once per class), ReduceLROnPlateau on the mixed point-distance mean,
@@ -30,6 +30,19 @@ consumed in the JAX package's order, so for a seed the port visits the
 frames, windows and host batches the JAX package does.  The device
 augmentation's draws and the drop-connect masks come from one host
 ``torch.Generator`` seeded from ``TrainConfig.seed``.
+
+Data parallelism (``mesh``, a ``parallel/mesh.py::DataMesh``; the JAX
+trainer's ``mesh``): W ranks holding B / W rows each compute the
+single-process step of the same B rows.  Every rank draws the global
+batch's indices, seeds, augmentation draws and drop-connect masks from the
+same streams and keeps its rows (``mesh.rows``); the split or window is
+uploaded whole on every rank (replicated) and each rank gathers its rows
+of the step's indices; the host pipeline loads and augments only the
+rank's rows.  The model is broadcast from rank 0 at the start and its
+digest checked on every rank.  Validation runs on rank 0 and its metric is
+broadcast, so the plateau steps alike everywhere; only rank 0 logs and
+writes checkpoints, and each evaluated epoch ends with a barrier.  B must
+divide by W.
 """
 
 from __future__ import annotations
@@ -46,8 +59,9 @@ from hmd_ego_pose_tpu_torch.data.pipeline import InputPipeline
 from hmd_ego_pose_tpu_torch.eval.evaluator import EvalResult, evaluate_model
 from hmd_ego_pose_tpu_torch.models.hmd_ego_pose import HMDEgoPose, init_weights
 from hmd_ego_pose_tpu_torch.models.weights import from_jax_params, to_jax_params
-from hmd_ego_pose_tpu_torch.ops.augment_device import RawBatch, draw_augment
-from hmd_ego_pose_tpu_torch.train.checkpoint import checkpoint_name, save_checkpoint
+from hmd_ego_pose_tpu_torch.ops.augment_device import RawBatch, draw_augment, take_rows
+from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL, DataMesh, replicate, shard_batch
+from hmd_ego_pose_tpu_torch.train.checkpoint import checkpoint_name, checkpoint_path, save_checkpoint
 from hmd_ego_pose_tpu_torch.train.plateau import ReduceLROnPlateau
 from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES, TrainStep, make_eval_forward
 from hmd_ego_pose_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -87,17 +101,23 @@ def combine_means(means_list: Sequence[Dict[str, torch.Tensor]], weights: Sequen
 class Trainer:
     def __init__(self, config: Config, train_dataset, val_dataset, device: DeviceLike = None,
                  logger: Optional[MetricLogger] = None, params=None, bn_state=None,
-                 opt_leaves=None, start_step: int = 0):
+                 opt_leaves=None, start_step: int = 0, mesh: DataMesh = LOCAL):
         self.config = config
         self.device = dev = resolve_device(device)
         self.train_dataset, self.val_dataset = train_dataset, val_dataset
-        self.logger = logger or MetricLogger()
+        self.mesh = mesh
+        if config.train.batch_size % mesh.world:
+            raise ValueError(f"batch_size {config.train.batch_size} not divisible by data-axis size {mesh.world}")
+        self.rows = mesh.rows(config.train.batch_size)
+        self.is_main = mesh.rank == 0
+        self.logger = (logger or MetricLogger()) if self.is_main else None
 
         self.model = HMDEgoPose(config.model).to(dev)
         if params is None:
             init_weights(self.model, torch.Generator().manual_seed(config.train.seed))
         else:
             self.model.load_state_dict(from_jax_params(params, bn_state, config.model), strict=True)
+        replicate(mesh, self.model)
 
         dc, batch = config.data, config.train.batch_size
         self.pipeline = InputPipeline(train_dataset, dc, batch, seed=config.train.seed,
@@ -118,7 +138,7 @@ class Trainer:
                         for i in range(len(train_dataset)))
 
         model_points = train_dataset.model_points_for_loss(config.train.loss.num_model_points)
-        self.step_fn = TrainStep(self.model, config, model_points, dev, symmetric=symmetric)
+        self.step_fn = TrainStep(self.model, config, model_points, dev, symmetric=symmetric, mesh=mesh)
         self.optimizer = self.step_fn.optimizer
         if opt_leaves is not None:
             self.optimizer.load_leaves(opt_leaves)
@@ -134,19 +154,21 @@ class Trainer:
         self.best_checkpoint: Optional[str] = None
 
     def draws(self):
-        """One batch's device augmentation draws (None when both augmentations are off)."""
+        """One batch's device augmentation draws (None when both augmentations
+        are off): the global batch's, of which a rank keeps its rows."""
         dc = self.config.data
         if not (dc.use_colorspace_augmentation or dc.use_6dof_augmentation):
             return None
         h, w = self.frame_hw
-        return draw_augment(self.generator, self.config.train.batch_size, h, w,
-                            dc.chance_no_augmentation, dc.scale_6dof_augmentation)
+        draws = draw_augment(self.generator, self.config.train.batch_size, h, w,
+                             dc.chance_no_augmentation, dc.scale_6dof_augmentation)
+        return take_rows(draws, self.rows)
 
     def _resident_steps(self, idxs: np.ndarray) -> Dict[str, torch.Tensor]:
         """Steps over the (steps, B) index rows into ``self.data``; the metric means, on the device."""
         sums = None
         for row in idxs:
-            idx = torch.from_numpy(row.astype("int64")).to(self.device)
+            idx = torch.from_numpy(shard_batch(self.mesh, row).astype("int64")).to(self.device)
             metrics = self.step_fn(self.data, idx, self.draws(), self.generator)
             values = torch.stack([metrics[k] for k in METRIC_NAMES])
             sums = values if sums is None else sums + values
@@ -167,7 +189,7 @@ class Trainer:
 
     def _host_epoch(self) -> Tuple[Dict[str, torch.Tensor], int]:
         collected = []
-        for batch in self.pipeline.batches(oversample=self.config.train.oversample):
+        for batch in self.pipeline.batches(oversample=self.config.train.oversample, rows=self.rows):
             draws = self.draws() if isinstance(batch, RawBatch) else None
             metrics = self.step_fn.host_step(batch, draws, self.generator)
             collected.append(torch.stack([metrics[k] for k in METRIC_NAMES]))
@@ -204,8 +226,17 @@ class Trainer:
         """(params, bn_state) in the JAX package's layout, host numpy."""
         return to_jax_params(self.model.state_dict(), self.config.model)
 
+    def shared_metric(self, result: Optional[EvalResult]) -> float:
+        """The validation metric on every rank: rank 0's, broadcast (float64)."""
+        metric = result.mixed_point_distance_mean_mm if result is not None else 0.0
+        value = torch.tensor([metric], dtype=torch.float64, device=self.mesh.device)
+        return float(self.mesh.broadcast_(value, "validation").item())
+
     def fit(self, epochs: Optional[int] = None, max_eval_images: Optional[int] = None,
             on_epoch_end: Optional[Callable] = None) -> Optional[str]:
+        """Train ``epochs`` epochs; returns the best checkpoint's path (on every
+        rank; rank 0 writes it).  ``on_epoch_end(epoch, train_metrics, result)``
+        after each evaluated epoch (``result`` None on the other ranks)."""
         epochs = epochs if epochs is not None else self.config.train.epochs
         eval_every = max(1, self.config.train.eval_every)
         pending = []
@@ -214,34 +245,40 @@ class Trainer:
             pending.append((epoch, self.train_epoch(epoch)))
             if (epoch + 1) % eval_every != 0 and epoch != epochs - 1:
                 continue
-            for ep, m in pending:
-                self.logger.log_scalars(ep, {"lr": new_lr, **m})
+            if self.is_main:
+                for ep, m in pending:
+                    self.logger.log_scalars(ep, {"lr": new_lr, **m})
             train_metrics = pending[-1][1]
             n_since_eval = len(pending)
             pending = []
 
-            result = self.validate(max_images=max_eval_images)
-            metric = result.mixed_point_distance_mean_mm
+            result = self.validate(max_images=max_eval_images) if self.is_main else None
+            metric = self.shared_metric(result)
             new_lr = self.scheduler.step(metric, n_epochs=max(1, n_since_eval))
             self.optimizer.set_learning_rate(new_lr)
-            self.logger.log_scalars(epoch, {f"val/{k}": v for k, v in result.scalars().items()})
 
             tc, cfg = self.config.train, self.config
-            params, bn_state = self.jax_trees()
+            if self.is_main:
+                self.logger.log_scalars(epoch, {f"val/{k}": v for k, v in result.scalars().items()})
+                params, bn_state = self.jax_trees()
             if metric < self.best_metric:
                 self.best_metric = metric
                 name = checkpoint_name(cfg.data.dataset, cfg.data.fold, cfg.model.iter_steps, metric, epoch)
-                self.best_checkpoint = save_checkpoint(
-                    tc.checkpoint_dir, name, params, bn_state,
-                    metadata={"epoch": epoch, "metric": metric, "hand_relative": cfg.model.hand_relative,
-                              "config": repr(cfg), "metrics": result.scalars()},
+                self.best_checkpoint = checkpoint_path(tc.checkpoint_dir, name)
+                if self.is_main:
+                    save_checkpoint(
+                        tc.checkpoint_dir, name, params, bn_state,
+                        metadata={"epoch": epoch, "metric": metric, "hand_relative": cfg.model.hand_relative,
+                                  "config": repr(cfg), "metrics": result.scalars()},
+                    )
+            if self.is_main:
+                save_checkpoint(
+                    tc.checkpoint_dir, "last", params, bn_state,
+                    metadata={"epoch": epoch, "metric": metric, "train_step": self._steps_done,
+                              "hand_relative": cfg.model.hand_relative, "config": repr(cfg)},
+                    opt_leaves=self.optimizer.leaves(),
                 )
-            save_checkpoint(
-                tc.checkpoint_dir, "last", params, bn_state,
-                metadata={"epoch": epoch, "metric": metric, "train_step": self._steps_done,
-                          "hand_relative": cfg.model.hand_relative, "config": repr(cfg)},
-                opt_leaves=self.optimizer.leaves(),
-            )
+            self.mesh.barrier()
             if on_epoch_end is not None:
                 on_epoch_end(epoch, train_metrics, result)
         return self.best_checkpoint

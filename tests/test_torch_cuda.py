@@ -17,7 +17,7 @@ import torch
 
 import chip_smoke
 from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
-from hmd_ego_pose_tpu_torch.ops import distances, iou, target_assign
+from hmd_ego_pose_tpu_torch.ops import distances, target_assign
 from hmd_ego_pose_tpu_torch.ops.quantization import (dequantize, dequantize_group, dequantize_reference, quantize,
                                                      quantize_group, quantize_reference)
 
@@ -102,7 +102,6 @@ def test_target_assign_kernel_bit_equal_to_plain_on_the_card(cuda_device):
         for field, a, b in zip(want._fields, got, want):
             assert chip_smoke.same_bits(a, b), (name, field)
     assert LAUNCHES.get("target_assign") == len(cases)
-    assert LAUNCHES.get("iou") == 0
 
 
 def test_target_assign_wrapper_raises_on_mixed_devices_and_wrong_dtypes(cuda_device):
@@ -117,36 +116,6 @@ def test_target_assign_wrapper_raises_on_mixed_devices_and_wrong_dtypes(cuda_dev
         target_assign.assign_targets_batch(anchors, *gt[:4], gt[4].float(), **kw)
     with pytest.raises(ValueError):
         target_assign.assign_targets_batch(anchors, gt[0].transpose(1, 2).contiguous().transpose(1, 2), *gt[1:], **kw)
-
-
-def test_iou_kernel_bit_equal_to_plain_on_the_card(cuda_device):
-    """The train step's shape (16 images, the 12,276 anchors at 256 px, one box)
-    and K = 4, N off every block size, a single anchor, more boxes than one
-    shared-memory chunk; degenerate boxes; one launch per call."""
-    from hmd_ego_pose_tpu_torch.config import AnchorConfig
-    from hmd_ego_pose_tpu_torch.ops.anchors import anchors_for_shape
-
-    pyramid = anchors_for_shape((256, 256), AnchorConfig())[0]
-    rng = np.random.default_rng(0)
-    shapes = [(16, 12276, 1), (16, 12276, 4), (3, 4097, 2), (2, 1, 3), (2, 1000, 300)]
-    LAUNCHES.reset()
-    calls = 0
-    for b, n, k in shapes:
-        anchors = np.resize(pyramid, (n, 4)).astype(np.float32)
-        xy = rng.uniform(-10, 248, size=(b, k, 2))
-        boxes = np.concatenate([xy, xy + rng.uniform(0, 128, size=(b, k, 2))], axis=-1).astype(np.float32)
-        boxes[:, 0, 2:] = boxes[:, 0, :2]  # zero area: union can be 0
-        if k > 1:
-            boxes[:, 1] = boxes[:, 1, [2, 3, 0, 1]]  # inverted
-        a, g = torch.from_numpy(anchors).to(cuda_device), torch.from_numpy(boxes).to(cuda_device)
-        for anc in (a, a.expand(b, n, 4).contiguous()):
-            got = iou.iou_matrix(anc, g)
-            torch.cuda.synchronize()
-            calls += 1
-            assert torch.equal(got, iou.iou_matrix_reference(anc, g))
-    assert LAUNCHES.get("iou") == calls
-    with pytest.raises(ValueError):
-        iou.iou_matrix(a.double(), g)
 
 
 def test_quantize_kernel_bit_equal_to_plain_on_the_card(cuda_device):
@@ -260,3 +229,63 @@ def test_packed_restore_on_the_card_equals_the_cpu_restore(cuda_device):
     assert list(got) == list(want) and len(got) == 452 + 137 + 306
     for name in want:
         assert got[name].device.type == "cuda" and chip_smoke.same_bits(got[name].cpu(), want[name]), name
+
+
+def test_kernels_launch_on_the_tensors_card_not_the_current_one(cuda_device):
+    """Tensors on cuda:1 while the current device is cuda:0 (a data-parallel
+    rank's case): each kernel launches on cuda:1 and equals its plain version."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second card")
+    dev = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    rng = np.random.default_rng(3)
+    LAUNCHES.reset()
+    values = torch.from_numpy(rng.integers(-127, 128, size=(33, 17), dtype=np.int8)).to(dev)
+    scales = torch.from_numpy(rng.uniform(1e-5, 0.5, size=(17,)).astype(np.float32)).to(dev)
+    assert torch.equal(dequantize(values, scales), dequantize_reference(values, scales))
+    g, pr = (torch.from_numpy(rng.uniform(-60, 60, size=(3, n, 3)).astype(np.float32)).to(dev) for n in (70, 50))
+    assert torch.equal(distances.min_distances(g, pr), distances.min_distances_reference(g, pr))
+    from hmd_ego_pose_tpu_torch.config import ModelConfig
+    from hmd_ego_pose_tpu_torch.ops.anchors import device_anchors
+
+    anchors = device_anchors(256, ModelConfig().anchors, dev)[0]
+    gt = [torch.from_numpy(x).to(dev) for x in chip_smoke.target_batch(rng, 8, 1, 1)]
+    got = target_assign.assign_targets_batch(anchors, *gt, num_classes=1, image_size=256)
+    want = target_assign.assign_targets_batch_reference(anchors, *gt, num_classes=1, image_size=256)
+    torch.cuda.synchronize(dev)
+    assert all(chip_smoke.same_bits(a, b) for a, b in zip(got, want))
+    assert torch.cuda.current_device() == 0
+    assert LAUNCHES.snapshot() == {"dequantize": 1, "min_distances": 1, "target_assign": 1}
+
+
+def test_two_gloo_ranks_share_the_card(cuda_device, tmp_path):
+    """Two data-parallel ranks on the one card over gloo (as chip_smoke.py's
+    train_dp phase runs them): the cross-replica BN equals the single-process
+    BN of the whole batch on the card, and one fixed train step (phi-0, 128 px,
+    global batch 4) leaves both ranks bit-identical, its losses within 1e-5 of
+    the single-process step's."""
+    import os
+    import subprocess
+    import sys
+
+    import torch_dp_ranks
+
+    from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL
+
+    data = str(tmp_path / "syn")
+    subprocess.run([sys.executable, "-m", "hmd_ego_pose_tpu_torch.cli", "make-synthetic", "--out-dir", data,
+                    "--num-frames", "8", "--frame-size", "128", "--hand-render-version", "3"],
+                   check=True, cwd=torch_dp_ranks.REPO, timeout=120)
+    step = {"kind": "steps", "dataset": data, "size": 128, "batch": 4, "steps": 1}
+    ranks = torch_dp_ranks.run_ranks(2, [{"kind": "bn"}, step], tmp_path, device="cuda")
+    single_bn = torch_dp_ranks.bn_job({"kind": "bn"}, LOCAL, "cuda")
+    for update_stats in (True, False):
+        y = np.concatenate([r[0][update_stats]["y"] for r in ranks])
+        np.testing.assert_allclose(y, single_bn[update_stats]["y"], rtol=1e-6, atol=1e-6)
+        for key in ("running_mean", "running_var"):
+            np.testing.assert_array_equal(ranks[0][0][update_stats][key], ranks[1][0][update_stats][key])
+            np.testing.assert_allclose(ranks[0][0][update_stats][key], single_bn[update_stats][key], rtol=1e-6)
+    single = torch_dp_ranks.steps_job(step, os.path.join(str(tmp_path), "single"), "cuda")
+    assert ranks[0][1]["digests"] == ranks[1][1]["digests"]
+    for term, v in single["steps"][0].items():
+        assert ranks[0][1]["steps"][0][term] == pytest.approx(v, rel=1e-5), term

@@ -90,7 +90,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_build_hash_tracks_the_source():
-    assert build.sources() == ["dequantize", "iou", "min_distances", "quantize", "target_assign"]
+    assert build.sources() == ["dequantize", "min_distances", "quantize", "target_assign"]
     assert sorted(build.SIGNATURES) == build.sources()
     for name in build.sources():
         path = build.library_path(name)

@@ -105,7 +105,7 @@ def test_iou_plain_matches_pallas(case):
     want_pallas = np.asarray(iou_matrix_pallas(jnp.asarray(a), jnp.asarray(b), interpret=True))
     want_eager = np.asarray(jax_iou.iou_matrix(jnp.asarray(a), jnp.asarray(b)))
     want_jit = np.asarray(jax.jit(jax_iou.iou_matrix)(jnp.asarray(a), jnp.asarray(b)))
-    got = iou.iou_matrix(torch.from_numpy(a.copy()), torch.from_numpy(b.copy())[None])[0].numpy()
+    got = iou.iou_matrix_reference(torch.from_numpy(a.copy()), torch.from_numpy(b.copy())[None])[0].numpy()
     np.testing.assert_array_equal(got, want_pallas)
     np.testing.assert_array_equal(got, want_eager)
     np.testing.assert_allclose(got, want_jit, rtol=1e-6, atol=0)
@@ -117,25 +117,27 @@ def test_iou_batch_of_three_matches_vmapped_jax():
     gt = _boxes(rng, 3, 4)
     want = np.asarray(jax.vmap(lambda x, y: iou_matrix_pallas(x, y, interpret=True))(
         jnp.asarray(anchors), jnp.asarray(gt)))
-    got = iou.iou_matrix(torch.from_numpy(anchors), torch.from_numpy(gt)).numpy()
+    got = iou.iou_matrix_reference(torch.from_numpy(anchors), torch.from_numpy(gt)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)  # vmapped: fused by XLA:CPU
-    shared = iou.iou_matrix(torch.from_numpy(anchors[0]), torch.from_numpy(gt)).numpy()
+    shared = iou.iou_matrix_reference(torch.from_numpy(anchors[0]), torch.from_numpy(gt)).numpy()
     for i in range(3):
         np.testing.assert_array_equal(shared[i], np.asarray(jax_iou.iou_matrix(anchors[0], gt[i])))
 
 
 def test_iou_wrapper_checks_and_counts_no_cpu_launch():
+    """The plain anchor IoU, which the plain target assignment runs (the
+    one-call IoU kernel and its wrapper are retired: ``csrc/target_assign.cu``
+    computes the IoU on the card): shared (N, 4) and per-image (B, N, 4)
+    anchors give (B, N, K), a zero union gives 0, not NaN, and nothing
+    launches or counts a launch."""
     from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
 
     LAUNCHES.reset()
-    iou.iou_matrix(torch.zeros((5, 4)), torch.zeros((2, 1, 4)))
-    assert LAUNCHES.get("iou") == 0
-    with pytest.raises(ValueError):
-        iou.iou_matrix(torch.zeros((5, 4), dtype=torch.float64), torch.zeros((2, 1, 4)))
-    with pytest.raises(ValueError):
-        iou.iou_matrix(torch.zeros((5, 4)), torch.zeros((1, 4)))
-    with pytest.raises(ValueError):
-        iou.iou_matrix(torch.zeros((5, 4), device="meta"), torch.zeros((2, 1, 4), device="meta"))
+    shared = iou.iou_matrix_reference(torch.zeros((5, 4)), torch.zeros((2, 1, 4)))
+    per_image = iou.iou_matrix_reference(torch.zeros((2, 5, 4)), torch.zeros((2, 1, 4)))
+    assert torch.equal(shared, torch.zeros((2, 5, 1))) and torch.equal(per_image, shared)
+    assert LAUNCHES.snapshot() == {}
+    assert not hasattr(iou, "iou_matrix")
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,274 @@
+"""Data-parallel ranks of the port for the tests: ``torch.distributed`` gloo
+ranks on the CPU, each a subprocess of the test.
+
+``run_ranks(world, jobs, tmp_path)`` starts ``world`` processes of this file
+with torchrun's environment (``MASTER_ADDR`` 127.0.0.1, a free port,
+``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``), one torch thread each; every rank
+joins the group through ``parallel/distributed.py::initialize`` (60 s
+timeout), runs the jobs in order and saves its results with ``torch.save``.
+Every process is joined with a timeout and killed past it; a rank that
+exits non-zero or times out fails the test.
+
+Jobs (dicts with a ``kind``):
+
+* ``bn``: cross-replica ``BatchNorm`` on the rank's half of a seeded batch,
+  training forward and backward, with ``update_stats`` on and off;
+* ``steps``: ``cli.build_trainer`` on a dataset (the trainer's path chosen
+  from the overrides), then its own epoch code for a few steps: per step the
+  losses and the state digest, at the end the state and the collective
+  counts; for the host pipeline and windows also each rank's batch rows;
+* ``cli``: ``cli.main(["train", ...])`` in a working directory.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ARTIFACT = os.path.join(REPO, "trained", "syn1000_phi0_576ep_handrel_int8.npz")
+RANK_TIMEOUT_S = 60.0
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(world: int, jobs, tmp_path, timeout: float = 240.0, device: str = "cpu"):
+    """Run ``jobs`` on ``world`` gloo ranks; returns each rank's list of results.
+    ``device`` "cuda": the ranks share card 0 (gloo over the host)."""
+    import torch
+
+    job_file = os.path.join(str(tmp_path), f"jobs-{world}.json")
+    with open(job_file, "w") as f:
+        json.dump({"device": device, "jobs": jobs}, f)
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(world),
+                   RANK=str(rank), LOCAL_RANK=str(rank), OMP_NUM_THREADS="1", PYTHONPATH=REPO)
+        log = open(os.path.join(str(tmp_path), f"rank{rank}-{world}.log"), "w")
+        procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__), job_file, str(rank)],
+                                       env=env, stdout=log, stderr=subprocess.STDOUT, cwd=str(tmp_path)), log))
+    deadline = time.monotonic() + timeout
+    failed = []
+    try:
+        for rank, (proc, log) in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            if rc != 0:
+                failed.append((rank, rc))
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    if failed:
+        tails = []
+        for rank, rc in failed:
+            with open(os.path.join(str(tmp_path), f"rank{rank}-{world}.log")) as f:
+                tails.append(f"rank {rank} ({rc}):\n{f.read()[-3000:]}")
+        raise AssertionError("data-parallel ranks failed:\n" + "\n".join(tails))
+    return [torch.load(os.path.join(str(tmp_path), f"out{rank}-{world}.pt"), weights_only=False)
+            for rank in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# the jobs (also run in one process, on a mesh of one, as the reference)
+# ---------------------------------------------------------------------------
+
+
+def bn_inputs(batch: int = 4, channels: int = 5, hw: int = 3, seed: int = 0):
+    """A seeded NCHW batch, BN weight, bias, running stats and output cotangent."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    return {"x": rng.normal(1.5, 2.0, (batch, channels, hw, hw)).astype(f),
+            "weight": rng.uniform(0.5, 1.5, channels).astype(f), "bias": rng.normal(size=channels).astype(f),
+            "mean": rng.normal(size=channels).astype(f), "var": rng.uniform(0.5, 2.0, channels).astype(f),
+            "cotangent": rng.normal(size=(batch, channels, hw, hw)).astype(f)}
+
+
+def bn_job(job, mesh, device: str = "cpu"):
+    """Training-mode BN of this rank's rows (all rows on a mesh of one):
+    output, running statistics and the gradients of input, weight and bias."""
+    import torch
+
+    from hmd_ego_pose_tpu_torch.nn.core import BatchNorm
+    from hmd_ego_pose_tpu_torch.parallel.mesh import shard_batch
+
+    inp = bn_inputs(**job.get("shape", {}))
+    out = {}
+    for update_stats in (True, False):
+        bn = BatchNorm(inp["x"].shape[1]).to(device)
+        with torch.no_grad():
+            for name, key in (("weight", "weight"), ("bias", "bias"), ("running_mean", "mean"),
+                              ("running_var", "var")):
+                getattr(bn, name).copy_(torch.from_numpy(inp[key]))
+        bn.mesh, bn.update_stats = mesh, update_stats
+        bn.train()
+        x = torch.from_numpy(shard_batch(mesh, inp["x"])).to(device).requires_grad_(True)
+        y = bn(x)
+        y.backward(torch.from_numpy(shard_batch(mesh, inp["cotangent"])).to(device))
+        out[update_stats] = {"y": y.detach().cpu().numpy(), "x_grad": x.grad.cpu().numpy(),
+                             "weight_grad": bn.weight.grad.cpu().numpy(), "bias_grad": bn.bias.grad.cpu().numpy(),
+                             "running_mean": bn.running_mean.cpu().numpy(),
+                             "running_var": bn.running_var.cpu().numpy()}
+    out["collectives"] = dict(mesh.stats.calls)
+    return out
+
+
+class _NoLogger:
+    def log_scalars(self, step, scalars):
+        pass
+
+
+def build(job, workdir: str, device: str = "cpu"):
+    """``cli.build_trainer`` of a ``steps`` job."""
+    from hmd_ego_pose_tpu_torch import cli
+
+    argv = ["train", "--dataset-path", job["dataset"], "--ckpt", job.get("ckpt", ARTIFACT),
+            "--img-size", str(job["size"]), "--batch-size", str(job["batch"]), "--device", device,
+            *job.get("flags", [])]
+    args = cli.build_parser().parse_args(argv)
+    aug = job.get("augment", False)
+    data = {"use_6dof_augmentation": aug, "use_colorspace_augmentation": aug, "num_workers": 1,
+            **job.get("data", {})}
+    return cli.build_trainer(args, logger=_NoLogger(), data_overrides=data, model_overrides=job.get("model"),
+                             checkpoint_dir=os.path.join(workdir, "ckpt"), oversample=job.get("oversample", 10))
+
+
+def steps_job(job, workdir: str, device: str = "cpu"):
+    """A few steps of the trainer's own epoch code on its path (resident:
+    ``job["steps"]`` steps; windowed and host: one epoch)."""
+    import torch
+
+    from hmd_ego_pose_tpu_torch.data.device_dataset import gather_raw_batch
+    from hmd_ego_pose_tpu_torch.parallel.mesh import shard_batch, state_digest
+    from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES
+
+    trainer = build(job, workdir, device)
+    step, mesh = trainer.step_fn, trainer.mesh
+    out = {"path": trainer.path, "steps": [], "digests": [], "rows": []}
+    prepare, prepare_host, update = step.prepare, step.prepare_host, step.update
+
+    def record(raw):
+        out["rows"].append({k: np.asarray(v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+                            for k, v in raw._asdict().items()})
+
+    def recorded_prepare(data, idx, draws=None):
+        record(gather_raw_batch(data, idx))
+        return prepare(data, idx, draws)
+
+    def recorded_prepare_host(batch, draws=None):
+        record(batch)
+        return prepare_host(batch, draws)
+
+    def recorded_update(bundle):
+        metrics = update(bundle)
+        out["steps"].append({k: float(metrics[k]) for k in METRIC_NAMES})
+        out["digests"].append(state_digest(trainer.model))
+        return metrics
+
+    step.prepare, step.prepare_host, step.update = recorded_prepare, recorded_prepare_host, recorded_update
+    opt_step = trainer.optimizer.opt.step
+
+    def recorded_opt_step(*a, **kw):  # the first step's gradients, as the update reads them
+        if "grads" not in out:
+            names = {id(p): k for k, p in trainer.model.named_parameters()}
+            out["grads"] = {names[id(p)]: p.grad.cpu().numpy() for p in trainer.optimizer.params}
+        return opt_step(*a, **kw)
+
+    trainer.optimizer.opt.step = recorded_opt_step
+    mesh.stats.reset()
+    if trainer.path == "resident":
+        idxs = trainer.pipeline.epoch_indices(trainer.config.train.oversample)[:job["steps"]]
+        for s in range(idxs.shape[0]):
+            if job.get("drop_connect", False):
+                trainer._resident_steps(idxs[s:s + 1])
+            else:  # the reference steps: augmentation draws as configured, no drop-connect
+                idx = torch.from_numpy(shard_batch(mesh, idxs[s])).to(trainer.device)
+                step(trainer.data, idx, trainer.draws(), None)
+    elif trainer.path == "windowed":
+        trainer._windowed_epoch()
+    else:
+        trainer._host_epoch()
+    out["state"] = {k: v.detach().cpu().numpy().copy() for k, v in trainer.model.state_dict().items()}
+    out["collectives"] = dict(mesh.stats.calls)
+    return out
+
+
+def cli_job(job, workdir: str):
+    """``cli.main(argv)`` in ``workdir``: the best checkpoint it names, the
+    trainer's plateau state and learning rate after ``fit``, the files written."""
+    from hmd_ego_pose_tpu_torch import cli
+    from hmd_ego_pose_tpu_torch.train import trainer as trainer_mod
+
+    os.makedirs(workdir, exist_ok=True)
+    cwd = os.getcwd()
+    fit, fitted = trainer_mod.Trainer.fit, []
+
+    def recorded_fit(self, *a, **kw):
+        best = fit(self, *a, **kw)
+        fitted.append(self)
+        return best
+
+    trainer_mod.Trainer.fit = recorded_fit
+    os.chdir(workdir)
+    try:
+        best = cli.main(job["argv"])
+    finally:
+        os.chdir(cwd)
+        trainer_mod.Trainer.fit = fit
+    t = fitted[0]
+    return {"best": best, "lr": t.optimizer.learning_rate, "plateau": dict(vars(t.scheduler)),
+            "files": sorted(os.path.relpath(os.path.join(root, f), workdir)
+                            for root, _, files in os.walk(workdir) for f in files)}
+
+
+def run_job(job, mesh, workdir: str, device: str = "cpu"):
+    kind = job["kind"]
+    if kind == "bn":
+        return bn_job(job, mesh, device)
+    if kind == "steps":
+        return steps_job(job, workdir, device)
+    if kind == "cli":
+        return cli_job(job, workdir)
+    raise ValueError(kind)
+
+
+def main(job_file: str, rank: int) -> None:
+    import torch
+
+    from hmd_ego_pose_tpu_torch.parallel import distributed
+    from hmd_ego_pose_tpu_torch.parallel.mesh import make_mesh
+
+    torch.set_num_threads(1)
+    with open(job_file) as f:
+        spec = json.load(f)
+    device = "cuda:0" if spec["device"] == "cuda" else "cpu"
+    assert distributed.initialize(device, shared_device=device != "cpu", timeout=RANK_TIMEOUT_S)
+    mesh = make_mesh(device=torch.device(device))
+    base = os.path.dirname(job_file)
+    results = [run_job(job, mesh, os.path.join(base, f"rank{rank}-job{i}"), device)
+               for i, job in enumerate(spec["jobs"])]
+    world = mesh.world
+    torch.save(results, os.path.join(base, f"out{rank}-{world}.pt"))
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]))
