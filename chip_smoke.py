@@ -81,7 +81,10 @@ Phases, each printing one JSON line of its own:
                time, each per request.  Kernel launch counts are reset just before
                the engine is built and read just after the phase.
 9. evaluate -- ``cli make-synthetic`` writes the 1000-frame, 256 px, seed-0,
-               hand-render-v3 set into a temporary directory, whose
+               hand-render-v3 set into a temporary directory, in a process
+               of its own (``--generate``) started after the device line, so
+               that the host's numpy runs while phases 2-8 use the card; the
+               phase waits for it; the set's
                ``gt_0.yml`` must hash as the JAX generator's did; then
                ``cli evaluate`` of the shipped artifact on its 200 val frames
                (fp32, unfolded), on the card, with the launch counts reset just
@@ -106,17 +109,19 @@ Phases, each printing one JSON line of its own:
                and ``last`` checkpoints written and restored to the trained
                model, ``last`` with the optimizer's leaves.  Times: step p50 and
                max (synchronised) and its parts, images/s, epoch, validation
-               and start-up seconds, and a torch.profiler sample of two more
-               steps (device time per step, busy share; four until PR 11: the
-               sample took 31 s of the script, nearly all the profiler's own).
+               and start-up seconds, and a torch.profiler sample of one more
+               step (device time per step, busy share; the sample's time is
+               nearly all the profiler's own, so it is kept to one step).
 11. train_dp -- data-parallel training: two ranks of ``cli train``'s trainer
                (``cli.build_trainer`` under torchrun's environment, global batch
                16 split 8 + 8) share the one card over gloo, each a subprocess
-               of this script (``--train-dp-rank``), joined with a timeout.
+               of this script (``--train-dp-rank``) started before the train
+               phase so that their start-up overlaps it, stepping once it has
+               ended, joined with a timeout.
                Four fixed steps (augmentation and drop-connect off) held to
                ``handrel_v3_train_steps.json`` within its tolerance and to the
                train phase's own four steps within 1e-5 relative; then ``fit``
-               of one short epoch (8 augmented steps with drop-connect,
+               of one short epoch (4 augmented steps with drop-connect,
                validation on rank 0 only, its metric broadcast, checkpoints by
                rank 0 only): every step finite, the ranks' losses and state
                digests (parameters and BN buffers) bit-identical after every
@@ -126,7 +131,8 @@ Phases, each printing one JSON line of its own:
                of the step.  With two or more cards the fixed steps run again
                over NCCL, one card per rank; with one the line says so.
 12. train_multi -- ``cli make-synthetic --num-objects 2`` writes the 400-frame,
-               256 px two-object set (fold 0: 240 train, 80 val), whose
+               256 px two-object set (fold 0: 240 train, 80 val; in a
+               process of its own started beside the v3 set's), whose
                ``gt_0.yml`` must hash as the JAX generator's did; the artifact
                widened to two classes (``models/weights.py::widen_classes``)
                is saved as the start; four fixed steps of ``cli train
@@ -139,8 +145,8 @@ Phases, each printing one JSON line of its own:
 13. train_windowed -- the v3 set's 600 train frames with
                ``device_resident_budget_bytes`` of a third of them: three
                windows of 200 frames over one epoch, each window's index rows
-               cut to its first 4 steps (12 steps; a full epoch's 36 until
-               PR 11), ``target_assign`` once per step; the device
+               cut to its first 2 steps (6 steps of the epoch's 36),
+               ``target_assign`` once per step; the device
                memory held after each window's upload, over the model as
                built, must stay within one window and Adam's moments (one
                window resident at a time), and the peak is reported beside
@@ -150,8 +156,8 @@ Phases, each printing one JSON line of its own:
                largest gap between the host-preprocessed and the
                device-preprocessed batch of step 0 per field, then an
                augmented epoch through the host input pipeline (worker
-               threads) cut to its first 12 batches (37 until PR 11), then 4
-               steps of batches made serially: step times and images/s beside
+               threads) cut to its first 6 batches (of 37), then 2 steps of
+               batches made serially: step times and images/s beside
                the resident run's.
 15. train_remat -- ``--no-freeze-backbone``, the same state, batch and
                drop-connect seed through a remat and a plain step: losses
@@ -173,11 +179,34 @@ Phases, each printing one JSON line of its own:
                artifact.  Seconds of restore, fold, ``torch.export``, save,
                load-and-verify and int8 save, the ``.pt2`` size and the
                fp32/int8 size ratio.
-17. shutdown -- server and engine stopped, every thread joined with a timeout.
+17. cli_rest -- the rest of the CLI, held to
+               ``hmd_ego_pose_tpu_torch/eval/references/cli_rest.json`` (the
+               JAX package's, ``scripts/make_cli_reference.py``), with the
+               launch counts reset just before and read just after: the
+               artifact restored on the card with seeded iterative-subnet
+               leaves added (``add_iter_leaves``) and saved int8
+               (``quantize``), its content digest the JAX package's int8
+               save's; ``cli evaluate --iter 1 --save-images-path`` of it on
+               the v3 set's 200 val frames, every scalar within the evaluate
+               phase's tolerances of the JAX evaluation, one ``det_`` /
+               ``samplevis_`` pair per true positive; four fixed training
+               steps of ``cli train --iter 1``'s trainer from it within the
+               train phase's tolerance; ``cli format-labels`` of 8 seeded
+               256 px pickles (``label_pickles``, one corrupt) with the JAX
+               output's YAML, split and npy digests and PNG pixel digests,
+               read back by ``ColibriDataset``, and ``cli debug`` of it with
+               the JAX overlays' pixel digests (PIL's); ``cli parity`` of the
+               artifact as a ``module.``-prefixed torch state_dict, fp32 on
+               the card, every statistic and head value within 1e-4 of the
+               JAX package's at its layer's scale.  ``dequantize`` 3,
+               ``quantize`` 1, ``min_distances`` 1, ``target_assign`` 4.
+18. shutdown -- server and engine stopped, every thread joined with a timeout.
 
 Then the ``kernels`` JSON line (``target_assign``'s launches summed over the
-six training runs, both data-parallel ranks included, ``min_distances``' over the evaluation and the two-class
-validation), the nvidia-smi line, and as the last line
+seven training runs, both data-parallel ranks and the iter-1 steps included,
+``min_distances``' over the three evaluations, ``dequantize``'s over serve
+and cli_rest, ``quantize``'s over export and cli_rest), the nvidia-smi line,
+and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 non-zero without that line.  It exits non-zero at once without a CUDA device
 or without the repository beside it.  A watchdog turns a hang into a
@@ -193,6 +222,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -777,7 +807,7 @@ class TimedStep:
             raise AssertionError(f"non-finite losses at steps {bad}: {[self.losses[i] for i in bad]}")
 
 
-def profile_steps(trainer, steps: int = 2) -> dict:
+def profile_steps(trainer, steps: int = 1) -> dict:
     """Device busy share of a few more (unsynchronised) train steps under
     torch.profiler, and the kernels that take the most device time; None
     where the profiler sees no device time."""
@@ -978,17 +1008,20 @@ def phase_train(card: str, data: str, work: str) -> dict:
     }
 
 
-DP_AUG_STEPS = 8
-# the windowed and host variants' steps (PR 12 cut them from a full epoch, 36-37
-# steps, to pay for train_dp: each still runs the trainer's epoch code)
-VARIANT_STEPS = 12
+# train_dp's augmented epoch, cut to keep the script's time
+DP_AUG_STEPS = 4
+# the windowed and host variants' steps, cut from a full epoch (36-37 steps)
+# to keep the script's time: each still runs the trainer's epoch code, the
+# windowed one over all three windows
+VARIANT_STEPS = 6
 DP_RANK_TIMEOUT_S = 240
 
 
-def train_dp_rank(mode: str, data: str, work: str) -> dict:
-    """One data-parallel rank (run as ``chip_smoke.py --train-dp-rank MODE DATA WORK``
-    under torchrun's environment): ``cli.build_trainer`` on the v3 set at global
-    batch 16, four fixed steps (augmentation and drop-connect off) on its rows
+def train_dp_rank(mode: str, data: str, work: str, go: str = "") -> dict:
+    """One data-parallel rank (run as ``chip_smoke.py --train-dp-rank MODE DATA WORK
+    [GO]`` under torchrun's environment): ``cli.build_trainer`` on the v3 set at
+    global batch 16, then, once the file ``GO`` exists (the caller's signal that
+    the card is free), four fixed steps (augmentation and drop-connect off) on its rows
     of the reference batches, then (mode ``gloo``) ``fit`` of one short epoch:
     ``DP_AUG_STEPS`` augmented steps with drop-connect, validation on rank 0,
     the metric broadcast, checkpoints by rank 0.  Mode ``gloo``: the ranks
@@ -1030,6 +1063,12 @@ def train_dp_rank(mode: str, data: str, work: str) -> dict:
     out = {"rank": rank, "world": trainer.mesh.world, "backend": dist.get_backend(), "device": str(trainer.device),
            "rows": [trainer.rows.start, trainer.rows.stop], "startup_s": time.perf_counter() - t0,
            "restore_launches": LAUNCHES.snapshot()}
+    t0 = time.perf_counter()
+    while go and not os.path.exists(go):
+        if time.perf_counter() - t0 > DP_RANK_TIMEOUT_S:
+            raise TimeoutError(f"rank {rank}: no {go} after {DP_RANK_TIMEOUT_S} s")
+        time.sleep(0.05)
+    out["waited_s"] = time.perf_counter() - t0
     fixed, digests = [], []
     for s in range(4):
         metrics = trainer.step_fn(trainer.data, shard_batch(trainer.mesh, fixed_batch(trainer, s)), None, None)
@@ -1070,11 +1109,10 @@ def train_dp_rank(mode: str, data: str, work: str) -> dict:
     return out
 
 
-def run_dp_ranks(mode: str, data: str, work: str) -> list:
+def start_dp_ranks(mode: str, data: str, work: str, go: str = "") -> list:
     """Two ranks of ``train_dp_rank`` as subprocesses of this script (a free
-    127.0.0.1 port, torchrun's environment); each is joined with a timeout and
-    killed past it; a rank that fails or times out raises.  Returns each rank's
-    JSON line."""
+    127.0.0.1 port, torchrun's environment), waiting for ``go`` after their
+    start-up if it is given."""
     import socket
 
     with socket.socket() as sock:
@@ -1087,8 +1125,15 @@ def run_dp_ranks(mode: str, data: str, work: str) -> list:
         env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(rank),
                    LOCAL_RANK=str(rank), PYTHONPATH=HERE)
         procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--train-dp-rank", mode, data,
-                                       rank_work], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       rank_work, go], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                       text=True, cwd=rank_work))
+    return procs
+
+
+def join_dp_ranks(mode: str, procs: list) -> list:
+    """Joins ``start_dp_ranks``' ranks, each within ``DP_RANK_TIMEOUT_S`` from
+    now and killed past it; a rank that fails or times out raises.  Returns
+    each rank's JSON line."""
     deadline, results, failed = time.monotonic() + DP_RANK_TIMEOUT_S, [], []
     try:
         for rank, proc in enumerate(procs):
@@ -1133,16 +1178,19 @@ def hold_dp_fixed(ranks: list, reference: dict, single_steps: list) -> dict:
     return {"reference_max_rel_gap": ref_gaps, "single_process_max_rel_gap": single_gap}
 
 
-def phase_train_dp(card: str, data: str, work: str, train: dict) -> dict:
+def phase_train_dp(card: str, data: str, work: str, train: dict, procs: list, go: str) -> dict:
     """Data-parallel training: two gloo ranks sharing the one card (each a
-    subprocess running ``train_dp_rank``), global batch 16 split 8 + 8."""
+    subprocess running ``train_dp_rank``, started before the train phase so
+    that their start-up overlaps it), global batch 16 split 8 + 8: ``go``
+    lets them step."""
     import torch
 
     with open(TRAIN_REFERENCE) as f:
         reference = json.load(f)
-    dp_work = os.path.join(work, "dp")
     t0 = time.perf_counter()
-    ranks = run_dp_ranks("gloo", data, dp_work)
+    with open(go, "w"):
+        pass
+    ranks = join_dp_ranks("gloo", procs)
     run_s = time.perf_counter() - t0
     zero, one = ranks
     held = hold_dp_fixed(ranks, reference, train["reference_steps"])
@@ -1165,7 +1213,7 @@ def phase_train_dp(card: str, data: str, work: str, train: dict) -> dict:
         raise AssertionError(f"validation must run on rank 0 only: {[r['launches'] for r in ranks]}")
     nccl = "not run: 1 card"
     if torch.cuda.device_count() >= 2:
-        nccl_ranks = run_dp_ranks("nccl", data, os.path.join(work, "dp_nccl"))
+        nccl_ranks = join_dp_ranks("nccl", start_dp_ranks("nccl", data, os.path.join(work, "dp_nccl")))
         if nccl_ranks[0]["backend"] != "nccl" or nccl_ranks[1]["device"] != "cuda:1":
             raise AssertionError(f"not NCCL across cards: {[(r['backend'], r['device']) for r in nccl_ranks]}")
         nccl = hold_dp_fixed(nccl_ranks, reference, train["reference_steps"])
@@ -1178,13 +1226,14 @@ def phase_train_dp(card: str, data: str, work: str, train: dict) -> dict:
         "collective_ms_per_step": zero["collective_ms_per_step"],
         "collective_share_of_step": zero["collective_share_of_step"],
         "fit_s": zero["fit_s"], "startup_s": [r["startup_s"] for r in ranks], "ranks_s": run_s,
+        "waited_s": [r["waited_s"] for r in ranks],
         "val_metric_broadcast": zero["plateau"]["best"],
         "launches": {"target_assign": sum(r["launches"].get("target_assign", 0) for r in ranks)},
         "launches_per_rank": [r["launches"] for r in ranks], "nccl": nccl, "card": card,
     }
 
 
-def phase_train_multi(card: str, work: str) -> dict:
+def phase_train_multi(card: str, work: str, generation: subprocess.Popen) -> dict:
     """Two objects a frame: the 400-frame two-object set, the artifact widened to
     two classes, four reference steps, then an epoch through cli train's
     trainer with validation once per class."""
@@ -1198,12 +1247,8 @@ def phase_train_multi(card: str, work: str) -> dict:
 
     with open(MULTI_REFERENCE) as f:
         reference = json.load(f)
-    data = os.path.join(work, "multi2_v3_256")
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
-        cli.main(["make-synthetic", "--out-dir", data, "--num-frames", "400", "--frame-size", "256",
-                  "--hand-render-version", "3", "--num-objects", "2"])
-    t_generate = time.perf_counter() - t0
+    data = os.path.join(work, MULTI_SET[0])
+    generated = finish_generation(generation)
     with open(os.path.join(data, "data", "01", "gt_0.yml"), "rb") as f:
         gt_hash = hashlib.sha256(f.read()).hexdigest()
     if gt_hash != reference["gt_0_yml_sha256"]:
@@ -1244,7 +1289,7 @@ def phase_train_multi(card: str, work: str) -> dict:
     _, result = run["epochs"][-1]
     return {
         "reference_max_rel_gap": ref_gaps, "reference_tolerance_rel": reference["tolerance_rel"],
-        "gt_0_yml_sha256": gt_hash, "generate_s": t_generate, **timed.summary(batch),
+        "gt_0_yml_sha256": gt_hash, **generated, **timed.summary(batch),
         "frames": len(trainer.train_dataset), "val_frames": len(trainer.val_dataset), "fit_s": run["fit_s"],
         "validate_s": run["val_s"][0] if run["val_s"] else None,
         "val_per_class": {c: {k: r.scalars()[k] for k in ("num_matched", "mean_ap", "mixed_point_distance_mean_mm")}
@@ -1385,12 +1430,12 @@ def phase_train_host(card: str, data: str, work: str, resident: dict) -> dict:
     timed.check_finite()
     if launches.get("target_assign", 0) != steps:
         raise AssertionError(f"target_assign must launch once per step ({steps}), got {launches}")
-    # four more steps with each batch made in this thread before its step: the
+    # two more steps with each batch made in this thread before its step: the
     # step's parts with no worker thread running beside the launches, and the
     # host's time to make one augmented batch
     serial = trainer.pipeline.batches(oversample=1, num_workers=1)
     make_ms = []
-    for _ in range(4):
+    for _ in range(2):
         t = time.perf_counter()
         made = next(serial)
         make_ms.append((time.perf_counter() - t) * 1e3)
@@ -1877,8 +1922,37 @@ def scalar_kind(name: str) -> str:
     return "accuracy"  # mean_ap and every accuracy
 
 
-def phase_evaluate(card: str, data: str) -> dict:
-    """Generate the v3 set into ``data`` (kept for the train phase) and evaluate on it."""
+# cli make-synthetic's flags of the two sets: the v3 set of the evaluate and
+# training phases, and train_multi's two-object set
+V3_SET = ("syn1000_v3_256", ["--num-frames", "1000", "--frame-size", "256", "--hand-render-version", "3"])
+MULTI_SET = ("multi2_v3_256", [*V3_SET[1][:1], "400", *V3_SET[1][2:], "--num-objects", "2"])
+GENERATE_TIMEOUT_S = 300
+
+
+def start_generation(work: str, spec: tuple) -> subprocess.Popen:
+    """``cli make-synthetic`` of ``spec`` into ``work`` in a process of its own
+    (``--generate``): host numpy that runs while the card's phases do."""
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), "--generate",
+                             os.path.join(work, spec[0]), *spec[1]],
+                            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_generation(proc: subprocess.Popen) -> dict:
+    """Waits for ``start_generation``'s process: its own seconds, and how long the caller waited."""
+    t = time.perf_counter()
+    try:
+        out, err = proc.communicate(timeout=GENERATE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        raise RuntimeError(f"make-synthetic failed ({proc.returncode}):\n{err[-3000:]}")
+    return {**json.loads(out.strip().splitlines()[-1]), "generate_wait_s": time.perf_counter() - t}
+
+
+def phase_evaluate(card: str, data: str, generation: subprocess.Popen) -> dict:
+    """Wait for the v3 set's generation into ``data`` (kept for the train phases) and evaluate on it."""
     from hmd_ego_pose_tpu_torch import cli
     from hmd_ego_pose_tpu_torch.data.colibri import ColibriDataset
     from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
@@ -1887,10 +1961,7 @@ def phase_evaluate(card: str, data: str) -> dict:
         reference = json.load(f)
     with open(ARTIFACT[: -len(".npz")] + ".json") as f:
         sidecar = json.load(f)["eval"]
-    t0 = time.perf_counter()
-    cli.main(["make-synthetic", "--out-dir", data, "--num-frames", "1000", "--frame-size", "256",
-              "--hand-render-version", "3"])
-    t_generate = time.perf_counter() - t0
+    generated = finish_generation(generation)
     with open(os.path.join(data, "data", "01", "gt_0.yml"), "rb") as f:
         gt_hash = hashlib.sha256(f.read()).hexdigest()
     if gt_hash != reference["gt_0_yml_sha256"]:
@@ -1922,12 +1993,326 @@ def phase_evaluate(card: str, data: str) -> dict:
     if launches.get("min_distances", 0) != 1:
         raise AssertionError(f"one class must make exactly one min_distances launch, got {launches}")
     return {
-        "frames": frames, "generate_s": t_generate, "read_s": t_read, "evaluate_s": t_evaluate,
+        "frames": frames, **generated, "read_s": t_read, "evaluate_s": t_evaluate,
         "gt_0_yml_sha256": gt_hash, "launches": launches, "scalars": got,
         "worst_gap": worst, "tolerances": EVAL_TOLERANCES,
         "tpu_bf16_sidecar_for_reference_only": {k: sidecar[k] for k in (
             "translation_error_mean_mm", "rotation_error_mean_deg", "hand_error_mean_mm")},
         "card": card,
+    }
+
+
+CLI_REFERENCE = os.path.join(HERE, "hmd_ego_pose_tpu_torch", "eval", "references", "cli_rest.json")
+# the iter-1 checkpoint: the shipped artifact plus iterative-subnet leaves drawn
+# from RandomState(ITER_SEED), scaled so that the refinement moves the poses
+# and keeps the detections (scripts/make_cli_reference.py draws the same)
+ITER_SEED, ITER_SCALE = 13, 0.01
+# format-labels: seeded per-frame pickles of LABEL_SIZE px, the same as the reference script's
+LABEL_FRAMES, LABEL_SIZE, LABEL_SEED = 8, 256, 13
+PARITY_TOLERANCE_REL = 1e-4
+
+
+def add_iter_leaves(flat: dict, template: dict) -> dict:
+    """The flat checkpoint leaves ``flat`` ("params/..." and "bn/..." keys)
+    and, for every key of ``template`` that they lack (the iterative
+    subnets'), a float32 leaf drawn in sorted key order from
+    ``RandomState(ITER_SEED)``: BN variances 1, means 0, scales
+    1 + ITER_SCALE u, every other leaf ITER_SCALE u, u uniform in [-1, 1).
+    Uniform draws are plain arithmetic, so every machine draws the same bits."""
+    import numpy as np
+
+    rng = np.random.RandomState(ITER_SEED)
+    out = dict(flat)
+    for key in sorted(set(template) - set(flat)):
+        shape, leaf = np.shape(template[key]), key.rsplit("/", 1)[1]
+        if leaf == "var":
+            value = np.ones(shape)
+        elif leaf == "mean":
+            value = np.zeros(shape)
+        else:
+            value = (1.0 if leaf == "scale" else 0.0) + ITER_SCALE * rng.uniform(-1.0, 1.0, size=shape)
+        out[key] = value.astype(np.float32)
+    return out
+
+
+def write_iter1_checkpoint(directory: str, device=None) -> tuple:
+    """The artifact restored on ``device`` (None: the card), its flat leaves
+    completed to an ``iter_steps=1`` model's by ``add_iter_leaves``, saved
+    with the int8 backend (quantized on ``device``) as
+    ``<directory>/iter1_int8.npz``.  Returns (path, the artifact's params, bn_state)."""
+    from hmd_ego_pose_tpu_torch.config import ModelConfig
+    from hmd_ego_pose_tpu_torch.models.hmd_ego_pose import HMDEgoPose
+    from hmd_ego_pose_tpu_torch.models.weights import to_jax_params
+    from hmd_ego_pose_tpu_torch.train.checkpoint import _flatten, _unflatten, restore_checkpoint, save_checkpoint
+
+    def flat(params, bn_state):
+        return {**{"params/" + k: v for k, v in _flatten(params).items()},
+                **{"bn/" + k: v for k, v in _flatten(bn_state).items()}}
+
+    import torch
+
+    from hmd_ego_pose_tpu_torch.utils.device import resolve_device
+
+    params, bn_state, meta = restore_checkpoint(ARTIFACT, device)
+    cfg = ModelConfig(iter_steps=1)
+    restored = flat(params, bn_state)
+    full = add_iter_leaves(restored, flat(*to_jax_params(HMDEgoPose(cfg).state_dict(), cfg)))
+    # the drawn leaves join the restored ones on their device: the int8 save quantizes them as one group
+    dev = resolve_device(device)
+    full = {k: v if k in restored else torch.from_numpy(v).to(dev) for k, v in full.items()}
+    path = save_checkpoint(directory, "iter1_int8",
+                           _unflatten({k[len("params/"):]: v for k, v in full.items() if k.startswith("params/")}),
+                           _unflatten({k[len("bn/"):]: v for k, v in full.items() if k.startswith("bn/")}),
+                           metadata={"hand_relative": meta["hand_relative"]}, backend="int8", device=device)
+    return path, params, bn_state
+
+
+def _signed_permutation(rng):
+    """A proper rotation with entries 0 and +-1 (one of 24): products with it are
+    exact, so poses built from it round the same under any BLAS."""
+    import numpy as np
+
+    while True:
+        r = np.zeros((3, 3))
+        r[np.arange(3), rng.permutation(3)] = rng.choice([-1.0, 1.0], size=3)
+        if round(np.linalg.det(r)) == 1:
+            return r
+
+
+def label_pickles(directory: str, frames: int = LABEL_FRAMES, size: int = LABEL_SIZE) -> list:
+    """``frames`` seeded per-frame pickles (the format-labels input schema) in
+    ``directory``; frame 5's mask is empty (a corrupt frame, skipped).  Each
+    mask has its object in the red channel above the threshold and noise
+    below it; poses are signed permutations with translations in meters,
+    given as 3x4 or 4x4 affines; the camera as ``cam_calib`` or
+    ``camera_matrix``; the tip in meters (4 or 3 values) or already in mm.
+    Only uniform draws and exact arithmetic: every machine writes the same
+    bytes.  Returns the paths."""
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.RandomState(LABEL_SEED)
+    paths = []
+    for i in range(frames):
+        mask = rng.randint(0, 11, size=(size, size, 3)).astype(np.uint8)
+        x, y = rng.randint(0, size // 2, size=2)
+        w, h = rng.randint(8, size // 2, size=2)
+        if i != 5:
+            mask[y:y + h, x:x + w, 0] = rng.randint(11, 256)
+        affine = np.eye(4)
+        affine[:3, :3] = _signed_permutation(rng)
+        affine[:3, 3] = [rng.uniform(-0.1, 0.1), rng.uniform(-0.1, 0.1), rng.uniform(0.3, 0.7)]
+        focal = rng.uniform(0.8, 1.2) * size
+        record = {
+            "rgb": rng.randint(0, 256, size=(size, size, 3)).astype(np.uint8),
+            "mask": mask,
+            "affine_transform": affine if i % 2 else affine[:3],
+            "cam_calib" if i % 2 == 0 else "camera_matrix": np.array(
+                [[focal, 0.0, size / 2], [0.0, focal, size / 2], [0.0, 0.0, 1.0]]),
+            "coords_3d": rng.uniform(-0.1, 0.1, size=(21, 3)) + affine[:3, 3],
+            "drill_tip_transform": (np.array([*rng.uniform(-0.3, 0.3, size=3), 1.0]),
+                                    rng.uniform(-0.3, 0.3, size=3),
+                                    np.array([*rng.uniform(-300, 300, size=3), 1.0]))[i % 3],
+        }
+        paths.append(os.path.join(directory, f"{i:05d}.pkl"))
+        with open(paths[-1], "wb") as f:
+            pickle.dump(record, f, protocol=4)
+    return paths
+
+
+def npz_digest(path: str) -> str:
+    """sha256 over (name, dtype, shape, C-ordered bytes) of an ``.npz``'s members in
+    sorted order: equal for equal contents whatever the member order."""
+    import numpy as np
+
+    h = hashlib.sha256()
+    with np.load(path) as data:
+        for name in sorted(data.files):
+            a = data[name]
+            h.update(f"{name}\0{a.dtype.str}\0{a.shape}\0".encode())
+            h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def tree_digests(root: str) -> dict:
+    """{relative path: sha256} of a LINEMOD tree: YAML and split files by their
+    bytes, ``.npy`` by dtype, shape and values, PNGs by their decoded pixels."""
+    import numpy as np
+
+    from hmd_ego_pose_tpu_torch.data.image import read_png
+
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            path = os.path.join(dirpath, name)
+            if name.endswith(".png"):
+                a = read_png(path)
+                body = f"{a.dtype}{a.shape}".encode() + a.tobytes()
+            elif name.endswith(".npy"):
+                a = np.load(path)
+                body = f"{a.dtype}{a.shape}".encode() + np.ascontiguousarray(a).tobytes()
+            else:
+                with open(path, "rb") as f:
+                    body = f.read()
+            out[os.path.relpath(path, root)] = hashlib.sha256(body).hexdigest()
+    return dict(sorted(out.items()))
+
+
+def hold_parity(got: dict, want: dict) -> dict:
+    """``cli parity``'s statistics and head rows against the JAX reference: each
+    number within PARITY_TOLERANCE_REL of the larger of its own size and its
+    layer's absmax (a head's largest value), so that a mean near zero is held
+    at the layer's scale.  Returns the largest such relative gap."""
+    off, worst = [], 0.0
+    if sorted(got["stats"]) != sorted(want["stats"]) or sorted(got["heads"]) != sorted(want["heads"]):
+        raise AssertionError(f"parity layers differ: {sorted(got['stats'])} / {sorted(want['stats'])}")
+    rows = [(f"{name} {kind}", g, w, want["stats"][name][2])
+            for name in want["stats"] for kind, g, w in zip(("mean", "std", "absmax"), got["stats"][name],
+                                                             want["stats"][name])]
+    rows += [(f"{field}[{i}]", g, w, max(abs(v) for v in want["heads"][field]))
+             for field in want["heads"] for i, (g, w) in enumerate(zip(got["heads"][field], want["heads"][field]))]
+    for what, g, w, scale in rows:
+        gap = abs(g - w) / max(abs(w), scale, 1e-12)
+        worst = max(worst, gap)
+        if not gap <= PARITY_TOLERANCE_REL:
+            off.append(f"{what}: card {g!r}, JAX {w!r}, rel gap {gap:.3g}")
+    if off:
+        raise AssertionError("cli parity is off the JAX reference:\n" + "\n".join(off))
+    return {"values": len(rows), "max_rel_gap": worst}
+
+
+def phase_cli_rest(card: str, data: str, work: str) -> dict:
+    """The rest of the CLI on the card, held to ``cli_rest.json`` (the JAX
+    package's, ``scripts/make_cli_reference.py``), with the launch counts reset
+    just before and read just after: an iter-1 checkpoint saved int8, its
+    ``cli evaluate --iter 1 --save-images-path`` and four training steps,
+    ``cli format-labels`` and ``cli debug``, and ``cli parity``."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from hmd_ego_pose_tpu_torch import cli
+    from hmd_ego_pose_tpu_torch.config import ModelConfig
+    from hmd_ego_pose_tpu_torch.data.colibri import ColibriDataset
+    from hmd_ego_pose_tpu_torch.data.image import read_png
+    from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
+    from hmd_ego_pose_tpu_torch.models.weights import from_jax_params
+    from hmd_ego_pose_tpu_torch.utils.logging import MetricLogger
+
+    with open(CLI_REFERENCE) as f:
+        reference = json.load(f)
+    quiet, seconds = io.StringIO(), {}
+    LAUNCHES.reset()
+
+    # 1. the iter-1 checkpoint: the artifact restored on the card (dequantize),
+    # the seeded iterative leaves added, saved int8 (quantize)
+    t = time.perf_counter()
+    ckpt, params, bn_state = write_iter1_checkpoint(work)
+    seconds["iter1_checkpoint"] = time.perf_counter() - t
+    digest = npz_digest(ckpt)
+    if digest != reference["iter1_checkpoint"]["npz_digest"]:
+        raise AssertionError(f"the iter-1 int8 checkpoint's content digest {digest} is not the JAX package's "
+                             f"{reference['iter1_checkpoint']['npz_digest']}")
+
+    # 2. cli evaluate --iter 1 --save-images-path on the 200 val frames
+    images = os.path.join(work, "iter1_images")
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(quiet):
+        result = cli.main(["evaluate", "--dataset-path", data, "--ckpt", ckpt, "--partition", "val", "--iter", "1",
+                           "--save-images-path", images])
+    seconds["evaluate"] = time.perf_counter() - t
+    got = result.scalars()
+    worst = {kind: 0.0 for kind in EVAL_TOLERANCES}
+    off = []
+    for name, want in reference["evaluate"]["scalars"].items():
+        kind = scalar_kind(name)
+        gap = abs(got[name] - want)
+        worst[kind] = max(worst[kind], gap)
+        if gap > EVAL_TOLERANCES[kind] + 1e-12:
+            off.append(f"{name}: card {got[name]!r}, JAX {want!r}, gap {gap:.6g} > {EVAL_TOLERANCES[kind]}")
+    if off:
+        raise AssertionError("the card's iter-1 evaluation is off the JAX reference:\n" + "\n".join(off))
+    written = sorted(os.listdir(images))
+    det = [f[len("det_"):] for f in written if f.startswith("det_")]
+    panels = [f[len("samplevis_"):] for f in written if f.startswith("samplevis_")]
+    if len(det) != result.num_matched or det != panels or len(written) != 2 * len(det):
+        raise AssertionError(f"{len(det)} det_ and {len(panels)} samplevis_ files for {result.num_matched} true "
+                             f"positives ({len(written)} files)")
+    shapes = {read_png(os.path.join(images, "det_" + det[0])).shape,
+              read_png(os.path.join(images, "samplevis_" + det[0])).shape}
+    if shapes != {(256, 256, 3), (800, 800, 3)}:
+        raise AssertionError(f"overlay and figure shapes {shapes}")
+
+    # 3. four fixed training steps at --iter 1 from the same checkpoint
+    t = time.perf_counter()
+    args = cli.build_parser().parse_args(["train", "--dataset-path", data, "--ckpt", ckpt, "--iter", "1",
+                                          "--epo", "1"])
+    with contextlib.redirect_stdout(quiet):
+        trainer = cli.build_trainer(args, logger=MetricLogger(os.path.join(work, "runs_iter1"), stdout=False),
+                                    checkpoint_dir=os.path.join(work, "iter1_ckpt"))
+    steps = []
+
+    def step(s):
+        metrics = trainer.step_fn(trainer.data, fixed_batch(trainer, s), None, None)
+        steps.append({k: float(v) for k, v in metrics.items()})
+        return metrics
+
+    train_gaps = hold_to_reference(reference["train"], step, "iter-1 training")
+    del trainer
+    torch.cuda.empty_cache()
+    seconds["train_steps"] = time.perf_counter() - t
+
+    # 4. cli format-labels of the seeded pickles, read back, and cli debug of it
+    t = time.perf_counter()
+    pickles, labels, viz = (os.path.join(work, d) for d in ("pickles", "labels", "debug"))
+    os.makedirs(pickles)
+    label_pickles(pickles)
+    with contextlib.redirect_stdout(quiet):
+        cli.main(["format-labels", "--in-dir", pickles, "--out-dir", labels])
+    got_digests, want_digests = tree_digests(labels), reference["format_labels_digests"]
+    if got_digests != want_digests:
+        bad = sorted(k for k in set(got_digests) | set(want_digests) if got_digests.get(k) != want_digests.get(k))
+        raise AssertionError(f"cli format-labels' output differs from the JAX package's: {bad}")
+    shutil.copytree(os.path.join(data, "models"), os.path.join(labels, "models"))
+    read = ColibriDataset(labels, 0, 1, "train")
+    annotations = [read.load_annotations(i) for i in range(len(read))]
+    if len(read) != 4 or not all(np.isfinite(a["translations"]).all() for a in annotations):
+        raise AssertionError(f"the converted set reads back as {len(read)} train frames")
+    with contextlib.redirect_stdout(quiet):
+        cli.main(["debug", "--dataset-path", labels, "--out-dir", viz, "--num-images", "8"])
+    debug_digests = tree_digests(viz)
+    if debug_digests != reference["debug_digests"]:
+        raise AssertionError(f"cli debug's overlays differ from the JAX package's (PIL): {sorted(debug_digests)}")
+    seconds["format_labels_debug"] = time.perf_counter() - t
+
+    # 5. cli parity of the artifact as a module.-prefixed torch state_dict, fp32 on the card
+    t = time.perf_counter()
+    pth = os.path.join(work, "artifact_state_dict.pth")
+    torch.save({"module." + k: v.cpu() for k, v in from_jax_params(params, bn_state, ModelConfig()).items()}, pth)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        parity = cli.main(["parity", "--torch-ckpt", pth])
+    seconds["parity"] = time.perf_counter() - t
+    if parity["report"] != {"missing": [], "unused": []}:
+        raise AssertionError(f"the artifact's state_dict did not load strictly: {parity['report']}")
+    held = hold_parity(parity, reference["parity"])
+    names = [line.split()[0] for line in printed.getvalue().splitlines() if line.startswith("  ")]
+    want_names = [line.split()[0] for line in reference["parity"]["printed"].splitlines() if line.startswith("  ")]
+    if names != want_names or not printed.getvalue().startswith("converted: 0 missing, 0 unused keys"):
+        raise AssertionError(f"cli parity printed other rows than the JAX package's: {names}")
+    launches = LAUNCHES.snapshot()
+    want_launches = {"dequantize": 3, "quantize": 1, "min_distances": 1, "target_assign": 4}
+    if launches != want_launches:
+        raise AssertionError(f"cli_rest launches {launches}, expected {want_launches} (dequantize: the artifact, the "
+                             "evaluation's and the trainer's restores)")
+    return {
+        "seconds": seconds, "iter1_npz_digest": digest, "scalars": got, "worst_gap": worst,
+        "tolerances": EVAL_TOLERANCES, "true_positives": result.num_matched, "image_files": len(written),
+        "train_max_rel_gap": train_gaps, "train_tolerance_rel": reference["train"]["tolerance_rel"],
+        "train_steps": steps, "format_labels_files": len(reference["format_labels_digests"]),
+        "debug_files": len(debug_digests), "parity": held, "launches": launches, "card": card,
     }
 
 
@@ -1943,10 +2328,18 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     if sys.argv[1:2] == ["--train-dp-rank"]:  # one rank of the train_dp phase
-        print(json.dumps(train_dp_rank(*sys.argv[2:5])), flush=True)
+        print(json.dumps(train_dp_rank(*sys.argv[2:6])), flush=True)
         faulthandler.cancel_dump_traceback_later()
         return 0
-    from hmd_ego_pose_tpu_torch.kernels import build
+    if sys.argv[1:2] == ["--generate"]:  # a set of start_generation
+        from hmd_ego_pose_tpu_torch import cli
+
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["make-synthetic", "--out-dir", *sys.argv[2:]])
+        print(json.dumps({"generate_s": time.perf_counter() - t}), flush=True)
+        faulthandler.cancel_dump_traceback_later()
+        return 0
     from hmd_ego_pose_tpu_torch.utils.device import resolve_device
 
     t_all = time.perf_counter()
@@ -1954,6 +2347,27 @@ def main() -> int:
     card = nvidia_smi()
     emit("device", nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda,
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
+    # the two synthetic sets are host numpy: they are generated in processes of
+    # their own while the phases before the evaluate phase use the card
+    work = tempfile.mkdtemp(prefix="hegp_v3_")
+    children = {name: start_generation(work, spec) for name, spec in (("v3", V3_SET), ("multi", MULTI_SET))}
+    try:
+        return run_phases(dev, card, work, children, t_all)
+    finally:
+        for proc in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_phases(dev, card: str, work: str, children: dict, t_all: float) -> int:
+    """Every phase after the device line, then the kernels, nvidia-smi and ok
+    lines.  ``children`` holds the processes the phases wait for; the caller
+    kills whichever are left."""
+    import torch
+
+    from hmd_ego_pose_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
     built = build.build_all()
@@ -1978,24 +2392,28 @@ def main() -> int:
     serve = phase_serve(dev, golden, frames, outputs, cams, cfg, card)
     emit("serve", **serve)
 
-    with tempfile.TemporaryDirectory(prefix="hegp_v3_") as work:
-        data = os.path.join(work, "syn1000_v3_256")
-        evaluate = phase_evaluate(card, data)
-        emit("evaluate", **evaluate)
-        train = phase_train(card, data, work)
-        emit("train", **train)
-        dp = phase_train_dp(card, data, work, train)
-        emit("train_dp", **dp)
-        multi = phase_train_multi(card, work)
-        emit("train_multi", **multi)
-        windowed = phase_train_windowed(card, data, work, train["peak_mem_gb"])
-        emit("train_windowed", **windowed)
-        host = phase_train_host(card, data, work, train)
-        emit("train_host", **host)
-        remat = phase_train_remat(card, data, work)
-        emit("train_remat", **remat)
-        export = phase_export(card, work)
-        emit("export", **export)
+    data = os.path.join(work, V3_SET[0])
+    evaluate = phase_evaluate(card, data, children["v3"])
+    emit("evaluate", **evaluate)
+    # train_dp's ranks start up (import, restore, data upload) while the train phase runs
+    go = os.path.join(work, "dp_go")
+    children.update(zip(("dp0", "dp1"), start_dp_ranks("gloo", data, os.path.join(work, "dp"), go)))
+    train = phase_train(card, data, work)
+    emit("train", **train)
+    dp = phase_train_dp(card, data, work, train, [children["dp0"], children["dp1"]], go)
+    emit("train_dp", **dp)
+    multi = phase_train_multi(card, work, children["multi"])
+    emit("train_multi", **multi)
+    windowed = phase_train_windowed(card, data, work, train["peak_mem_gb"])
+    emit("train_windowed", **windowed)
+    host = phase_train_host(card, data, work, train)
+    emit("train_host", **host)
+    remat = phase_train_remat(card, data, work)
+    emit("train_remat", **remat)
+    export = phase_export(card, work)
+    emit("export", **export)
+    rest = phase_cli_rest(card, data, work)
+    emit("cli_rest", **rest)
 
     leftover = [t.name for t in threading.enumerate()
                 if t is not threading.main_thread() and t.is_alive() and not t.daemon]
@@ -2005,12 +2423,14 @@ def main() -> int:
          total_s=time.perf_counter() - t_all)
 
     # every count is read from a main path's run: target_assign summed over the
-    # training runs (the data-parallel one's over its two ranks), min_distances
-    # over the evaluation and the two-class validation
-    trainings = (train, multi, windowed, host, remat, dp)
-    launches = {"dequantize": serve["launches"].get("dequantize", 0),
-                "min_distances": sum(p["launches"].get("min_distances", 0) for p in (evaluate, multi)),
-                "quantize": export["launches"].get("quantize", 0),
+    # training runs (the data-parallel one's over its two ranks and cli_rest's
+    # iter-1 steps), min_distances over the evaluation, the two-class
+    # validation and the iter-1 evaluation, dequantize over serve and cli_rest,
+    # quantize over export and cli_rest's int8 save
+    trainings = (train, multi, windowed, host, remat, dp, rest)
+    launches = {"dequantize": sum(p["launches"].get("dequantize", 0) for p in (serve, rest)),
+                "min_distances": sum(p["launches"].get("min_distances", 0) for p in (evaluate, multi, rest)),
+                "quantize": sum(p["launches"].get("quantize", 0) for p in (export, rest)),
                 "target_assign": sum(p["launches"].get("target_assign", 0) for p in trainings)}
     for name, n in launches.items():
         if n == 0:

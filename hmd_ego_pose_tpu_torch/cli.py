@@ -5,6 +5,9 @@
     python -m hmd_ego_pose_tpu_torch.cli make-synthetic --out-dir D --num-frames 1000 --frame-size 256 --hand-render-version 3
     python -m hmd_ego_pose_tpu_torch.cli evaluate --dataset-path D --ckpt trained/syn1000_phi0_576ep_handrel_int8.npz --partition val
     python -m hmd_ego_pose_tpu_torch.cli export --ckpt trained/syn1000_phi0_576ep_handrel_int8.npz --quantize-int8
+    python -m hmd_ego_pose_tpu_torch.cli debug --dataset-path D --out-dir debug_viz
+    python -m hmd_ego_pose_tpu_torch.cli format-labels --in-dir PICKLES --out-dir D
+    python -m hmd_ego_pose_tpu_torch.cli parity --torch-ckpt model.pth
 
 ``train`` fine-tunes (or, without ``--ckpt``, trains from random weights) on
 a fold's train split (resident on the device, in windows, or through the
@@ -27,20 +30,28 @@ CUDA kernel), folds the BNs, warms the engine up and answers pose requests
 over TCP until interrupted, printing the engine's latency stats every 30 s.
 ``make-synthetic`` writes the synthetic colibri dataset (the JAX package's
 generator, same seed, same files).  ``evaluate`` restores the checkpoint,
-runs the unfolded model (float32 unless the config says otherwise) over a
-fold's partition, scores every metric (ADD-S on the min-distance kernel)
-and prints the 17-line report and the scalars as JSON.  Flags and defaults
-are the JAX package's, less ``--dataset`` and ``--batch-size``, which its
-``evaluate`` does not read either; ``--save-images-path`` and ``--iter`` > 0
-are not ported and raise.  ``export`` restores the checkpoint on the device,
+runs the unfolded model (float32 unless the config says otherwise, with
+``--iter`` refinement steps) over a fold's partition, scores every metric
+(ADD-S on the min-distance kernel) and prints the 17-line report and the
+scalars as JSON; ``--save-images-path`` also writes each true positive's
+overlay and four-panel figure there.  Its flags and defaults are the JAX
+package's, less ``--dataset`` and ``--batch-size``, which its ``evaluate``
+does not read either.  ``export`` restores the checkpoint on the device,
 folds the BNs, writes the ``torch.export`` program of the raw forward
 (``<out-dir>/hmd_ego_pose.pt2``) with its seeded input, golden outputs and
 meta JSON, loads it back and verifies it; with ``--quantize-int8`` it also
 writes ``weights_fp32.npz`` and the int8 distribution checkpoint
 ``weights_int8.npz``, every int8 leaf quantized on the card by the CUDA
-kernel.  Everything runs on ``cuda`` unless ``--device cpu`` is given.  The
-JAX package's ``debug``, ``parity`` and ``format-labels`` are not ported
-yet.
+kernel.  ``debug`` draws the ground truth (boxes, cuboids, the first row's
+hand) over a partition's first frames into ``debug_{i:06d}.png``;
+``format-labels`` turns a directory of per-frame pickles into the LINEMOD
+layout; both are host work and take no ``--device``, and ``debug`` takes
+the dataset flags it reads (not ``--dataset``, ``--iter``,
+``--hand-relative``, ``--img-size``, ``--phi`` or ``--batch-size``, which
+the JAX ``debug`` accepts and ignores).  ``parity`` loads a reference
+``.pth`` state_dict (``--torch-ckpt``) into the fp32 model and prints its
+per-layer activation statistics and raw head outputs on one input.
+Everything else runs on ``cuda`` unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -256,20 +267,17 @@ def cmd_evaluate(args):
     from hmd_ego_pose_tpu_torch.train.step import make_eval_forward
     from hmd_ego_pose_tpu_torch.utils.device import resolve_device
 
-    if args.save_images_path is not None:
-        raise SystemExit("--save-images-path (detection overlays) is not ported to the PyTorch package")
-    if args.iter:
-        raise SystemExit("--iter > 0 (iterative refinement) is not ported to the PyTorch package")
     device = resolve_device(args.device)
     ids = _object_ids(args)
     ds = ColibriDataset(args.dataset_path, args.fold, args.object_id, args.partition, object_ids=ids)
     params, bn_state, meta = restore_checkpoint(args.ckpt, device)
-    cfg = Config(model=ModelConfig(phi=args.phi, image_size=args.img_size,
+    cfg = Config(model=ModelConfig(phi=args.phi, image_size=args.img_size, iter_steps=args.iter,
                                    num_classes=len(ids) if ids else 1,
                                    hand_relative=resolve_hand_relative(args.hand_relative, meta)))
     model = HMDEgoPose(cfg.model).to(device).eval()
     model.load_state_dict(from_jax_params(params, bn_state, cfg.model), strict=True)
-    result = evaluate_model(ds, make_eval_forward(model, cfg, device, args.score_threshold), cfg, device)
+    result = evaluate_model(ds, make_eval_forward(model, cfg, device, args.score_threshold), cfg, device,
+                            save_path=args.save_images_path)
     if result.per_class and len(result.per_class) > 1:
         for c, r in sorted(result.per_class.items()):
             print(f"--- class {c} ({ds.class_to_name.get(c, str(c))}) ---")
@@ -334,6 +342,101 @@ def cmd_export(args):
     return out
 
 
+def cmd_debug(args):
+    """Draw the ground truth over a partition's first ``--num-images`` frames
+    (every object's box and cuboid, the first object's hand) into
+    ``debug_{i:06d}.png``; returns the paths."""
+    from hmd_ego_pose_tpu_torch.data.colibri import ColibriDataset
+    from hmd_ego_pose_tpu_torch.data.image import write_png
+    from hmd_ego_pose_tpu_torch.utils.visualization import render_frame
+
+    ds = ColibriDataset(args.dataset_path, args.fold, args.object_id, args.partition,
+                        object_ids=_object_ids(args))
+    os.makedirs(args.out_dir, exist_ok=True)
+    paths = []
+    for i in range(min(len(ds), args.num_images)):
+        anno = ds.load_annotations(i)
+        cam = ds.load_camera_matrix(i)
+        out = ds.load_image(i)
+        for r in range(anno["labels"].shape[0]):  # every object of the frame
+            out = render_frame(
+                out, cam,
+                model_info=ds.models_info[int(anno["labels"][r])],
+                gt_pose=(anno["rotations"][r, :3], anno["translations"][r]),
+                gt_box=anno["bboxes"][r],
+                hand_3d=anno["coords_3d"][r] if r == 0 else None,
+            )
+        paths.append(os.path.join(args.out_dir, f"debug_{i:06d}.png"))
+        write_png(paths[-1], out)
+    print(f"wrote {len(paths)} overlays to {args.out_dir}")
+    return paths
+
+
+def cmd_format_labels(args):
+    """Every ``*.pkl`` / ``*.pickle`` of ``--in-dir`` (sorted) -> the LINEMOD layout at ``--out-dir``."""
+    import glob
+
+    from hmd_ego_pose_tpu_torch.data.format_labels import convert_pickles
+
+    paths = sorted(glob.glob(os.path.join(args.in_dir, "*.pkl")) +
+                   glob.glob(os.path.join(args.in_dir, "*.pickle")))
+    if not paths:
+        raise SystemExit(f"no .pkl/.pickle files under {args.in_dir}")
+    out = convert_pickles(paths, args.out_dir, object_id=args.object_id, fold=args.fold)
+    print(f"{len(paths)} frames -> LINEMOD layout at {out}")
+    return out
+
+
+PARITY_FIELDS = ("regression", "classification", "rotation", "translation_raw", "hand")
+
+
+def cmd_parity(args):
+    """Load a reference torch state_dict into the fp32 model and print the
+    per-layer activation statistics (mean / std / absmax of the backbone's and
+    every BiFPN cell's outputs) and the first anchor row of the five raw heads
+    on ``--input`` (NCHW or NHWC ``.npy``) or a seeded uniform input: the
+    per-layer diffing harness for checkpoint parity.  Without ``--torch-ckpt``
+    the port's own seeded init (torch generator, seed 0) runs, which is not
+    the JAX package's ``init_host(0)``.  Returns ``{"report", "stats": {name:
+    (mean, std, absmax)}, "heads": {field: first six values}}``."""
+    from hmd_ego_pose_tpu_torch.models.hmd_ego_pose import HMDEgoPose, apply, init_weights
+    from hmd_ego_pose_tpu_torch.models.weights import load_torch_state_dict
+    from hmd_ego_pose_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    cfg = ModelConfig(phi=args.phi, image_size=args.img_size)
+    model = init_weights(HMDEgoPose(cfg), torch.Generator().manual_seed(0))
+    report = None
+    if args.torch_ckpt:
+        state_dict = torch.load(args.torch_ckpt, map_location="cpu", weights_only=True)
+        report = load_torch_state_dict(model, state_dict, strict=not args.lenient)
+        print(f"converted: {len(report['missing'])} missing, {len(report['unused'])} unused keys")
+    model = model.to(device)
+
+    if args.input:
+        x = np.load(args.input)
+        if x.ndim == 4 and x.shape[1] == 3:  # NCHW (the reference's input.npy) -> NHWC
+            x = x.transpose(0, 2, 3, 1)
+    else:
+        x = np.random.RandomState(0).uniform(-1, 1, size=(1, args.img_size, args.img_size, 3)).astype(np.float32)
+
+    capture: dict = {}
+    out = apply(model, torch.as_tensor(np.asarray(x, np.float32)).to(device), cfg, capture=capture)
+    stats, heads = {}, {}
+    print("\nper-layer activation stats (mean / std / absmax):")
+    for name in sorted(capture):
+        # NHWC as the JAX package holds it, so numpy reduces in the same order
+        a = capture[name].float().permute(0, 2, 3, 1).contiguous().cpu().numpy()
+        stats[name] = (float(a.mean()), float(a.std()), float(np.abs(a).max()))
+        print(f"  {name:24s} {a.mean():+.6f} {a.std():.6f} {np.abs(a).max():.6f}")
+    print("\nraw head outputs (first anchor row), cf. scratchpad.py:78-87:")
+    for field in PARITY_FIELDS:
+        a = getattr(out, field).cpu().numpy()
+        heads[field] = [float(v) for v in a[0, 0, :6]]
+        print(f"  {field:16s} {a[0, 0, :6]}")
+    return {"report": report, "stats": stats, "heads": heads}
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="hmd_ego_pose_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -372,7 +475,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--object-id", type=int, default=1)
     p.add_argument("--object-ids", default=None,
                    help="comma-separated ids of a multi-object scene; sets num_classes")
-    p.add_argument("--iter", type=int, default=0, help="iterative refinement steps (only 0 is ported)")
+    p.add_argument("--iter", type=int, default=0, help="iterative refinement steps")
     p.add_argument("--hand-relative", action="store_true",
                    help="the checkpoint was trained with ModelConfig.hand_relative")
     p.add_argument("--img-size", type=int, default=256)
@@ -380,7 +483,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt", required=True)
     p.add_argument("--partition", default="test", choices=["train", "val", "test"])
     p.add_argument("--score-threshold", type=float, default=0.5)
-    p.add_argument("--save-images-path", default=None, help="not ported: raises")
+    p.add_argument("--save-images-path", default=None,
+                   help="write detection overlays + samplevis panels here")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.set_defaults(func=cmd_evaluate)
 
@@ -434,6 +538,33 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the checkpoint was trained with ModelConfig.hand_relative")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.set_defaults(func=cmd_export)
+
+    p = sub.add_parser("debug", help="dataset/annotation viewer", allow_abbrev=False)
+    p.add_argument("--dataset-path", required=True, help="root with data/ and models/")
+    p.add_argument("--fold", type=int, default=0, help="cross-validation fold [0..4]")
+    p.add_argument("--object-id", type=int, default=1)
+    p.add_argument("--object-ids", default=None,
+                   help="comma-separated ids of a multi-object scene, read from the first id's scene dir")
+    p.add_argument("--partition", default="train")
+    p.add_argument("--out-dir", default="debug_viz")
+    p.add_argument("--num-images", type=int, default=10)
+    p.set_defaults(func=cmd_debug)
+
+    p = sub.add_parser("parity", help="torch-checkpoint load + activation diffing harness", allow_abbrev=False)
+    p.add_argument("--torch-ckpt", default=None, help="reference .pth state_dict")
+    p.add_argument("--input", default=None, help=".npy input (NCHW or NHWC), e.g. onnx-models/input.npy")
+    p.add_argument("--phi", type=int, default=0)
+    p.add_argument("--img-size", type=int, default=256)
+    p.add_argument("--lenient", action="store_true", help="tolerate missing/extra keys")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.set_defaults(func=cmd_parity)
+
+    p = sub.add_parser("format-labels", help="pickle dumps -> LINEMOD dataset")
+    p.add_argument("--in-dir", required=True, help="directory of per-frame .pkl files")
+    p.add_argument("--out-dir", required=True)
+    p.add_argument("--object-id", type=int, default=1)
+    p.add_argument("--fold", type=int, default=0)
+    p.set_defaults(func=cmd_format_labels)
     return parser
 
 

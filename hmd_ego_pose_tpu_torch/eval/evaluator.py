@@ -14,26 +14,31 @@ behaviour:
 * ADD-S runs once per class over all its true positives
   (``metrics.add_s_batch``: one launch of the min-distance kernel on the card);
 * the "mixed" metrics take ADD-S for symmetric objects and ADD otherwise;
-* the result is the unweighted mean over the labels that have annotations.
-
-``--save-images-path`` overlays are not ported.
+* the result is the unweighted mean over the labels that have annotations;
+* with ``save_path``, every true positive writes ``det_{i:06d}.png`` (the
+  overlay of ``utils/visualization.py::render_frame`` over the raw frame,
+  the predicted hand divided by the image scale) and ``samplevis_{i:06d}.png``
+  (``utils/samplevis.py``, every tenth model point through both poses).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from hmd_ego_pose_tpu_torch.config import Config
-from hmd_ego_pose_tpu_torch.data.image import preprocess_image
+from hmd_ego_pose_tpu_torch.data.image import preprocess_image, write_png
 from hmd_ego_pose_tpu_torch.eval import metrics as M
 from hmd_ego_pose_tpu_torch.ops.geometry import np_axis_angle_to_matrix
 from hmd_ego_pose_tpu_torch.ops.iou import iou_matrix_np
 from hmd_ego_pose_tpu_torch.utils.device import DeviceLike, resolve_device
+from hmd_ego_pose_tpu_torch.utils.samplevis import draw_samplevis
+from hmd_ego_pose_tpu_torch.utils.visualization import render_frame
 
 
 @dataclasses.dataclass
@@ -186,6 +191,20 @@ def _aggregate_classes(per_class: Dict[int, Tuple[EvalResult, int]]) -> EvalResu
     return agg
 
 
+def _save_images(save_path: str, i: int, raw: np.ndarray, cam_k: np.ndarray, model_info, model_points,
+                 gt: tuple, pred: tuple, boxes: tuple, hands: tuple) -> None:
+    """A true positive's ``det_`` overlay and ``samplevis_`` figure, as the JAX
+    evaluator writes them.  ``gt`` and ``pred`` are (axis-angle, matrix,
+    translation), ``boxes`` and ``hands`` (ground truth, prediction)."""
+    overlay = render_frame(raw, cam_k, model_info=model_info, gt_pose=(gt[0], gt[2]), pred_pose=(pred[0], pred[2]),
+                           gt_box=boxes[0], pred_box=boxes[1], hand_3d=hands[1])
+    write_png(os.path.join(save_path, f"det_{i:06d}.png"), overlay)
+    draw_samplevis(raw, cam_k, gt_hand=hands[0], pred_hand=hands[1].reshape(21, 3),
+                   gt_points=M.transform_points(model_points[::10], gt[1], gt[2]),
+                   pred_points=M.transform_points(model_points[::10], pred[1], pred[2]),
+                   save_path=os.path.join(save_path, f"samplevis_{i:06d}.png"))
+
+
 PredictFn = Callable[[np.ndarray, np.ndarray], object]
 
 
@@ -196,6 +215,7 @@ def evaluate_model(
     device: DeviceLike = None,
     score_threshold: Optional[float] = None,
     max_eval_images: Optional[int] = None,
+    save_path: Optional[str] = None,
 ) -> EvalResult:
     """Evaluate ``predict_fn`` over every frame of ``dataset``.
 
@@ -208,11 +228,16 @@ def evaluate_model(
         device: where ADD-S runs (``metrics.add_s_batch``); ``None`` is the
             card, and raises when there is none.
         score_threshold: post-hoc filter (defaults to ``config.eval``).
+        save_path: a directory for the overlays and sample figures of every
+            true positive (``--save-images-path``); the scalars do not
+            depend on it.
 
     Returns the class-mean ``EvalResult``; ``result.per_class`` holds the
     per-label results.
     """
     device = resolve_device(device)
+    if save_path is not None:
+        os.makedirs(save_path, exist_ok=True)
     ecfg = config.eval
     thr = ecfg.score_threshold if score_threshold is None else score_threshold
     size = len(dataset) if max_eval_images is None else min(len(dataset), max_eval_images)
@@ -254,6 +279,7 @@ def evaluate_model(
         return {f: v[k] for f, v in host.items()}, scales[k]
 
     for i in range(size):
+        raw = dataset.load_image(i) if save_path is not None else None  # the overlays' frame
         cam_k = dataset.load_camera_matrix(i)
         det, scale = _detections_for(i)
         boxes = det["boxes"] / scale
@@ -314,6 +340,13 @@ def evaluate_model(
                 # hand predictions live in image_scale-scaled meters (the
                 # training targets' space): compare in that space
                 hand_err = M.hand_mpjpe_mm(anno["coords_3d"][ja] * scale, hands[d])
+                if save_path is not None:
+                    infos = getattr(dataset, "models_info", None)
+                    _save_images(save_path, i, raw, cam_k,
+                                 infos[c] if infos is not None else getattr(dataset, "model_info", None),
+                                 acc.model_points, (anno["rotations"][ja, :3], r_gt, t_gt),
+                                 (rotations[d], r_pred, t_pred), (gt_boxes[j], boxes[d]),
+                                 (anno["coords_3d"][ja], hands[d] / max(scale, 1e-8)))
 
                 acc.tp_add.append(ok_add)
                 acc.tp_5cm5deg.append(ok_5cm)

@@ -36,7 +36,15 @@ def _bn_grid(rows: int, repeats: int, channels: int, eps: float, dtype: torch.dt
 
 
 class IterSubnet(nn.Module):
-    """Delta regression over concat(feature, predictions), BN per step."""
+    """Delta regression over concat(feature, predictions), BN per step.
+
+    One subnet, and so one BN per step and repeat, serves every pyramid
+    level.  In training the JAX package applies it to each level from the
+    step's starting statistics and keeps the last level's update
+    (``head_apply``): the caller passes ``update_stats`` True on the last
+    level only, so the running statistics move once, from the last level's
+    batch statistics.
+    """
 
     def __init__(self, channels: int, concat_ch: int, header_names: Sequence[str],
                  header_dims: Sequence[int], repeats: int, steps: int, eps: float,
@@ -52,12 +60,16 @@ class IterSubnet(nn.Module):
         for name, dim in zip(header_names, header_dims):
             setattr(self, name, SepConv(channels, dim, norm=False, dtype=dtype))
 
-    def forward(self, feat: torch.Tensor, preds: List[torch.Tensor]) -> List[torch.Tensor]:
+    def forward(self, feat: torch.Tensor, preds: List[torch.Tensor], update_stats: bool = True) -> List[torch.Tensor]:
         preds = list(preds)
         for bns in self.norm_layer:
             x = torch.cat([t.to(self.dtype) for t in [feat] + preds], dim=1)
             for conv, bn in zip(self.conv_list, bns):
-                x = swish(bn(conv(x)), self.dtype)
+                keep, bn.update_stats = bn.update_stats, bn.update_stats and update_stats
+                try:
+                    x = swish(bn(conv(x)), self.dtype)
+                finally:
+                    bn.update_stats = keep
             for h, name in enumerate(self.header_names):
                 preds[h] = preds[h] + getattr(self, name)(x)
         return preds
@@ -99,7 +111,7 @@ class Head(_HeadCore):
             feat = self.core(feat, level)
             pred = getattr(self, self.header_name)(feat)
             if hasattr(self, "iterative_submodel"):
-                (pred,) = self.iterative_submodel(feat, [pred])
+                (pred,) = self.iterative_submodel(feat, [pred], update_stats=level == len(features) - 1)
             outs.append(flatten_anchors(pred, self.out_dim))
         return torch.cat(outs, dim=1)
 
@@ -125,6 +137,6 @@ class TranslationHead(_HeadCore):
             xy = self.initial_translation_xy(feat)
             z = self.initial_translation_z(feat)
             if hasattr(self, "iterative_submodel"):
-                xy, z = self.iterative_submodel(feat, [xy, z])
+                xy, z = self.iterative_submodel(feat, [xy, z], update_stats=level == len(features) - 1)
             outs.append(torch.cat([flatten_anchors(xy, 2), flatten_anchors(z, 1)], dim=-1))
         return torch.cat(outs, dim=1)

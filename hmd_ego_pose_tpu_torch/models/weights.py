@@ -19,6 +19,14 @@ saves checkpoints the JAX package restores.  ``jax_leaf_paths`` lists the
 params tree's leaves in ``jax.tree.leaves`` order (dict keys sorted, list
 items by index), each with its state_dict key: the order of the optimizer
 moments in a checkpoint's ``opt/NNNNN`` leaves.
+
+``load_torch_state_dict(model, state_dict, strict)`` loads a reference
+``.pth`` state_dict into ``HMDEgoPose``, as ``convert_torch_state_dict`` of
+the JAX package converts one: the ``module.`` / ``model.`` wrappers stripped
+(``strip_prefixes``), every mapped key shape-checked, ``num_batches_tracked``
+ignored, missing and unused keys reported, and refused unless ``strict`` is
+off.  The port's state_dict already has the reference's names and layout,
+so what is left after the strip is a copy.
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ from hmd_ego_pose_tpu_torch.config import ModelConfig
 from hmd_ego_pose_tpu_torch.models.efficientnet import block_specs
 
 STATE = "__state__"  # path prefix of entries that live in bn_state
+# the wrappers a reference checkpoint's keys may carry, by provenance
+PREFIXES = ("model.module.", "module.model.", "model.", "module.")
 
 
 class _Mapper:
@@ -212,3 +222,51 @@ def widen_classes(params, num_classes: int):
                  for k, v in params["classifier"]["header"]["pointwise"].items()}
     header = {**params["classifier"]["header"], "pointwise": pointwise}
     return {**params, "classifier": {**params["classifier"], "header": header}}
+
+
+def strip_prefixes(state_dict: Dict[str, Any]) -> Dict[str, Any]:
+    """Remove the first ``module.`` / ``model.`` wrapper (``PREFIXES``) from every key."""
+    out = {}
+    for k, v in state_dict.items():
+        for prefix in PREFIXES:
+            if k.startswith(prefix):
+                k = k[len(prefix):]
+                break
+        out[k] = v
+    return out
+
+
+def load_torch_state_dict(model: torch.nn.Module, state_dict: Dict[str, Any], strict: bool = True) -> Dict[str, List[str]]:
+    """Copy a reference-named state_dict (tensors or arrays) into ``model``.
+
+    Every key of the mapping that the stripped state_dict holds must have the
+    model's shape (``ValueError`` otherwise).  Returns ``{"missing": keys of
+    the mapping it lacks, in mapping order, "unused": its other keys, sorted}``,
+    ``num_batches_tracked`` left out; with ``strict`` either kind raises
+    ``ValueError`` and the model is left as it was.
+    """
+    sd = strip_prefixes(state_dict)
+    own = model.state_dict()
+    missing: List[str] = []
+    values: Dict[str, torch.Tensor] = {}
+    for key, _, _ in build_mapping(model.config).entries:
+        if key not in sd:
+            missing.append(key)
+            continue
+        value = sd[key]
+        value = (value.detach().to(torch.float32) if isinstance(value, torch.Tensor)
+                 else torch.as_tensor(np.asarray(value, np.float32)))
+        if tuple(value.shape) != tuple(own[key].shape):
+            raise ValueError(f"shape mismatch for {key}: {tuple(value.shape)} vs expected {tuple(own[key].shape)}")
+        values[key] = value
+    ignorable = {k for k in sd if k.endswith("num_batches_tracked")}
+    unused = sorted(set(sd) - set(values) - ignorable)
+    if strict and (missing or unused):
+        raise ValueError(
+            f"conversion mismatch: {len(missing)} missing keys (e.g. {missing[:3]}), "
+            f"{len(unused)} unused keys (e.g. {unused[:3]})"
+        )
+    with torch.no_grad():
+        for key, value in values.items():
+            own[key].copy_(value)
+    return {"missing": missing, "unused": unused}

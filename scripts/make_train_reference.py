@@ -65,7 +65,8 @@ def generate_command(frames: int, objects: int) -> list:
     return cmd + (["--num-objects", str(objects)] if objects > 1 else [])
 
 
-def jax_losses(data: str, objects: int):
+def jax_losses(data: str, objects: int, ckpt: str = ARTIFACT, iter_steps: int = 0):
+    """The JAX package's four steps from ``ckpt`` (at ``iter_steps`` refinement steps)."""
     import jax
     import jax.numpy as jnp
 
@@ -79,11 +80,11 @@ def jax_losses(data: str, objects: int):
     from hmd_ego_pose_tpu.train.step import _compute_losses, effective_loss_config
     from hmd_ego_pose_tpu_torch.models.weights import widen_classes
 
-    params, bn_state, meta = restore_checkpoint(ARTIFACT)
+    params, bn_state, meta = restore_checkpoint(ckpt)
     ids = list(range(1, objects + 1)) if objects > 1 else None
     if ids:
         params = widen_classes(params, objects)
-    cfg = Config(model=ModelConfig(phi=0, image_size=IMAGE_SIZE, num_classes=objects,
+    cfg = Config(model=ModelConfig(phi=0, image_size=IMAGE_SIZE, num_classes=objects, iter_steps=iter_steps,
                                    hand_relative=bool(meta_hand_relative(meta))),
                  train=TrainConfig(batch_size=BATCH, learning_rate=LR),
                  data=DataConfig(dataset_path=data, use_6dof_augmentation=False, max_objects=objects,
@@ -112,7 +113,8 @@ def jax_losses(data: str, objects: int):
     return out, cfg
 
 
-def port_losses(data: str, objects: int):
+def port_losses(data: str, objects: int, ckpt: str = ARTIFACT, iter_steps: int = 0):
+    """The port's same four steps on the CPU (``cli.build_trainer``)."""
     import torch
 
     from hmd_ego_pose_tpu_torch import cli
@@ -121,12 +123,12 @@ def port_losses(data: str, objects: int):
     from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES
 
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt, extra = ARTIFACT, []
+        extra = ["--iter", str(iter_steps)]
         if objects > 1:
-            params, bn_state, meta = restore_checkpoint(ARTIFACT, "cpu")
+            params, bn_state, meta = restore_checkpoint(ckpt, "cpu")
             ckpt = save_checkpoint(tmp, "widened", widen_classes(params, objects), bn_state,
                                    metadata={"hand_relative": meta["hand_relative"]})
-            extra = ["--object-ids", ",".join(str(i) for i in range(1, objects + 1))]
+            extra += ["--object-ids", ",".join(str(i) for i in range(1, objects + 1))]
         args = cli.build_parser().parse_args(["train", "--dataset-path", data, "--ckpt", ckpt,
                                               "--device", "cpu", *extra])
         trainer = cli.build_trainer(args, checkpoint_dir=tmp)

@@ -289,3 +289,35 @@ def test_two_gloo_ranks_share_the_card(cuda_device, tmp_path):
     assert ranks[0][1]["digests"] == ranks[1][1]["digests"]
     for term, v in single["steps"][0].items():
         assert ranks[0][1]["steps"][0][term] == pytest.approx(v, rel=1e-5), term
+
+
+def test_cli_parity_and_iter1_evaluation_on_the_card_equal_the_cpus(cuda_device, tmp_path):
+    """``cli parity`` of the artifact's state_dict and ``cli evaluate --iter 1
+    --save-images-path`` of the seeded iter-1 checkpoint on a 12-frame v3 set,
+    at 128 px, on the card against the same commands with ``--device cpu``:
+    parity values within ``chip_smoke.PARITY_TOLERANCE_REL`` at the layer's
+    scale; every evaluation scalar within ``chip_smoke.EVAL_TOLERANCES``; the
+    same image files."""
+    import os
+
+    from hmd_ego_pose_tpu_torch import cli
+    from hmd_ego_pose_tpu_torch.config import ModelConfig
+    from hmd_ego_pose_tpu_torch.models.weights import from_jax_params
+
+    data = str(tmp_path / "v3")
+    cli.main(["make-synthetic", "--out-dir", data, "--num-frames", "12", "--frame-size", "128",
+              "--hand-render-version", "3"])
+    ckpt, params, bn_state = chip_smoke.write_iter1_checkpoint(str(tmp_path), "cpu")
+    pth = str(tmp_path / "artifact.pth")
+    torch.save({"module." + k: v for k, v in from_jax_params(params, bn_state, ModelConfig()).items()}, pth)
+    parity = {d: cli.main(["parity", "--torch-ckpt", pth, "--img-size", "128", "--device", d]) for d in ("cuda", "cpu")}
+    chip_smoke.hold_parity(parity["cuda"], parity["cpu"])
+    results = {}
+    for d in ("cuda", "cpu"):
+        LAUNCHES.reset()
+        results[d] = cli.main(["evaluate", "--dataset-path", data, "--ckpt", ckpt, "--partition", "train", "--iter", "1",
+                               "--img-size", "128", "--save-images-path", str(tmp_path / d), "--device", d]).scalars()
+        assert LAUNCHES.snapshot() == ({"dequantize": 1, "min_distances": 1} if d == "cuda" else {})
+    for name, want in results["cpu"].items():
+        assert abs(results["cuda"][name] - want) <= chip_smoke.EVAL_TOLERANCES[chip_smoke.scalar_kind(name)], name
+    assert sorted(os.listdir(tmp_path / "cuda")) == sorted(os.listdir(tmp_path / "cpu"))

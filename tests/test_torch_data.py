@@ -3,7 +3,8 @@
 * ``generate_synthetic_colibri`` of both packages, seed 0, 12 frames at
   256 px, for hand-render v2, v3 and a two-object scene: equal splits,
   pixel-equal RGB and masks, equal hand arrays, and YAML files that are
-  byte-equal (and so parse equal under ``yaml.safe_load``).
+  byte-equal (and so parse equal under ``yaml.safe_load``); and at 4 frames
+  with ``render_scale=2`` (512 px), fold 1, and split fractions 0.3 / 0.1.
 * Each package's ``ColibriDataset`` reads the other package's files into
   exactly equal annotations.
 * ``data/yml.py`` parses the JAX-written files (anchors and aliases) and a
@@ -75,6 +76,39 @@ def test_generators_write_the_same_dataset(both_sets):
             assert filecmp.cmp(a, b, shallow=False), rel  # byte-equal: the same sha256
         else:  # split txts and the PLY models
             assert filecmp.cmp(a, b, shallow=False), rel
+
+
+OPTIONS = {
+    "render_scale_2": dict(image_size=(512, 512), render_scale=2),
+    "fold_1": dict(image_size=(128, 128), folds=(1,)),
+    "split_fractions": dict(image_size=(128, 128), val_fraction=0.3, test_fraction=0.1),
+}
+
+
+@pytest.mark.parametrize("option", sorted(OPTIONS))
+def test_generator_options_write_the_same_dataset(tmp_path, option):
+    """``make-synthetic --render-scale 2`` and the generator's fold and split
+    arguments, 4 frames: the same files as the JAX generator's, compared as
+    ``test_generators_write_the_same_dataset`` compares them."""
+    roots = []
+    for name, gen in (("jax", jax_synthetic), ("torch", synthetic)):
+        roots.append(str(tmp_path / name))
+        gen.generate_synthetic_colibri(roots[-1], num_frames=4, hand_render_version=3, **OPTIONS[option])
+    names = _files(roots[0])
+    assert names == _files(roots[1]) and sum(n.endswith(".png") for n in names) == 8
+    fold = OPTIONS[option].get("folds", (0,))[0]
+    assert f"data/01/gt_{fold}.yml" in names
+    for rel in names:
+        a, b = os.path.join(roots[0], rel), os.path.join(roots[1], rel)
+        if rel.endswith(".png"):
+            with Image.open(a) as ia, Image.open(b) as ib:
+                np.testing.assert_array_equal(np.asarray(ib), np.asarray(ia), err_msg=rel)
+        elif rel.endswith(".npy"):
+            np.testing.assert_array_equal(np.load(b), np.load(a), err_msg=rel)
+        else:  # YAML byte-equal, split txts, PLY
+            assert filecmp.cmp(a, b, shallow=False), rel
+    with Image.open(os.path.join(roots[1], "data", "01", "rgb", "000000.png")) as im:
+        assert im.size == OPTIONS[option]["image_size"]
 
 
 def _dataset_kwargs(config):

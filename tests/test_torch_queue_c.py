@@ -16,6 +16,14 @@
   them, and the port restores them as the JAX package does.
 * Pyramids below 128 px (pinned): the JAX package broadcasts mismatched
   BiFPN levels silently; the port refuses.
+* The refinement subnets' BN statistics in training (repaired): one subnet
+  serves all five pyramid levels, and the JAX package keeps the last
+  level's update from the step's starting statistics; the port chained the
+  five updates (about five times the JAX package's move).  After one
+  training forward of the three refinement heads at ``iter_steps=2`` from
+  seeded weights and statistics, each refinement BN's move is the JAX
+  package's within 1 % of its largest element, and every BN statistic of
+  the heads the JAX package's within 1e-5 relative plus 1e-6.
 """
 
 import fractions
@@ -39,6 +47,7 @@ from hmd_ego_pose_tpu_torch.config import ModelConfig
 from hmd_ego_pose_tpu_torch.data.image import read_png
 from hmd_ego_pose_tpu_torch.models import hmd_ego_pose
 from hmd_ego_pose_tpu_torch.models.folding import fold_batch_norms
+from hmd_ego_pose_tpu_torch.models.weights import to_jax_params
 from hmd_ego_pose_tpu_torch.ops import preprocess
 from hmd_ego_pose_tpu_torch.train import checkpoint as torch_checkpoint
 from hmd_ego_pose_tpu_torch.train.checkpoint import load_model
@@ -211,3 +220,43 @@ def test_pyramids_below_128_px_are_refused():
     cfg = ModelConfig(phi=0, image_size=128)  # the smallest size whose levels line up
     outputs = hmd_ego_pose.apply(hmd_ego_pose.HMDEgoPose(cfg).eval(), torch.zeros(1, 128, 128, 3), cfg)
     assert outputs.regression.shape == (1, cfg.total_anchors, 4)
+
+
+def test_refinement_bn_statistics_move_once_per_training_forward():
+    """The three refinement heads of a seeded ``iter_steps=2`` model in training
+    mode on a random five-level pyramid, against the JAX package's
+    ``head_apply`` / ``translation_head_apply`` on the same trees."""
+    from hmd_ego_pose_tpu.models import heads as jax_heads
+
+    cfg = ModelConfig(phi=0, image_size=128, iter_steps=2)
+    model = hmd_ego_pose.init_weights(hmd_ego_pose.HMDEgoPose(cfg), torch.Generator().manual_seed(5))
+    rng = np.random.RandomState(5)
+    with torch.no_grad():  # running statistics away from (0, 1), so that a wrong update shows
+        for name, buf in model.named_buffers():
+            buf.copy_(torch.from_numpy(rng.uniform(0.1, 0.5, size=tuple(buf.shape)).astype(np.float32)))
+    # copies: to_jax_params' arrays share the CPU model's memory, which the forward updates
+    params, state = jax.tree.map(np.copy, to_jax_params(model.state_dict(), cfg))
+    pyramid = [rng.normal(size=(2, s, s, cfg.fpn_num_filters)).astype(np.float32) for s in (8, 4, 2, 2, 1)]
+    model.train()
+    with torch.no_grad():
+        feats = [torch.from_numpy(f).permute(0, 3, 1, 2).contiguous() for f in pyramid]
+        model.rotation_net(feats), model.translation_net(feats), model.hand_net(feats)
+    _, got = to_jax_params(model.state_dict(), cfg)
+    jax_pyramid = [jnp.asarray(f) for f in pyramid]
+    want = {
+        "rotation": jax_heads.head_apply(params["rotation"], state["rotation"], jax_pyramid,
+                                         cfg.num_rotation_parameters, 2, True)[1],
+        "translation": jax_heads.translation_head_apply(params["translation"], state["translation"], jax_pyramid,
+                                                        2, True)[1],
+        "hand": jax_heads.head_apply(params["hand"], state["hand"], jax_pyramid, cfg.num_hand_parameters, 2, True)[1],
+    }
+    for head, new_state in want.items():
+        before, after, moved = (jax.tree.leaves(t) for t in (state[head]["iter"], new_state["iter"], got[head]["iter"]))
+        assert len(before) == 2 * 3 * 2  # steps x repeats x (mean, var)
+        for b, w, g in zip(before, after, moved):
+            # the move itself: chaining five levels' updates moved it about five times as far
+            np.testing.assert_allclose(g - b, np.asarray(w) - b, rtol=0, atol=0.01 * np.abs(np.asarray(w) - b).max())
+        flat_got, flat_want = jax.tree.leaves(got[head]), jax.tree.leaves(jax.tree.map(np.asarray, new_state))
+        assert len(flat_got) == len(flat_want)
+        for g, w in zip(flat_got, flat_want):
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)

@@ -209,7 +209,7 @@ def _sources():
 
 
 def test_port_imports_no_jax_pil_or_yaml():
-    banned = ("jax", "jaxlib", "hmd_ego_pose_tpu", "PIL", "yaml")
+    banned = ("jax", "jaxlib", "hmd_ego_pose_tpu", "PIL", "yaml", "matplotlib")
     offenders = []
     for path in _sources():
         with open(path) as f:
@@ -226,6 +226,7 @@ def test_port_imports_no_jax_pil_or_yaml():
                     offenders.append(f"{os.path.relpath(path, REPO)}:{node.lineno} {name}")
     assert len(list(_sources())) > 20
     assert {"pt2.py", "reference.py"} <= {os.path.basename(p) for p in _sources() if os.sep + "export" + os.sep in p}
+    assert {"visualization.py", "samplevis.py"} <= {os.path.basename(p) for p in _sources()}
     assert not offenders, offenders
 
 
