@@ -130,7 +130,24 @@ Phases, each printing one JSON line of its own:
                the train phase's, the collective calls per step and their share
                of the step.  With two or more cards the fixed steps run again
                over NCCL, one card per rank; with one the line says so.
-12. train_multi -- ``cli make-synthetic --num-objects 2`` writes the 400-frame,
+12. spatial -- the space axis: two ranks of a data 1 x space 2 mesh share the
+               card over gloo (``--spatial-rank``, started beside train_dp's,
+               run once it has ended), each restoring the artifact (phi-0,
+               256 px) and holding the rows 0-127 or 128-255 of every image:
+               ``predict`` (bf16) of the six golden frames one frame a call,
+               held to the goldens; the fp32 raw outputs of the six within
+               rtol 2e-4, atol 2e-5 of the single-process forward; an engine
+               on the mesh (process 0 serves, process 1 follows) answering
+               the six frames with the single-process engine's poses within
+               the goldens' bounds (2 mm plus one bf16 step of tz); one fp32
+               train step at batch 2 within 1e-5 relative of the
+               single-process step's losses, every gradient leaf after the
+               all-reduce and before Adam within 1e-4 of its norm plus 1e-6
+               of the global norm of the single-process step's, its largest
+               parameter gap under 5e-3, both ranks' state digests equal; ``dequantize`` once and
+               ``target_assign`` once on each rank.  The collective counts and
+               ms by kind, the ms of a frame and the phase's wall seconds.
+13. train_multi -- ``cli make-synthetic --num-objects 2`` writes the 400-frame,
                256 px two-object set (fold 0: 240 train, 80 val; in a
                process of its own started beside the v3 set's), whose
                ``gt_0.yml`` must hash as the JAX generator's did; the artifact
@@ -142,7 +159,7 @@ Phases, each printing one JSON line of its own:
                warp) and validation: every loss finite, ``target_assign`` once
                per step, ``min_distances`` twice (once per class), the
                checkpoints written and restored.
-13. train_windowed -- the v3 set's 600 train frames with
+14. train_windowed -- the v3 set's 600 train frames with
                ``device_resident_budget_bytes`` of a third of them: three
                windows of 200 frames over one epoch, each window's index rows
                cut to its first 2 steps (6 steps of the epoch's 36),
@@ -151,7 +168,7 @@ Phases, each printing one JSON line of its own:
                built, must stay within one window and Adam's moments (one
                window resident at a time), and the peak is reported beside
                the resident run's.
-14. train_host -- ``device_augment=False``: four fixed steps of host batches
+15. train_host -- ``device_augment=False``: four fixed steps of host batches
                (augmentation off) held to ``handrel_v3_train_steps.json``, the
                largest gap between the host-preprocessed and the
                device-preprocessed batch of step 0 per field, then an
@@ -159,13 +176,13 @@ Phases, each printing one JSON line of its own:
                threads) cut to its first 6 batches (of 37), then 2 steps of
                batches made serially: step times and images/s beside
                the resident run's.
-15. train_remat -- ``--no-freeze-backbone``, the same state, batch and
+16. train_remat -- ``--no-freeze-backbone``, the same state, batch and
                drop-connect seed through a remat and a plain step: losses
                equal, BN statistics moved once (as the plain step's within
                1e-5 relative), parameters finite and within 2 lr (one Adam
                step); peak memory and step times of three steps of each
                (five until PR 11).
-16. export  -- ``cli export --ckpt trained/syn1000_phi0_576ep_handrel_int8.npz
+17. export  -- ``cli export --ckpt trained/syn1000_phi0_576ep_handrel_int8.npz
                --quantize-int8`` on the card (phi-0, 256 px, fp32) into the
                temporary directory, with the launch counts reset just before
                and read just after: ``dequantize`` and ``quantize`` once
@@ -179,7 +196,7 @@ Phases, each printing one JSON line of its own:
                artifact.  Seconds of restore, fold, ``torch.export``, save,
                load-and-verify and int8 save, the ``.pt2`` size and the
                fp32/int8 size ratio.
-17. cli_rest -- the rest of the CLI, held to
+18. cli_rest -- the rest of the CLI, held to
                ``hmd_ego_pose_tpu_torch/eval/references/cli_rest.json`` (the
                JAX package's, ``scripts/make_cli_reference.py``), with the
                launch counts reset just before and read just after: the
@@ -200,12 +217,13 @@ Phases, each printing one JSON line of its own:
                the card, every statistic and head value within 1e-4 of the
                JAX package's at its layer's scale.  ``dequantize`` 3,
                ``quantize`` 1, ``min_distances`` 1, ``target_assign`` 4.
-18. shutdown -- server and engine stopped, every thread joined with a timeout.
+19. shutdown -- server and engine stopped, every thread joined with a timeout.
 
 Then the ``kernels`` JSON line (``target_assign``'s launches summed over the
-seven training runs, both data-parallel ranks and the iter-1 steps included,
-``min_distances``' over the three evaluations, ``dequantize``'s over serve
-and cli_rest, ``quantize``'s over export and cli_rest), the nvidia-smi line,
+eight training runs, both data-parallel ranks, the iter-1 steps and both
+spatial ranks included, ``min_distances``' over the three evaluations,
+``dequantize``'s over serve, cli_rest and the spatial ranks, ``quantize``'s
+over export and cli_rest), the nvidia-smi line,
 and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 non-zero without that line.  It exits non-zero at once without a CUDA device
@@ -671,6 +689,7 @@ def target_cases(rng) -> dict:
         "outside_image_c2": (target_batch(rng, 4, 3, 2, image_size=192), 2, 192),  # 256 px anchors, 192 px image
         "k300_chunked": (target_batch(rng, 2, 300, 1), 1, 256),
         "train_dp_rank_b8": (target_batch(rng, 8, 1, 1), 1, 256),  # a data-parallel rank's 8 of 16 rows
+        "spatial_rank_b2": (target_batch(rng, 2, 1, 1), 1, 256),  # a spatial rank's step: its 2 data rows
     }
 
 
@@ -1032,7 +1051,7 @@ def train_dp_rank(mode: str, data: str, work: str, go: str = "") -> dict:
     from hmd_ego_pose_tpu_torch import cli
     from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
     from hmd_ego_pose_tpu_torch.parallel import distributed
-    from hmd_ego_pose_tpu_torch.parallel.mesh import shard_batch, state_digest
+    from hmd_ego_pose_tpu_torch.parallel.mesh import batch_sharding, state_digest
     from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES
     from hmd_ego_pose_tpu_torch.utils.logging import MetricLogger
 
@@ -1071,7 +1090,7 @@ def train_dp_rank(mode: str, data: str, work: str, go: str = "") -> dict:
     out["waited_s"] = time.perf_counter() - t0
     fixed, digests = [], []
     for s in range(4):
-        metrics = trainer.step_fn(trainer.data, shard_batch(trainer.mesh, fixed_batch(trainer, s)), None, None)
+        metrics = trainer.step_fn(trainer.data, batch_sharding(trainer.mesh)(fixed_batch(trainer, s)), None, None)
         fixed.append({k: float(metrics[k]) for k in METRIC_NAMES})
         digests.append(state_digest(trainer.model))
     out.update(fixed=fixed, fixed_digests=digests)
@@ -1109,10 +1128,10 @@ def train_dp_rank(mode: str, data: str, work: str, go: str = "") -> dict:
     return out
 
 
-def start_dp_ranks(mode: str, data: str, work: str, go: str = "") -> list:
-    """Two ranks of ``train_dp_rank`` as subprocesses of this script (a free
-    127.0.0.1 port, torchrun's environment), waiting for ``go`` after their
-    start-up if it is given."""
+def start_ranks(flag: list, work: str, tag: str, args: list) -> list:
+    """Two ranks of this script (``flag`` then ``<work>/<tag>_rank<r>`` then
+    ``args``) as subprocesses, under torchrun's environment on a free
+    127.0.0.1 port."""
     import socket
 
     with socket.socket() as sock:
@@ -1120,21 +1139,28 @@ def start_dp_ranks(mode: str, data: str, work: str, go: str = "") -> list:
         port = sock.getsockname()[1]
     procs = []
     for rank in range(2):
-        rank_work = os.path.join(work, f"{mode}_rank{rank}")
+        rank_work = os.path.join(work, f"{tag}_rank{rank}")
         os.makedirs(rank_work, exist_ok=True)
         env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(rank),
                    LOCAL_RANK=str(rank), PYTHONPATH=HERE)
-        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--train-dp-rank", mode, data,
-                                       rank_work, go], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                      text=True, cwd=rank_work))
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), *flag, rank_work, *args],
+                                      env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                      cwd=rank_work))
     return procs
 
 
-def join_dp_ranks(mode: str, procs: list) -> list:
-    """Joins ``start_dp_ranks``' ranks, each within ``DP_RANK_TIMEOUT_S`` from
-    now and killed past it; a rank that fails or times out raises.  Returns
-    each rank's JSON line."""
-    deadline, results, failed = time.monotonic() + DP_RANK_TIMEOUT_S, [], []
+def start_dp_ranks(mode: str, data: str, work: str, go: str = "") -> list:
+    """Two ranks of ``train_dp_rank`` as subprocesses of this script (a free
+    127.0.0.1 port, torchrun's environment), waiting for ``go`` after their
+    start-up if it is given."""
+    return start_ranks(["--train-dp-rank", mode, data], work, mode, [go])
+
+
+def join_dp_ranks(mode: str, procs: list, timeout: float = DP_RANK_TIMEOUT_S) -> list:
+    """Joins ``start_ranks``' ranks, each within ``timeout`` seconds from now
+    and killed past it; a rank that fails or times out raises.  Returns each
+    rank's JSON line."""
+    deadline, results, failed = time.monotonic() + timeout, [], []
     try:
         for rank, proc in enumerate(procs):
             try:
@@ -1142,7 +1168,7 @@ def join_dp_ranks(mode: str, procs: list) -> list:
             except subprocess.TimeoutExpired:
                 proc.kill()
                 stdout, stderr = proc.communicate()
-                failed.append(f"rank {rank} timed out after {DP_RANK_TIMEOUT_S} s:\n{stderr[-3000:]}")
+                failed.append(f"rank {rank} timed out after {timeout} s:\n{stderr[-3000:]}")
                 continue
             if proc.returncode != 0:
                 failed.append(f"rank {rank} exited {proc.returncode}:\n{stderr[-3000:]}")
@@ -1154,7 +1180,7 @@ def join_dp_ranks(mode: str, procs: list) -> list:
                 proc.kill()
                 proc.communicate()
     if failed:
-        raise AssertionError(f"data-parallel ranks ({mode}) failed:\n" + "\n".join(failed))
+        raise AssertionError(f"ranks ({mode}) failed:\n" + "\n".join(failed))
     return results
 
 
@@ -1230,6 +1256,264 @@ def phase_train_dp(card: str, data: str, work: str, train: dict, procs: list, go
         "val_metric_broadcast": zero["plateau"]["best"],
         "launches": {"target_assign": sum(r["launches"].get("target_assign", 0) for r in ranks)},
         "launches_per_rank": [r["launches"] for r in ranks], "nccl": nccl, "card": card,
+    }
+
+
+SPATIAL_TIMEOUT_S = 300
+SPATIAL_SIZE = 256
+SPATIAL_BATCH = 2
+
+
+def spatial_batch(dev):
+    """The spatial phase's train batch: that of ``tests/test_parallel_spatial.py``
+    at 256 px and batch 2 (seeded images, one fixed object), and its model points."""
+    import numpy as np
+    import torch
+
+    from hmd_ego_pose_tpu_torch.ops.augment_device import Batch
+
+    rng = np.random.RandomState(2)
+    b, f = SPATIAL_BATCH, np.float32
+    model_points = (rng.normal(size=(1, 64, 3)) * 50).astype(f)
+    arrays = (rng.normal(size=(b, SPATIAL_SIZE, SPATIAL_SIZE, 3)).astype(f) * f(0.1),
+              np.tile(np.asarray([[570.0, 570.0, 128.0, 128.0, 1000.0, 1.0]], f), (b, 1)),
+              np.tile(np.asarray([[[60.0, 80.0, 180.0, 200.0]]], f), (b, 1, 1)), np.zeros((b, 1), np.int32),
+              np.tile(np.asarray([[[0.1, 0.2, 0.1, 10.0, -5.0, 500.0, 0.0, 0.0]]], f), (b, 1, 1)),
+              np.zeros((b, 1, 63), f), np.ones((b, 1), bool))
+    return Batch(*(torch.from_numpy(a).to(dev) for a in arrays)), model_points
+
+
+def recording_grads(optimizer) -> dict:
+    """A dict that the optimizer's next step fills with the gradients as its
+    update reads them (after the mesh's all-reduce, before Adam), by index."""
+    grads, opt_step = {}, optimizer.opt.step
+
+    def recorded(*args, **kwargs):
+        if not grads:
+            grads.update({i: p.grad.detach().clone() for i, p in enumerate(optimizer.params)})
+        return opt_step(*args, **kwargs)
+
+    optimizer.opt.step = recorded
+    return grads
+
+
+def spatial_rank(work: str, go: str) -> dict:
+    """One rank of the spatial phase (``chip_smoke.py --spatial-rank WORK GO``
+    under torchrun's environment, two ranks sharing card 0 over gloo): the
+    artifact restored (phi-0, 256 px), then, once ``GO`` exists, a data 1 x
+    space 2 mesh: the bf16 predict of the six golden frames one frame a call
+    on the rank's slabs, held to the goldens; the fp32 raw outputs of the six
+    on the mesh against the single-process forward; the engine on the mesh
+    (process 0 serves the six frames, process 1 follows) against the
+    single-process engine; one fp32 train step at batch 2 against the
+    single-process step (losses, gradients before Adam, parameters after).
+    Launch counts are read just after the mesh step."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from hmd_ego_pose_tpu_torch.config import Config, ModelConfig, ParallelConfig, ServingConfig, TrainConfig
+    from hmd_ego_pose_tpu_torch.eval import golden as hold
+    from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
+    from hmd_ego_pose_tpu_torch.models import hmd_ego_pose
+    from hmd_ego_pose_tpu_torch.models.weights import from_jax_params
+    from hmd_ego_pose_tpu_torch.ops.preprocess import preprocess_uint8_batch
+    from hmd_ego_pose_tpu_torch.parallel import distributed
+    from hmd_ego_pose_tpu_torch.parallel.mesh import make_mesh, replicate, state_digest
+    from hmd_ego_pose_tpu_torch.serving.engine import InferenceEngine
+    from hmd_ego_pose_tpu_torch.train.checkpoint import meta_hand_relative, restore_checkpoint
+    from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES, TrainStep
+    from hmd_ego_pose_tpu_torch.utils.device import resolve_device
+
+    distributed.initialize("cuda:0", shared_device=True, timeout=120.0)
+    dev = resolve_device("cuda:0")
+    rank = dist.get_rank()
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    params, bn_state, meta = restore_checkpoint(ARTIFACT, dev)
+    hand_relative = bool(meta_hand_relative(meta))
+    cfgs = {dt: ModelConfig(phi=0, image_size=SPATIAL_SIZE, compute_dtype=dt, hand_relative=hand_relative)
+            for dt in ("bfloat16", "float32")}
+
+    def model_of(dt):
+        model = hmd_ego_pose.HMDEgoPose(cfgs[dt]).to(dev).eval()
+        model.load_state_dict(from_jax_params(params, bn_state, cfgs[dt]), strict=True)
+        return model
+
+    golden, frames, cameras = read_golden()
+    torch.cuda.synchronize()
+    out = {"rank": rank, "startup_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    while not os.path.exists(go):
+        if time.perf_counter() - t0 > SPATIAL_TIMEOUT_S:
+            raise TimeoutError(f"rank {rank}: no {go} after {SPATIAL_TIMEOUT_S} s")
+        time.sleep(0.05)
+    out["waited_s"] = time.perf_counter() - t0
+    t_phase = time.perf_counter()
+    mesh = make_mesh(ParallelConfig(spatial_parallel=2), device=dev)
+    out.update(coords=[mesh.rank, mesh.model_rank, mesh.space_rank], rows=[mesh.height_rows(SPATIAL_SIZE).start,
+                                                                          mesh.height_rows(SPATIAL_SIZE).stop])
+    cams = torch.from_numpy(cameras).to(dev)
+    whole = preprocess_uint8_batch(torch.from_numpy(frames).to(dev), SPATIAL_SIZE)
+    slab = whole[:, mesh.height_rows(SPATIAL_SIZE)]
+
+    # the bf16 predict, one frame a call: the goldens, ms a frame, collectives a forward
+    cfg = cfgs["bfloat16"]
+    bf16 = model_of("bfloat16")
+    replicate(mesh, bf16)
+    hmd_ego_pose.apply(bf16, slab[:1], cfg)  # the first call's plans
+    torch.cuda.synchronize()
+    mesh.stats.reset()
+    reports, frame_ms = [], []
+    for i in range(len(frames)):
+        t = time.perf_counter()
+        outputs = hmd_ego_pose.apply(bf16, slab[i:i + 1], cfg)
+        dets = hmd_ego_pose.detect(outputs, cams[i:i + 1], cfg, score_threshold=0.1)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+        reports.append(hold.hold_frame(hold.top_detection(dets, 0), hold.tied_candidates(outputs, cams[i:i + 1], 0, cfg),
+                                       golden, i, hand_relative))
+    bad = [r for r in reports if not r["ok"]]
+    if bad:
+        raise AssertionError(f"rank {rank}: spatial predictions off the goldens: {bad}")
+    forward = mesh.stats.snapshot()
+    out.update(frame_ms=frame_ms, frame_ms_p50=float(np.median(frame_ms)), worst=hold.worst(reports),
+               tie_switches=sum(r["tie_switch"] for r in reports),
+               collectives_per_forward={k: v / len(frames) for k, v in forward["calls"].items()},
+               collective_ms_per_forward={k: v * 1e3 / len(frames) for k, v in forward["seconds"].items()})
+
+    # the fp32 raw outputs of the six on the mesh against the single-process forward
+    names = ("regression", "classification", "rotation", "translation_raw", "hand")
+    fp32 = model_of("float32")
+    replicate(mesh, fp32)
+    got = hmd_ego_pose.apply(fp32, slab, cfgs["float32"])
+    want = hmd_ego_pose.apply(model_of("float32"), whole, cfgs["float32"])
+    gaps = {}
+    for name in names:
+        a, b = getattr(got, name), getattr(want, name)
+        if not torch.allclose(a, b, rtol=2e-4, atol=2e-5):
+            raise AssertionError(f"rank {rank}: fp32 {name} off the single-process forward by "
+                                 f"{float((a - b).abs().max())} (rtol 2e-4, atol 2e-5)")
+        gaps[name] = float((a - b).abs().max())
+    out["fp32_max_abs_gap"] = gaps
+
+    # the engine on the space-only mesh, then (process 0) the single-process engine
+    serving = ServingConfig(max_batch_size=1, score_threshold=0.1)
+    engine = InferenceEngine(model_of("bfloat16"), cfg, serving, frame_shape=frames.shape[1:3], device=dev, mesh=mesh)
+    out["engine_batch_sizes"] = engine.batch_sizes
+    if engine.leader:
+        engine.warmup()
+        engine.start()
+        try:
+            t = time.perf_counter()
+            poses = [engine.infer_blocking(f, c, timeout=60.0) for f, c in zip(frames, cameras)]
+            out["engine_ms_per_frame"] = (time.perf_counter() - t) * 1e3 / len(frames)
+        finally:
+            engine.stop()
+        single = InferenceEngine(model_of("bfloat16"), cfg, serving, frame_shape=frames.shape[1:3], device=dev)
+        single.warmup()
+        single.start()
+        try:
+            want_poses = [single.infer_blocking(f, c, timeout=60.0) for f, c in zip(frames, cameras)]
+        finally:
+            single.stop()
+        worst = {"rotation": 0.0, "translation_mm": 0.0}
+        for i, (p, q) in enumerate(zip(poses, want_poses)):
+            if p is None or q is None:
+                raise AssertionError(f"frame {i}: the mesh engine answered {p}, the single-process one {q}")
+            bound = hold.bounds(golden, i, hand_relative)
+            rot, mm = float(np.abs(p[0] - q[0]).max()), float(np.abs(p[1] - q[1]).max()) * 1e3
+            if rot > bound["rotation"] or mm > bound["translation"]:
+                raise AssertionError(f"frame {i}: the mesh engine's pose is {rot} rad, {mm} mm off the "
+                                     f"single-process engine's (bounds {bound})")
+            worst = {"rotation": max(worst["rotation"], rot), "translation_mm": max(worst["translation_mm"], mm)}
+        out["engine_vs_single_worst"] = worst
+    else:
+        out["engine_served"] = engine.follow()
+
+    # one fp32 train step at batch 2 on the mesh, then the single-process step
+    batch, model_points = spatial_batch(dev)
+    config = Config(model=cfgs["float32"], train=TrainConfig(batch_size=SPATIAL_BATCH, learning_rate=1e-3))
+    model = model_of("float32")
+    replicate(mesh, model)
+    step = TrainStep(model, config, model_points, dev, mesh=mesh)
+    grads = recording_grads(step.optimizer)
+    t = time.perf_counter()
+    metrics = step.update(step.losses(batch))
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t) * 1e3
+    out["launches"] = LAUNCHES.snapshot()
+    out["losses"] = {k: float(metrics[k]) for k in METRIC_NAMES}
+    out["digest"] = state_digest(model)
+    reference = model_of("float32")
+    single_step = TrainStep(reference, config, model_points, dev)
+    want_grads = recording_grads(single_step.optimizer)
+    want = single_step.update(single_step.losses(batch))
+    out["single_losses"] = {k: float(want[k]) for k in METRIC_NAMES}
+    rel = max(abs(out["losses"][k] - out["single_losses"][k]) / max(abs(out["single_losses"][k]), 1e-12)
+              for k in METRIC_NAMES)
+    # every leaf's gradient after the (data x space) all-reduce, before Adam:
+    # within 1e-4 of its norm plus 1e-6 of the global norm G (train_dp's bound)
+    g_norm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in want_grads.values())))
+    grad_ratio = max(float((grads[i] - g).norm()) / (1e-4 * float(g.norm()) + 1e-6 * g_norm)
+                     for i, g in want_grads.items())
+    ref_state = reference.state_dict()
+    gap = max(float((v - ref_state[k]).abs().max()) for k, v in model.state_dict().items()
+              if v.dtype.is_floating_point)
+    if not (rel <= 1e-5 and grad_ratio <= 1.0 and len(grads) == len(want_grads) > 0 and gap < 5e-3):
+        raise AssertionError(f"rank {rank}: the spatial step is {rel:.3g} relative off the single-process losses "
+                             f"(<= 1e-5), its gradients {grad_ratio:.3g} of their bound (<= 1), its largest "
+                             f"parameter gap {gap:.3g} (< 5e-3)")
+    out.update(step_max_rel_loss_gap=rel, step_grad_gap_of_bound=grad_ratio, step_grad_norm=g_norm,
+               step_max_param_gap=gap)
+    stats = mesh.stats.snapshot()
+    out["collectives"] = {"calls": stats["calls"], "ms": {k: v * 1e3 for k, v in stats["seconds"].items()}}
+    out["phase_s"] = time.perf_counter() - t_phase
+    dist.destroy_process_group()
+    return out
+
+
+def start_spatial_ranks(work: str, go: str) -> list:
+    """The two ranks of ``spatial_rank``, subprocesses of this script."""
+    return start_ranks(["--spatial-rank"], work, "spatial", [go])
+
+
+def phase_spatial(card: str, procs: list, go: str) -> dict:
+    """The space axis: two ranks of a data 1 x space 2 mesh sharing the card
+    over gloo (``spatial_rank``), started before the train phase; ``go`` lets
+    them run.  Both ranks' state digests equal after the step."""
+    t0 = time.perf_counter()
+    with open(go, "w"):
+        pass
+    ranks = join_dp_ranks("spatial", procs, SPATIAL_TIMEOUT_S)
+    zero, one = ranks
+    if zero["digest"] != one["digest"] or zero["losses"] != one["losses"]:
+        raise AssertionError("the spatial step's ranks differ: losses or parameters and BN buffers not bit-identical")
+    if [r["rows"] for r in ranks] != [[0, SPATIAL_SIZE // 2], [SPATIAL_SIZE // 2, SPATIAL_SIZE]]:
+        raise AssertionError(f"expected two slabs of {SPATIAL_SIZE // 2} rows: {[r['rows'] for r in ranks]}")
+    if one.get("engine_served") != len(zero["frame_ms"]) + 1:  # the six frames and the warm-up
+        raise AssertionError(f"the follower served {one.get('engine_served')} batches")
+    for r in ranks:
+        if r["launches"].get("dequantize", 0) != 1 or r["launches"].get("target_assign", 0) != 1:
+            raise AssertionError(f"rank {r['rank']}: dequantize must launch once (the restore) and "
+                                 f"target_assign once (the step): {r['launches']}")
+    return {
+        "ranks": 2, "layout": {"data": 1, "model": 1, "space": 2}, "backend": "gloo", "shared_card": True,
+        "frames": len(zero["frame_ms"]), "frame_ms_p50": [r["frame_ms_p50"] for r in ranks],
+        "frame_ms": zero["frame_ms"], "worst": zero["worst"], "tie_switches": zero["tie_switches"],
+        "fp32_max_abs_gap": zero["fp32_max_abs_gap"], "engine_ms_per_frame": zero["engine_ms_per_frame"],
+        "engine_vs_single_worst": zero["engine_vs_single_worst"], "engine_batch_sizes": zero["engine_batch_sizes"],
+        "step_ms": [r["step_ms"] for r in ranks], "step_max_rel_loss_gap": zero["step_max_rel_loss_gap"],
+        "step_grad_gap_of_bound": [r["step_grad_gap_of_bound"] for r in ranks],
+        "step_grad_norm": zero["step_grad_norm"],
+        "step_max_param_gap": zero["step_max_param_gap"], "losses": zero["losses"],
+        "collectives_per_forward": zero["collectives_per_forward"],
+        "collective_ms_per_forward": zero["collective_ms_per_forward"],
+        "collectives": zero["collectives"], "startup_s": [r["startup_s"] for r in ranks],
+        "waited_s": [r["waited_s"] for r in ranks], "phase_s": [r["phase_s"] for r in ranks],
+        "wall_s": time.perf_counter() - t0,
+        "launches": {k: sum(r["launches"].get(k, 0) for r in ranks) for k in ("dequantize", "target_assign")},
+        "card": card,
     }
 
 
@@ -2331,6 +2615,10 @@ def main() -> int:
         print(json.dumps(train_dp_rank(*sys.argv[2:6])), flush=True)
         faulthandler.cancel_dump_traceback_later()
         return 0
+    if sys.argv[1:2] == ["--spatial-rank"]:  # one rank of the spatial phase
+        print(json.dumps(spatial_rank(*sys.argv[2:4])), flush=True)
+        faulthandler.cancel_dump_traceback_later()
+        return 0
     if sys.argv[1:2] == ["--generate"]:  # a set of start_generation
         from hmd_ego_pose_tpu_torch import cli
 
@@ -2395,13 +2683,16 @@ def run_phases(dev, card: str, work: str, children: dict, t_all: float) -> int:
     data = os.path.join(work, V3_SET[0])
     evaluate = phase_evaluate(card, data, children["v3"])
     emit("evaluate", **evaluate)
-    # train_dp's ranks start up (import, restore, data upload) while the train phase runs
-    go = os.path.join(work, "dp_go")
+    # train_dp's and spatial's ranks start up (import, restore, data upload) while the train phase runs
+    go, spatial_go = os.path.join(work, "dp_go"), os.path.join(work, "spatial_go")
     children.update(zip(("dp0", "dp1"), start_dp_ranks("gloo", data, os.path.join(work, "dp"), go)))
+    children.update(zip(("sp0", "sp1"), start_spatial_ranks(os.path.join(work, "spatial"), spatial_go)))
     train = phase_train(card, data, work)
     emit("train", **train)
     dp = phase_train_dp(card, data, work, train, [children["dp0"], children["dp1"]], go)
     emit("train_dp", **dp)
+    spatial = phase_spatial(card, [children["sp0"], children["sp1"]], spatial_go)
+    emit("spatial", **spatial)
     multi = phase_train_multi(card, work, children["multi"])
     emit("train_multi", **multi)
     windowed = phase_train_windowed(card, data, work, train["peak_mem_gb"])
@@ -2427,8 +2718,8 @@ def run_phases(dev, card: str, work: str, children: dict, t_all: float) -> int:
     # iter-1 steps), min_distances over the evaluation, the two-class
     # validation and the iter-1 evaluation, dequantize over serve and cli_rest,
     # quantize over export and cli_rest's int8 save
-    trainings = (train, multi, windowed, host, remat, dp, rest)
-    launches = {"dequantize": sum(p["launches"].get("dequantize", 0) for p in (serve, rest)),
+    trainings = (train, multi, windowed, host, remat, dp, rest, spatial)
+    launches = {"dequantize": sum(p["launches"].get("dequantize", 0) for p in (serve, rest, spatial)),
                 "min_distances": sum(p["launches"].get("min_distances", 0) for p in (evaluate, multi, rest)),
                 "quantize": sum(p["launches"].get("quantize", 0) for p in (export, rest)),
                 "target_assign": sum(p["launches"].get("target_assign", 0) for p in trainings)}

@@ -249,12 +249,11 @@ class ServingConfig:
 class ParallelConfig:
     """Device-mesh layout (``hmd_ego_pose_tpu/config.py::ParallelConfig``).
 
-    The port trains data-parallel over ``torch.distributed`` ranks
-    (``parallel/mesh.py``): the batch is split over the ``data`` axis and the
-    BN statistics, gradients and logged losses are all-reduced over it.  The
-    ``model`` and ``space`` axes are not ported: ROADMAP Queue A, item 7
-    (the engine's mesh and the ``space``/``model`` axes) holds them, and a
-    size above 1 raises.
+    The port's mesh is one of ``torch.distributed`` ranks
+    (``parallel/mesh.py``): the batch is split over the ``data`` axis, the
+    image height over the ``space`` axis (each rank convolves a slab of the
+    frame; ``parallel/spatial.py`` exchanges the halo rows), and the ``model``
+    axis replicates the work, as it does in the JAX package.
     """
 
     data_axis: str = "data"
@@ -263,9 +262,3 @@ class ParallelConfig:
     data_parallel: int = -1  # -1: use all remaining ranks
     model_parallel: int = 1
     spatial_parallel: int = 1
-
-    def __post_init__(self):
-        for name in ("model_parallel", "spatial_parallel"):
-            if getattr(self, name) > 1:
-                raise ValueError(f"{name}={getattr(self, name)}: the port's mesh has the data axis only; the "
-                                 f"model and space axes are ROADMAP Queue A item 7 (engine mesh, space/model axes)")

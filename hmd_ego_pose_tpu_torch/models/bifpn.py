@@ -4,6 +4,13 @@ Counterpart of ``hmd_ego_pose_tpu/models/bifpn.py``.  The first cell
 down-channels the backbone's (P3, P4, P5) and makes P6/P7 from P5; each cell
 runs a top-down then a bottom-up pass.  Fusion is relu(w) / (sum + eps)
 weighted, then swish, for phi < 6, and a plain sum otherwise.
+
+Under a space axis each op is given the whole height of its level
+(``heights``, P3 to P7; ``nn/core.py``): a level the axis divides is held as
+slabs, a smaller or uneven one (P6 and P7 of a small image) whole on every
+rank.  The max-pools gather a split level into a whole one, the upsample
+cuts a whole level to the slabs of a split one, so every input of a fusion
+is held as its level is.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import torch.nn.functional as F
 from hmd_ego_pose_tpu_torch.nn.core import (
     BatchNorm, Conv2dSame, Wrapped, max_pool_same, resize_nearest_2x, swish,
 )
+from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL
 
 _EDGES = ("conv6_up", "conv5_up", "conv4_up", "conv3_up",
           "conv4_down", "conv5_down", "conv6_down", "conv7_down")
@@ -34,14 +42,18 @@ class SepConv(nn.Module):
         self.pointwise_conv = Wrapped(Conv2dSame(cin, cout, 1, dtype=dtype))
         self.bn = BatchNorm(cout, eps, dtype) if norm else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.pointwise_conv(self.depthwise_conv(x))
-        return x if self.bn is None else self.bn(x)
+    def forward(self, x: torch.Tensor, full_h: Optional[int] = None) -> torch.Tensor:
+        x = self.pointwise_conv(self.depthwise_conv(x, full_h))
+        return x if self.bn is None else self.bn(x, full_h)
 
 
 def _aligner(cin: int, cout: int, eps: float, dtype: torch.dtype) -> nn.Sequential:
     """1x1 conv + BN down-channelling a backbone feature (keys ``.0.conv``, ``.1``)."""
     return nn.Sequential(Wrapped(Conv2dSame(cin, cout, 1, dtype=dtype)), BatchNorm(cout, eps, dtype))
+
+
+def _align(aligner: nn.Sequential, x: torch.Tensor, full_h: Optional[int]) -> torch.Tensor:
+    return aligner[1](aligner[0](x), full_h)
 
 
 class BiFPNCell(nn.Module):
@@ -50,7 +62,7 @@ class BiFPNCell(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.first_time, self.attention, self.fusion_eps = first_time, attention, fusion_eps
-        self.dtype = dtype
+        self.dtype, self.mesh = dtype, LOCAL
         for name in _EDGES:
             setattr(self, name, SepConv(channels, channels, eps=eps, dtype=dtype))
         if first_time:
@@ -71,32 +83,41 @@ class BiFPNCell(nn.Module):
             out = sum(t.to(self.dtype) for t in tensors)
         return swish(out, self.dtype)
 
-    def forward(self, features: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    def forward(self, features: Sequence[torch.Tensor], heights: Optional[Sequence[int]] = None
+                ) -> Tuple[torch.Tensor, ...]:
+        """``heights``: the whole heights of P3..P7 (needed under a space axis)."""
+        h3, h4, h5, h6, h7 = heights if heights is not None else (None,) * 5
+        mesh = self.mesh
+
+        def pool(x, h):
+            return max_pool_same(x, full_h=h, mesh=mesh)
+
+        def up(x, h):
+            return resize_nearest_2x(x, h, mesh)
+
         if self.first_time:
             p3, p4, p5 = features
-            p6_in = max_pool_same(self.p5_to_p6(p5))
-            p7_in = max_pool_same(p6_in)
-            p3_in = self.p3_down_channel(p3)
-            p4_in = self.p4_down_channel(p4)
-            p5_in = self.p5_down_channel(p5)
+            p6_in = pool(_align(self.p5_to_p6, p5, h5), h5)
+            p7_in = pool(p6_in, h6)
+            p3_in = _align(self.p3_down_channel, p3, h3)
+            p4_in = _align(self.p4_down_channel, p4, h4)
+            p5_in = _align(self.p5_down_channel, p5, h5)
         else:
             p3_in, p4_in, p5_in, p6_in, p7_in = features
 
-        up = resize_nearest_2x
-        p6_up = self.conv6_up(self._fuse("p6_w1", [p6_in, up(p7_in)]))
-        p5_up = self.conv5_up(self._fuse("p5_w1", [p5_in, up(p6_up)]))
-        p4_up = self.conv4_up(self._fuse("p4_w1", [p4_in, up(p5_up)]))
-        p3_out = self.conv3_up(self._fuse("p3_w1", [p3_in, up(p4_up)]))
+        p6_up = self.conv6_up(self._fuse("p6_w1", [p6_in, up(p7_in, h7)]), h6)
+        p5_up = self.conv5_up(self._fuse("p5_w1", [p5_in, up(p6_up, h6)]), h5)
+        p4_up = self.conv4_up(self._fuse("p4_w1", [p4_in, up(p5_up, h5)]), h4)
+        p3_out = self.conv3_up(self._fuse("p3_w1", [p3_in, up(p4_up, h4)]), h3)
 
         if self.first_time:
-            p4_in = self.p4_down_channel_2(p4)
-            p5_in = self.p5_down_channel_2(p5)
+            p4_in = _align(self.p4_down_channel_2, p4, h4)
+            p5_in = _align(self.p5_down_channel_2, p5, h5)
 
-        pool = max_pool_same
-        p4_out = self.conv4_down(self._fuse("p4_w2", [p4_in, p4_up, pool(p3_out)]))
-        p5_out = self.conv5_down(self._fuse("p5_w2", [p5_in, p5_up, pool(p4_out)]))
-        p6_out = self.conv6_down(self._fuse("p6_w2", [p6_in, p6_up, pool(p5_out)]))
-        p7_out = self.conv7_down(self._fuse("p7_w2", [p7_in, pool(p6_out)]))
+        p4_out = self.conv4_down(self._fuse("p4_w2", [p4_in, p4_up, pool(p3_out, h3)]), h4)
+        p5_out = self.conv5_down(self._fuse("p5_w2", [p5_in, p5_up, pool(p4_out, h4)]), h5)
+        p6_out = self.conv6_down(self._fuse("p6_w2", [p6_in, p6_up, pool(p5_out, h5)]), h6)
+        p7_out = self.conv7_down(self._fuse("p7_w2", [p7_in, pool(p6_out, h6)]), h7)
         return p3_out, p4_out, p5_out, p6_out, p7_out
 
 
@@ -111,9 +132,10 @@ class BiFPN(nn.ModuleList):
             for i in range(repeats)
         ])
 
-    def forward(self, features, capture: Optional[dict] = None) -> List[torch.Tensor]:
+    def forward(self, features, capture: Optional[dict] = None,
+                heights: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
         for i, cell in enumerate(self):
-            features = cell(features)
+            features = cell(features, heights)
             if capture is not None:
                 for level, feat in enumerate(features):
                     capture[f"bifpn.cell{i}.p{level + 3}"] = feat

@@ -13,7 +13,13 @@ which torch cannot reproduce, so the masks are drawn from the generator (or
 handed to ``MBConv`` as they are, as the tests do).  Without a generator it
 is off, as with ``rng=None`` in JAX.  Under a data-parallel mesh
 (``mesh``) every rank draws the masks of the global batch and takes its
-rows' columns, so a rank drops what one process would drop for those rows.
+rows' columns, so a rank drops what one process would drop for those rows;
+every space rank of a data row draws the same masks.
+
+Under a space axis (``parallel/spatial.py``) the forward takes the rank's
+slab of the image rows and the whole height (``full_h``), and passes each
+op the whole height of its level (``nn/core.py``); the squeeze-excite mean
+over a split level is the space group's sum over the whole H x W.
 
 ``remat`` (``ModelConfig.remat_backbone``) wraps each MBConv block of a
 training forward in ``torch.utils.checkpoint`` (non-reentrant): the block
@@ -33,7 +39,8 @@ import torch.nn as nn
 import torch.utils.checkpoint
 
 from hmd_ego_pose_tpu_torch.config import EFFICIENTNET_PARAMS, MBCONV_STAGES
-from hmd_ego_pose_tpu_torch.nn.core import BatchNorm, Conv2dSame, sigmoid, swish
+from hmd_ego_pose_tpu_torch.nn.core import BatchNorm, Conv2dSame, out_height, sigmoid, swish
+from hmd_ego_pose_tpu_torch.parallel import spatial
 from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL
 
 _FEATURE_STAGES = (3, 5, 7)
@@ -97,20 +104,27 @@ class MBConv(nn.Module):
             self._se_expand = Conv2dSame(se_ch, mid, 1, dtype=dtype)
         self._project_conv = Conv2dSame(mid, cout, 1, bias=False, dtype=dtype)
         self._bn2 = BatchNorm(cout, eps, dtype)
+        self.mesh = LOCAL
 
     def forward(self, x: torch.Tensor, keep_mask: Optional[torch.Tensor] = None,
-                keep_prob: float = 1.0) -> torch.Tensor:
+                keep_prob: float = 1.0, full_h: Optional[int] = None) -> torch.Tensor:
         """``keep_mask``: (B,) bool drop-connect mask of a residual block, kept
-        with probability ``keep_prob``; None runs the block whole."""
+        with probability ``keep_prob``; None runs the block whole.  ``full_h``:
+        the whole height of ``x``'s level (``nn/core.py``)."""
         dt, inputs = self.dtype, x
+        out_h = out_height(full_h, self.spec["stride"])
         if self.spec["expand_ratio"] != 1:
-            x = swish(self._bn0(self._expand_conv(x)), dt)
-        x = swish(self._bn1(self._depthwise_conv(x)), dt)
+            x = swish(self._bn0(self._expand_conv(x), full_h), dt)
+        x = swish(self._bn1(self._depthwise_conv(x, full_h), out_h), dt)
         if self.spec["se_ratio"]:
-            se = x.mean(dim=(2, 3), keepdim=True).to(dt)
+            if out_h is not None and self.mesh.sharded(out_h):
+                se = (spatial.space_sum(x.sum(dim=(2, 3), keepdim=True), self.mesh)
+                      / (out_h * x.shape[3])).to(dt)
+            else:
+                se = x.mean(dim=(2, 3), keepdim=True).to(dt)
             se = self._se_expand(swish(self._se_reduce(se), dt))
             x = sigmoid(se, dt) * x.to(dt)
-        x = self._bn2(self._project_conv(x))
+        x = self._bn2(self._project_conv(x), out_h)
         if self.residual:
             if keep_mask is not None:
                 x = x / keep_prob * keep_mask[:, None, None, None].to(x.dtype)
@@ -122,7 +136,7 @@ class MBConv(nn.Module):
         return self.spec["stride"] == 1 and self.spec["in_ch"] == self.spec["out_ch"]
 
 
-def _first_call_moves_stats(block: MBConv, keep_prob: float):
+def _first_call_moves_stats(block: MBConv, keep_prob: float, full_h: Optional[int]):
     """``block`` as a function for ``checkpoint``: its first call (the forward)
     moves the BN running statistics, later calls (the recompute) do not."""
     calls = [0]
@@ -133,7 +147,7 @@ def _first_call_moves_stats(block: MBConv, keep_prob: float):
         for bn in norms:
             bn.update_stats = calls[0] == 1
         try:
-            return block(x, keep_mask, keep_prob)
+            return block(x, keep_mask, keep_prob, full_h)
         finally:
             for bn in norms:
                 bn.update_stats = True
@@ -152,9 +166,12 @@ class EfficientNet(nn.Module):
         self._bn0 = BatchNorm(stem, eps, dtype)
         self._blocks = nn.ModuleList([MBConv(s, eps, dtype) for s in self.specs])
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        x = swish(self._bn0(self._conv_stem(x)), self.dtype)
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                full_h: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``full_h``: the whole image height, of which ``x`` holds the rank's
+        rows under a space axis."""
+        h = out_height(full_h, 2)
+        x = swish(self._bn0(self._conv_stem(x, full_h), h), self.dtype)
         n_blocks = len(self.specs)
         draws = None
         if self.training and generator is not None:
@@ -168,10 +185,11 @@ class EfficientNet(nn.Module):
             keep = 1.0 - DROP_CONNECT_RATE * i / n_blocks
             mask = draws[i] < keep if draws is not None and block.residual and keep < 1.0 else None
             if self.remat and self.training:
-                x = torch.utils.checkpoint.checkpoint(_first_call_moves_stats(block, keep), x, mask,
+                x = torch.utils.checkpoint.checkpoint(_first_call_moves_stats(block, keep, h), x, mask,
                                                       use_reentrant=False)
             else:
-                x = block(x, mask, keep)
+                x = block(x, mask, keep, h)
+            h = out_height(h, spec["stride"])
             last_of_stage = i + 1 == len(self.specs) or self.specs[i + 1]["stage"] != spec["stage"]
             if last_of_stage and spec["stage"] in _FEATURE_STAGES:
                 features.append(x)
@@ -187,5 +205,6 @@ class Backbone(nn.Module):
         super().__init__()
         self.model = EfficientNet(coefficient, eps, dtype, remat)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
-        return self.model(x, generator)
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                full_h: Optional[int] = None):
+        return self.model(x, generator, full_h)

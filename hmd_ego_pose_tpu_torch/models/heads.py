@@ -9,17 +9,24 @@ before the reshape; anchors then line up with ``ops/anchors.py``.  The
 translation head has separate xy (2) and z (1) headers.  With
 ``iter_steps >= 1`` a refinement subnet regresses deltas onto the header's
 prediction.
+
+Under a space axis every op of a level gets the level's whole height
+(``heights``; ``nn/core.py``), and each head output of a level held as
+slabs is gathered whole before ``flatten_anchors``, so the anchors keep the
+order of ``ops/anchors.py`` and the outputs are whole on every rank.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn as nn
 
 from hmd_ego_pose_tpu_torch.models.bifpn import SepConv
 from hmd_ego_pose_tpu_torch.nn.core import BatchNorm, swish
+from hmd_ego_pose_tpu_torch.parallel import spatial
+from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL
 
 CLASSIFIER_BIAS_PRIOR = -4.59511985013459  # -log((1 - 0.01) / 0.01)
 
@@ -60,18 +67,19 @@ class IterSubnet(nn.Module):
         for name, dim in zip(header_names, header_dims):
             setattr(self, name, SepConv(channels, dim, norm=False, dtype=dtype))
 
-    def forward(self, feat: torch.Tensor, preds: List[torch.Tensor], update_stats: bool = True) -> List[torch.Tensor]:
+    def forward(self, feat: torch.Tensor, preds: List[torch.Tensor], update_stats: bool = True,
+                full_h: Optional[int] = None) -> List[torch.Tensor]:
         preds = list(preds)
         for bns in self.norm_layer:
             x = torch.cat([t.to(self.dtype) for t in [feat] + preds], dim=1)
             for conv, bn in zip(self.conv_list, bns):
                 keep, bn.update_stats = bn.update_stats, bn.update_stats and update_stats
                 try:
-                    x = swish(bn(conv(x)), self.dtype)
+                    x = swish(bn(conv(x, full_h), full_h), self.dtype)
                 finally:
                     bn.update_stats = keep
             for h, name in enumerate(self.header_names):
-                preds[h] = preds[h] + getattr(self, name)(x)
+                preds[h] = preds[h] + getattr(self, name)(x, full_h)
         return preds
 
 
@@ -83,11 +91,18 @@ class _HeadCore(nn.Module):
             SepConv(channels, channels, norm=False, dtype=dtype) for _ in range(repeats)
         ])
         self.bn_list = _bn_grid(levels, repeats, channels, eps, dtype)
+        self.mesh = LOCAL
 
-    def core(self, feat: torch.Tensor, level: int) -> torch.Tensor:
+    def core(self, feat: torch.Tensor, level: int, full_h: Optional[int] = None) -> torch.Tensor:
         for conv, bn in zip(self.conv_list, self.bn_list[level]):
-            feat = swish(bn(conv(feat)), self.dtype)
+            feat = swish(bn(conv(feat, full_h), full_h), self.dtype)
         return feat
+
+    def whole(self, x: torch.Tensor, full_h: Optional[int]) -> torch.Tensor:
+        """A level's output, gathered whole when the space axis splits the level."""
+        if full_h is not None and self.mesh.sharded(full_h):
+            return spatial.gather_rows(x, self.mesh)
+        return x
 
 
 class Head(_HeadCore):
@@ -105,14 +120,15 @@ class Head(_HeadCore):
                 (num_anchors * out_dim,), repeats, iter_steps, eps, dtype,
             )
 
-    def forward(self, features: Sequence[torch.Tensor]) -> torch.Tensor:
+    def forward(self, features: Sequence[torch.Tensor], heights: Optional[Sequence[int]] = None) -> torch.Tensor:
         outs = []
         for level, feat in enumerate(features):
-            feat = self.core(feat, level)
-            pred = getattr(self, self.header_name)(feat)
+            h = None if heights is None else heights[level]
+            feat = self.core(feat, level, h)
+            pred = getattr(self, self.header_name)(feat, h)
             if hasattr(self, "iterative_submodel"):
-                (pred,) = self.iterative_submodel(feat, [pred], update_stats=level == len(features) - 1)
-            outs.append(flatten_anchors(pred, self.out_dim))
+                (pred,) = self.iterative_submodel(feat, [pred], level == len(features) - 1, h)
+            outs.append(flatten_anchors(self.whole(pred, h), self.out_dim))
         return torch.cat(outs, dim=1)
 
 
@@ -130,13 +146,16 @@ class TranslationHead(_HeadCore):
                 (num_anchors * 2, num_anchors), repeats, iter_steps, eps, dtype,
             )
 
-    def forward(self, features: Sequence[torch.Tensor]) -> torch.Tensor:
+    def forward(self, features: Sequence[torch.Tensor], heights: Optional[Sequence[int]] = None) -> torch.Tensor:
         outs = []
         for level, feat in enumerate(features):
-            feat = self.core(feat, level)
-            xy = self.initial_translation_xy(feat)
-            z = self.initial_translation_z(feat)
+            h = None if heights is None else heights[level]
+            feat = self.core(feat, level, h)
+            xy = self.initial_translation_xy(feat, h)
+            z = self.initial_translation_z(feat, h)
             if hasattr(self, "iterative_submodel"):
-                xy, z = self.iterative_submodel(feat, [xy, z], update_stats=level == len(features) - 1)
+                xy, z = self.iterative_submodel(feat, [xy, z], level == len(features) - 1, h)
+            if h is not None and self.mesh.sharded(h):  # one gather of both
+                xy, z = self.whole(torch.cat([xy, z], dim=1), h).split([xy.shape[1], z.shape[1]], dim=1)
             outs.append(torch.cat([flatten_anchors(xy, 2), flatten_anchors(z, 1)], dim=-1))
         return torch.cat(outs, dim=1)

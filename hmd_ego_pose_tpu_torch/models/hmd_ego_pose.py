@@ -6,6 +6,12 @@ casts them to ``config.compute_dtype`` and runs the network in NCHW; the five
 head outputs come back in float32.  ``predict`` adds top-k, decode, greedy
 NMS and, for ``hand_relative`` models, the re-anchoring of the hand joints
 on the predicted translation.
+
+On a mesh with a space axis (the model's ``mesh``, ``parallel/mesh.py``)
+the images are the rank's slab of rows of its data rows
+(``image_sharding``), and the five head outputs, and so decode, top-k and
+NMS, are whole on every rank of the space group; ``RawOutputs.features``
+stays the rank's slabs.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from hmd_ego_pose_tpu_torch.nn.core import BatchNorm, Conv2dSame, sigmoid
 from hmd_ego_pose_tpu_torch.ops.anchors import device_anchors
 from hmd_ego_pose_tpu_torch.ops.decode import hand_to_absolute
 from hmd_ego_pose_tpu_torch.ops.nms import Detections, filter_detections_fused_batch
+from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL
 from hmd_ego_pose_tpu_torch.utils.device import dtype_of
 
 
@@ -57,23 +64,38 @@ class HMDEgoPose(nn.Module):
                                                dtype=dt)
         self.hand_net = Head(ch, config.num_hand_parameters, na, repeats, levels,
                              header_name="initial_hand_coords", iter_steps=it, eps=eps, dtype=dt)
+        self.mesh = LOCAL
+
+    def input_height(self, x: torch.Tensor) -> int:
+        """The whole height of the NCHW input ``x``: its own without a space
+        axis, else ``config.image_size``, of which ``x`` must hold the rank's rows."""
+        if self.mesh.space == 1:
+            return x.shape[-2]
+        h = self.config.image_size
+        rows = self.mesh.height_rows(h)
+        if x.shape[-2] != rows.stop - rows.start:
+            raise ValueError(f"space rank {self.mesh.space_rank} of {self.mesh.space} holds rows {rows} of "
+                             f"{h}, not {x.shape[-2]} rows")
+        return h
 
     def forward(self, x: torch.Tensor, capture: Optional[dict] = None,
                 generator: Optional[torch.Generator] = None) -> RawOutputs:
         """NCHW float input -> raw outputs (the conv stack runs in ``config.compute_dtype``).
 
         ``generator`` draws the backbone's drop-connect masks in training mode."""
-        feats = self.backbone_net(x, generator)
+        h = self.input_height(x)
+        heights = [-(-h // 2 ** level) for level in range(3, 8)]  # P3..P7, SAME strides of 2
+        feats = self.backbone_net(x, generator, h)
         if capture is not None:
             capture["backbone.p3"], capture["backbone.p4"], capture["backbone.p5"] = feats
-        pyramid = self.bifpn(feats, capture)
+        pyramid = self.bifpn(feats, capture, heights)
         return RawOutputs(
             features=tuple(pyramid),
-            regression=self.regressor(pyramid).float(),
-            classification=sigmoid(self.classifier(pyramid), self.dtype).float(),
-            rotation=self.rotation_net(pyramid).float(),
-            translation_raw=self.translation_net(pyramid).float(),
-            hand=self.hand_net(pyramid).float(),
+            regression=self.regressor(pyramid, heights).float(),
+            classification=sigmoid(self.classifier(pyramid, heights), self.dtype).float(),
+            rotation=self.rotation_net(pyramid, heights).float(),
+            translation_raw=self.translation_net(pyramid, heights).float(),
+            hand=self.hand_net(pyramid, heights).float(),
         )
 
 
@@ -100,7 +122,9 @@ def init_weights(model: HMDEgoPose, generator: torch.Generator) -> HMDEgoPose:
 def apply(model: HMDEgoPose, images: torch.Tensor, config: ModelConfig,
           capture: Optional[dict] = None) -> RawOutputs:
     """Preprocessed NHWC float images -> raw head outputs (float32), no autograd,
-    the model in eval mode (BNs on their running statistics)."""
+    the model in eval mode (BNs on their running statistics), on the model's
+    mesh (``parallel/mesh.py::replicate`` or ``attach`` puts it there):
+    ``images`` are this rank's slab of its data rows."""
     model.eval()
     x = images.permute(0, 3, 1, 2).to(dtype_of(config.compute_dtype))
     with torch.inference_mode():
@@ -113,7 +137,8 @@ def apply_train(model: HMDEgoPose, images: torch.Tensor, config: ModelConfig,
     NHWC images -> raw outputs with autograd, every BN on batch statistics and
     moving its running statistics in place, drop-connect drawn from
     ``generator`` (off without one).  Puts the whole model in training mode,
-    the frozen backbone included: its BNs move as the JAX package's do."""
+    the frozen backbone included: its BNs move as the JAX package's do.
+    On the model's mesh, as ``apply``."""
     model.train()
     x = images.permute(0, 3, 1, 2).to(dtype_of(config.compute_dtype))
     return model(x, generator=generator)
@@ -162,6 +187,8 @@ def predict(
     max_detections: int = 100,
 ) -> Detections:
     """Forward, then ``detect``.  ``rotation`` stays in the network's units
-    (times pi for radians)."""
+    (times pi for radians).  On a mesh (as for ``apply``) the cameras are
+    this rank's data rows, and every rank of the space group detects on the
+    same whole outputs."""
     return detect(apply(model, images, config), camera_parameters, config,
                   score_threshold, iou_threshold, max_detections)

@@ -14,6 +14,18 @@ Counterpart of ``hmd_ego_pose_tpu/nn/core.py`` (NHWC there):
 * max-pool pads with zeros, not -inf (the reference's quirk, observable
   through trained weights).
 
+The ``space`` mesh axis (``parallel/spatial.py``).  A module holds a
+``mesh`` (``parallel/mesh.py::attach``), and the model passes each call the
+height of its input's whole level (``full_h``).  Under a space axis above 1
+a level that the axis divides is held as slabs (``DataMesh.sharded``), any
+other level whole on every rank of the space group.  A window op (a conv
+with k > 1 or stride 2, the max-pool) on slabs takes its SAME padding from
+the whole height and its halo rows from the neighbouring slabs; when its
+output level is not split it gathers its input first, and an output of a
+split level made from a whole input is cut to the slab.  Training-mode BN
+reduces a split level's statistics over (data x space).  With no space axis,
+or no ``full_h``, every op runs the single-device code.
+
 Compute dtype.  Parameters stay float32.  With ``dtype=torch.bfloat16`` the
 modules round to bfloat16 where the JAX reference, compiled by XLA for the
 CPU, rounds; that is what its committed golden outputs were made with, and
@@ -32,14 +44,15 @@ the last bf16 bit of a head output is worth 3.9 mm of translation:
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL
+from hmd_ego_pose_tpu_torch.parallel import spatial
+from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL, DataMesh
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -57,8 +70,42 @@ def pad_same(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
     return F.pad(x, (left, right, top, bottom))
 
 
+def out_height(full_h: Optional[int], stride: int) -> Optional[int]:
+    """The whole height after a SAME window of ``stride`` (None stays None)."""
+    return None if full_h is None else -(-full_h // stride)
+
+
+def window_op(x: torch.Tensor, mesh: DataMesh, full_h: int, kernel: int, stride: int, op) -> torch.Tensor:
+    """``op`` (a window op without padding) over ``x`` with SAME padding, on
+    the slab or whole level that ``full_h`` and the mesh make ``x``; returns
+    the output level as the mesh holds it."""
+    out_h = out_height(full_h, stride)
+    if mesh.sharded(full_h) and mesh.sharded(out_h):
+        top, _ = same_padding(full_h, kernel, stride)
+        left, right = same_padding(x.shape[-1], kernel, stride)
+        # rows [slab start - top, slab end - stride - top + kernel) of the image
+        x = spatial.halo(x, mesh, top, max(kernel - stride - top, 0))
+        return op(F.pad(x, (left, right, 0, 0)))
+    if mesh.sharded(full_h):
+        x = spatial.gather_rows(x, mesh)
+    y = op(pad_same(x, kernel, stride))
+    return spatial.scatter_rows(y, mesh) if mesh.sharded(out_h) else y
+
+
+def _spatial(mesh: DataMesh, full_h: Optional[int], what: str) -> bool:
+    """Whether an op runs on the space axis: one above 1 needs ``full_h``."""
+    if mesh.space == 1:
+        return False
+    if full_h is None:
+        raise ValueError(f"{what} under a space axis of {mesh.space} needs the height of its whole level")
+    return True
+
+
 class Conv2dSame(nn.Module):
-    """Conv with SAME padding; ``weight`` (O, I/groups, k, k) and optional ``bias``."""
+    """Conv with SAME padding; ``weight`` (O, I/groups, k, k) and optional ``bias``.
+
+    ``forward(x, full_h)``: ``full_h`` the whole height of ``x``'s level,
+    which a window conv needs under a space axis (module docstring)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  groups: int = 1, bias: bool = True, dtype: torch.dtype = torch.float32):
@@ -66,11 +113,17 @@ class Conv2dSame(nn.Module):
         self.kernel, self.stride, self.groups, self.dtype = kernel, stride, groups, dtype
         self.weight = nn.Parameter(torch.zeros(cout, cin // groups, kernel, kernel))
         self.register_parameter("bias", nn.Parameter(torch.zeros(cout)) if bias else None)
+        self.mesh = LOCAL
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = pad_same(x.to(self.dtype), self.kernel, self.stride).float()
-        w = self.weight.to(self.dtype).float()
-        y = F.conv2d(x, w, None, self.stride, 0, 1, self.groups)
+    def forward(self, x: torch.Tensor, full_h: Optional[int] = None) -> torch.Tensor:
+        if self.kernel == self.stride == 1 or not _spatial(self.mesh, full_h, "a window conv"):
+            x = pad_same(x.to(self.dtype), self.kernel, self.stride).float()
+            w = self.weight.to(self.dtype).float()
+            y = F.conv2d(x, w, None, self.stride, 0, 1, self.groups)
+        else:
+            w = self.weight.to(self.dtype).float()
+            y = window_op(x.to(self.dtype).float(), self.mesh, full_h, self.kernel, self.stride,
+                          lambda t: F.conv2d(t, w, None, self.stride, 0, 1, self.groups))
         if self.bias is None:
             return y
         return y.to(self.dtype) + self.bias.to(self.dtype)[:, None, None]
@@ -83,8 +136,16 @@ class Wrapped(nn.Module):
         super().__init__()
         self.conv = conv
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+    def forward(self, x: torch.Tensor, full_h: Optional[int] = None) -> torch.Tensor:
+        return self.conv(x, full_h)
+
+
+class Skip(nn.Identity):
+    """An identity that takes the ops' ``full_h`` too: what BN folding leaves
+    in a BatchNorm's place (``models/folding.py``)."""
+
+    def forward(self, x: torch.Tensor, full_h: Optional[int] = None) -> torch.Tensor:
+        return x
 
 
 class BatchNorm(nn.Module):
@@ -108,9 +169,12 @@ class BatchNorm(nn.Module):
     of one by default): the cross-replica statistics of the JAX package's
     ``axis_name`` path, which is what GSPMD computes for a batch sharded over
     ``data``.  In training mode
-    ``[mean, mean_sq]`` of the local rows is all-reduced (mean over the W
-    ranks) in one call, differentiably, and the correction takes the global
-    n = W * N * H * W.
+    ``[mean, mean_sq]`` of the local rows is all-reduced (mean over the D
+    data ranks) in one call, differentiably, and the correction takes the
+    global n = D * N * H * W.  A level split over the space axis
+    (``forward(x, full_h)``) reduces over the D * S ranks of (data x space),
+    n = D * S * N * (H / S) * W: every slab has as many elements, so the
+    mean of the means is the mean.
     """
 
     def __init__(self, channels: int, eps: float = 1e-3, dtype: torch.dtype = torch.float32,
@@ -125,7 +189,7 @@ class BatchNorm(nn.Module):
         self.mesh = LOCAL
         self.eval()  # an inference module until training asks (``model.train()``)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, full_h: Optional[int] = None) -> torch.Tensor:
         if not self.training:
             inv = torch.rsqrt(self.running_var + self.eps) * self.weight
             y = (x.float() - self.running_mean[:, None, None]) * inv[:, None, None]
@@ -134,8 +198,9 @@ class BatchNorm(nn.Module):
         mean = torch.mean(xf, dim=(0, 2, 3))
         mean_sq = torch.mean(xf * xf, dim=(0, 2, 3))
         n = x.shape[0] * x.shape[2] * x.shape[3]
-        mean, mean_sq = self.mesh.all_reduce_mean([mean, mean_sq], "bn")
-        n *= self.mesh.world
+        over = "batch" if _spatial(self.mesh, full_h, "a training BatchNorm") and self.mesh.sharded(full_h) else "data"
+        mean, mean_sq = self.mesh.all_reduce_mean([mean, mean_sq], "bn", over)
+        n *= self.mesh.world * (self.mesh.space if over == "batch" else 1)
         var = mean_sq - mean * mean
         # float32 n / max(n - 1, 1), as jnp computes it
         correction = float(np.float32(n) / np.float32(max(n - 1.0, 1.0)))
@@ -183,11 +248,20 @@ def swish(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.float() * sigmoid(x, dtype).float()
 
 
-def max_pool_same(x: torch.Tensor, kernel: int = 3, stride: int = 2) -> torch.Tensor:
-    """Max pool after SAME zero padding (border maxima are clamped at >= 0)."""
-    return F.max_pool2d(pad_same(x, kernel, stride), kernel, stride)
+def max_pool_same(x: torch.Tensor, kernel: int = 3, stride: int = 2, full_h: Optional[int] = None,
+                  mesh: DataMesh = LOCAL) -> torch.Tensor:
+    """Max pool after SAME zero padding (border maxima are clamped at >= 0);
+    on the space axis as a window conv (module docstring)."""
+    if not _spatial(mesh, full_h, "a max-pool"):
+        return F.max_pool2d(pad_same(x, kernel, stride), kernel, stride)
+    return window_op(x, mesh, full_h, kernel, stride, lambda t: F.max_pool2d(t, kernel, stride))
 
 
-def resize_nearest_2x(x: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbour 2x upsample of NCHW."""
-    return F.interpolate(x, scale_factor=2, mode="nearest")
+def resize_nearest_2x(x: torch.Tensor, full_h: Optional[int] = None, mesh: DataMesh = LOCAL) -> torch.Tensor:
+    """Nearest-neighbour 2x upsample of NCHW: row by row, so a slab stays the
+    slab of the level twice as high; a whole level whose double the space
+    axis splits is cut to the slab."""
+    y = F.interpolate(x, scale_factor=2, mode="nearest")
+    if _spatial(mesh, full_h, "an upsample") and not mesh.sharded(full_h) and mesh.sharded(2 * full_h):
+        return spatial.scatter_rows(y, mesh)
+    return y

@@ -15,7 +15,7 @@ host).  The card is selected with ``torch.cuda.set_device`` before anything
 touches it.
 
 Data loading: each rank feeds only its rows of the global batch
-(``process_local_batch_slice``, ``parallel/mesh.py::shard_batch``); nothing
+(``process_local_batch_slice``, ``parallel/mesh.py::batch_sharding``); nothing
 is gathered, where the JAX package assembles a global array
 (``make_global_batch``).
 """

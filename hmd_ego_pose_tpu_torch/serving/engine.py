@@ -1,8 +1,8 @@
-"""Batched streaming inference engine on one CUDA device.
+"""Batched streaming inference engine on one CUDA device, or on a mesh of ranks.
 
-Counterpart of ``hmd_ego_pose_tpu/serving/engine.py`` for a single device
-(no mesh).  Raw uint8 frames go to the device, where preprocess, the forward
-pass, decode and NMS run; only the best pose of each frame comes back.
+Counterpart of ``hmd_ego_pose_tpu/serving/engine.py``.  Raw uint8 frames go
+to the device, where preprocess, the forward pass, decode and NMS run; only
+the best pose of each frame comes back.
 Requests from any number of clients are batched adaptively: the dispatcher
 drains the queue (up to ``max_batch_size``), pads to the next power of two
 and runs one batch.  Two threads form a double buffer: the dispatcher
@@ -15,6 +15,23 @@ Per-stage latency (``stats()``, the JAX engine's keys): ``queue`` wait,
 
 Pose packet contract: axis-angle radians (network output x pi) and
 translation in meters (network output mm / 1000).
+
+``mesh`` (a ``parallel/mesh.py::DataMesh``; the JAX engine's ``mesh``):
+frames over ``data``, the image height over ``space``, the model replicated
+(broadcast from process 0 and its digest checked), every batch size a
+multiple of the data-axis size.  Every process builds the engine.  Process 0
+owns the queue, the threads and whatever serves it (``start``, ``submit``,
+``warmup``, ``stop``); every other process calls ``follow()``, which serves
+until process 0 stops.  Each batch is broadcast from process 0 (a command,
+then the frames and cameras); every process preprocesses its data rows,
+takes its slab of their rows and runs ``predict`` on the mesh; the poses of
+the data rows are all-gathered over ``data``, and process 0 returns them.
+An idle process 0 broadcasts a heartbeat every ``HEARTBEAT_S``, so a
+follower's wait is bounded by the process group's timeout, and a follower
+whose process 0 is gone raises instead of hanging; a broadcast that fails on
+process 0 is kept in ``follower_error``, and the next batch fails its
+requests.  A single process is the mesh of one (``LOCAL``, the default):
+every broadcast and gather is then a no-op, and no command is sent.
 """
 
 from __future__ import annotations
@@ -33,7 +50,12 @@ from hmd_ego_pose_tpu_torch.config import ModelConfig, ServingConfig
 from hmd_ego_pose_tpu_torch.models import hmd_ego_pose
 from hmd_ego_pose_tpu_torch.models.folding import fold_batch_norms
 from hmd_ego_pose_tpu_torch.ops.preprocess import preprocess_uint8_batch
+from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL, DataMesh, replicate
 from hmd_ego_pose_tpu_torch.utils.device import DeviceLike, resolve_device
+
+# commands process 0 broadcasts to the followers of a mesh engine
+_STOP, _BATCH, _IDLE = 0, 1, 2
+HEARTBEAT_S = 1.0
 
 
 class _Request:
@@ -82,7 +104,7 @@ class LatencyStats:
 
 
 class InferenceEngine:
-    """Adaptive-batching pose inference on one device."""
+    """Adaptive-batching pose inference on one device, or on a mesh of ranks."""
 
     def __init__(
         self,
@@ -92,13 +114,20 @@ class InferenceEngine:
         frame_shape: Tuple[int, int] = (480, 480),
         default_camera: Optional[np.ndarray] = None,
         device: DeviceLike = None,
+        mesh: DataMesh = LOCAL,
     ):
         """``model``: an eval-mode ``HMDEgoPose`` with restored weights; the
         engine serves a BN-folded copy of it (``models/folding.py``).
         ``default_camera``: (6,) [fx, fy, px, py, tz_scale, image_scale] for
-        requests without intrinsics."""
+        requests without intrinsics.  ``mesh``: see the module docstring;
+        every process of it must build the engine at once."""
         self.device = resolve_device(device)
         self.model = fold_batch_norms(model.to(self.device).eval())
+        self.mesh = mesh
+        self.leader = mesh.process_rank == 0
+        self._followers = mesh.processes > 1  # commands go out only to other processes
+        self.follower_error: Optional[BaseException] = None  # a failed broadcast to the followers
+        replicate(mesh, self.model)
         self.model_config = model_config
         self.cfg = serving_config
         self.frame_shape = frame_shape
@@ -108,9 +137,12 @@ class InferenceEngine:
         self.batch_sizes = [2 ** i for i in range(int(math.log2(serving_config.max_batch_size)) + 1)]
         if self.batch_sizes[-1] < serving_config.max_batch_size:
             self.batch_sizes.append(serving_config.max_batch_size)
+        # the JAX engine's floor: the data-axis size
+        self.batch_sizes = sorted({-(-b // mesh.world) * mesh.world for b in self.batch_sizes})
         self._queue: "queue.Queue[_Request]" = queue.Queue(maxsize=serving_config.queue_depth)
         self._inflight: "queue.Queue" = queue.Queue(maxsize=2)
         self._stop = threading.Event()
+        self._last_command = time.perf_counter()
         self._dispatcher: Optional[threading.Thread] = None
         self._resolver: Optional[threading.Thread] = None
         self.queue_stats = LatencyStats()
@@ -122,6 +154,8 @@ class InferenceEngine:
     # -- public API ------------------------------------------------------------
 
     def start(self):
+        if not self.leader:
+            raise RuntimeError("only process 0 of the mesh starts the engine; the others follow()")
         self._dispatcher = threading.Thread(target=self._dispatch_loop, name="engine-dispatch", daemon=True)
         self._resolver = threading.Thread(target=self._resolve_loop, name="engine-resolve", daemon=True)
         self._resolver.start()
@@ -129,13 +163,34 @@ class InferenceEngine:
         return self
 
     def stop(self, timeout: float = 10.0):
-        """Stop both threads; raises if either is still alive after ``timeout``."""
+        """Stop both threads (and a mesh's followers); raises if either is
+        still alive after ``timeout``."""
         self._stop.set()
         for t in (self._dispatcher, self._resolver):
             if t is not None:
                 t.join(timeout=timeout)
                 if t.is_alive():
                     raise RuntimeError(f"engine thread {t.name} did not stop within {timeout} s")
+        self._stop_followers()
+
+    def follow(self) -> int:
+        """A mesh process other than 0: serve process 0's batches until it
+        stops; returns the number of batches served."""
+        if self.leader:
+            raise RuntimeError("process 0 of the mesh serves; follow() is for the others")
+        h, w = self.frame_shape
+        served = 0
+        while True:
+            command, b = self._command()
+            if command == _STOP:
+                return served
+            if command == _BATCH:
+                frames = torch.empty((b, h, w, 3), dtype=torch.uint8, device=self.device)
+                cams = torch.empty((b, 6), dtype=torch.float32, device=self.device)
+                self.mesh.broadcast_(frames, "engine")
+                self.mesh.broadcast_(cams, "engine")
+                self._predict(frames, cams)
+                served += 1
 
     def warmup(self):
         """Run every batch size once (cuDNN plans, lazy CUDA init) before traffic."""
@@ -176,19 +231,45 @@ class InferenceEngine:
         # desktop default intrinsics (480/480/128/128 at a 256 network input)
         return np.array([480.0, 480.0, w / 2, h / 2, 1000.0, scale], np.float32)
 
-    def _dispatch_device(self, frames_u8: np.ndarray, cameras: np.ndarray):
-        """Upload and enqueue the batch; returns device tensors without waiting."""
+    def _command(self, command: int = 0, batch: int = 0):
+        """Process 0's (command, batch size) on every process of the mesh."""
+        header = torch.tensor([command, batch], dtype=torch.int64, device=self.device)
+        self.mesh.broadcast_(header, "engine")
+        self._last_command = time.perf_counter()
+        return tuple(int(v) for v in header.tolist())
+
+    def _stop_followers(self):
+        if self.leader and self._followers:
+            self._followers = False
+            self._command(_STOP)
+
+    def _predict(self, frames: torch.Tensor, cams: torch.Tensor):
+        """Every process: its data rows, its slab of their rows, ``predict`` on
+        the mesh; the poses of every data row, all-gathered over ``data``."""
+        mesh, size = self.mesh, self.model_config.image_size
+        rows = mesh.rows(frames.shape[0])
         with torch.inference_mode():
-            frames = torch.from_numpy(frames_u8).to(self.device, non_blocking=False)
-            cams = torch.from_numpy(cameras).to(self.device)
-            images = preprocess_uint8_batch(frames, self.model_config.image_size)
+            images = preprocess_uint8_batch(frames[rows], size)[:, mesh.height_rows(size)]
             det = hmd_ego_pose.predict(
-                self.model, images, cams, self.model_config,
-                score_threshold=self.cfg.score_threshold,
-                iou_threshold=0.5,
+                self.model, images, cams[rows], self.model_config,
+                score_threshold=self.cfg.score_threshold, iou_threshold=0.5,
                 max_detections=1,  # streaming contract: best pose only
             )
-        return det.num_valid, det.rotation[:, 0], det.translation[:, 0]
+            packed = torch.cat([det.num_valid[:, None].to(torch.float32), det.rotation[:, 0],
+                                det.translation[:, 0]], dim=1)
+            packed = torch.cat(mesh.all_gather(packed, "engine", "data"))
+        return packed[:, 0].to(torch.int64), packed[:, 1:4], packed[:, 4:7]
+
+    def _dispatch_device(self, frames_u8: np.ndarray, cameras: np.ndarray):
+        """Upload and enqueue the batch (broadcast to the followers); returns
+        device tensors without waiting."""
+        if self._followers:
+            self._command(_BATCH, frames_u8.shape[0])
+        frames = torch.from_numpy(frames_u8).to(self.device)
+        cams = torch.from_numpy(np.ascontiguousarray(cameras, np.float32)).to(self.device)
+        self.mesh.broadcast_(frames, "engine")
+        self.mesh.broadcast_(cams, "engine")
+        return self._predict(frames, cams)
 
     @staticmethod
     def _to_host(det):
@@ -201,6 +282,12 @@ class InferenceEngine:
             try:
                 first = self._queue.get(timeout=0.05)
             except queue.Empty:
+                if (self._followers and self.follower_error is None
+                        and time.perf_counter() - self._last_command > HEARTBEAT_S):
+                    try:
+                        self._command(_IDLE)
+                    except RuntimeError as exc:  # a follower is gone: the next batch fails its requests
+                        self.follower_error = exc
                 continue
             reqs = [first]
             while len(reqs) < self.cfg.max_batch_size:
@@ -235,6 +322,10 @@ class InferenceEngine:
             except queue.Empty:
                 break
             r.future.set_exception(RuntimeError("engine stopped"))
+        try:
+            self._stop_followers()  # from the thread that issues the mesh's collectives
+        except RuntimeError as exc:  # a follower is gone; the others fail on the group's timeout
+            self.follower_error = exc
         self._inflight.put(None)  # the resolver exits on this sentinel
 
     def _resolve_loop(self):

@@ -30,6 +30,10 @@ Counterpart of ``hmd_ego_pose_tpu/train/state.py`` (optax):
   returns).  The graph depends on the config, not on the rows, so the same
   parameters have gradients on every rank and every rank packs the same
   layout.  In a single process (a mesh of one) the all-reduce is a no-op.
+  Under a space axis the same all-reduce spans (data x space), the mean
+  over its D * S ranks: each rank's gradient is a part of its data row's
+  (``parallel/spatial.py``), so the parts are summed over space, and the
+  rows averaged over data.
 
 ``leaves()`` and ``load_leaves()`` carry the state in the layout of the JAX
 package's checkpoints, ``jax.tree.leaves`` of its optax state:
@@ -119,9 +123,9 @@ class Optimizer:
 
     def step(self) -> None:
         """One update from the gradients on the parameters; clears them after."""
-        # every trainable gradient becomes its mean over the mesh's ranks (one
-        # all-reduce); every rank runs the same graph, so the same ones exist
-        self.mesh.mean_([p.grad for p in self.params if p.grad is not None], "grads")
+        # every trainable gradient becomes its mean over the (data x space) ranks
+        # (one all-reduce); every rank runs the same graph, so the same ones exist
+        self.mesh.mean_([p.grad for p in self.params if p.grad is not None], "grads", "batch")
         if self.config.clip_grad_norm and self.config.clip_grad_norm > 0:
             self.clip_gradients()
         self.opt.step()

@@ -24,6 +24,12 @@ Under a data-parallel mesh (``mesh``, ``parallel/mesh.py``) each rank runs
 steps 1-5 on its B / W rows of the global batch: the BNs and the gradients
 reduce over the ranks, and the returned losses are all-reduced (mean over
 ranks, one call), so they are the global batch's, as the JAX package logs.
+Under a space axis (the JAX package's spatial step: images sharded by
+``image_sharding``) every rank of a data row prepares the row's whole
+images and the forward takes its slab of their rows (``losses``); the
+outputs, targets (one ``target_assign`` call a rank, on its data rows) and
+losses are whole on every rank, and the gradients are summed over space and
+averaged over data in one all-reduce (``train/state.py``).
 
 Losses stay on the device: nothing is read back inside a step.
 """
@@ -116,7 +122,11 @@ class TrainStep:
         )
 
     def losses(self, batch: Batch, generator: Optional[torch.Generator] = None) -> LossBundle:
-        """Steps 3-4: forward, targets and loss of a prepared batch."""
+        """Steps 3-4: forward, targets and loss of a prepared batch (whole
+        images of the rank's data rows; under a space axis the forward takes
+        the rank's rows of them)."""
+        if self.mesh.space > 1:
+            batch = batch._replace(images=batch.images[:, self.mesh.height_rows(batch.images.shape[1])])
         return compute_losses(self.model, batch, self.model_points, self.config, self.loss_cfg,
                               self.anchors, self.trans_anchors, generator, self.symmetric)
 

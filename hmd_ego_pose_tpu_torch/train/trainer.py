@@ -60,7 +60,7 @@ from hmd_ego_pose_tpu_torch.eval.evaluator import EvalResult, evaluate_model
 from hmd_ego_pose_tpu_torch.models.hmd_ego_pose import HMDEgoPose, init_weights
 from hmd_ego_pose_tpu_torch.models.weights import from_jax_params, to_jax_params
 from hmd_ego_pose_tpu_torch.ops.augment_device import RawBatch, draw_augment, take_rows
-from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL, DataMesh, replicate, shard_batch
+from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL, DataMesh, batch_sharding, replicate
 from hmd_ego_pose_tpu_torch.train.checkpoint import checkpoint_name, checkpoint_path, save_checkpoint
 from hmd_ego_pose_tpu_torch.train.plateau import ReduceLROnPlateau
 from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES, TrainStep, make_eval_forward
@@ -168,7 +168,7 @@ class Trainer:
         """Steps over the (steps, B) index rows into ``self.data``; the metric means, on the device."""
         sums = None
         for row in idxs:
-            idx = torch.from_numpy(shard_batch(self.mesh, row).astype("int64")).to(self.device)
+            idx = torch.from_numpy(batch_sharding(self.mesh)(row).astype("int64")).to(self.device)
             metrics = self.step_fn(self.data, idx, self.draws(), self.generator)
             values = torch.stack([metrics[k] for k in METRIC_NAMES])
             sums = values if sums is None else sums + values

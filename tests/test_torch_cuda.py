@@ -291,6 +291,29 @@ def test_two_gloo_ranks_share_the_card(cuda_device, tmp_path):
         assert ranks[0][1]["steps"][0][term] == pytest.approx(v, rel=1e-5), term
 
 
+def test_space_two_forward_on_the_card_equals_the_single_process_forward(cuda_device, tmp_path):
+    """Two ranks of a space-2 mesh sharing the card over gloo (as chip_smoke.py's
+    spatial phase runs them): the forward of the artifact's weights (phi-0,
+    128 px, fp32) on the two slabs of a seeded image equals the single-process
+    forward on the card within the JAX spatial test's rtol 2e-4, atol 2e-5."""
+    import torch_dp_ranks
+
+    from hmd_ego_pose_tpu_torch.config import ModelConfig
+    from hmd_ego_pose_tpu_torch.train.checkpoint import load_model
+
+    model, _ = load_model(torch_dp_ranks.ARTIFACT, ModelConfig(phi=0, image_size=128, compute_dtype="float32"),
+                          device="cpu")
+    state = str(tmp_path / "artifact.pt")
+    torch.save(model.state_dict(), state)
+    job = {"kind": "spatial", "what": "forward", "layout": [1, 1, 2], "batch": 1, "seed": 0, "state": state}
+    ranks = torch_dp_ranks.run_ranks(2, [job], tmp_path, device="cuda")
+    single = torch_dp_ranks.spatial_job(job, "cuda")
+    for r in ranks:
+        assert r[0]["collectives"]["halo"] > 0 and r[0]["collectives"]["gather"] > 0
+        for key, want in single["outputs"].items():
+            np.testing.assert_allclose(r[0]["outputs"][key], want, rtol=2e-4, atol=2e-5, err_msg=key)
+
+
 def test_cli_parity_and_iter1_evaluation_on_the_card_equal_the_cpus(cuda_device, tmp_path):
     """``cli parity`` of the artifact's state_dict and ``cli evaluate --iter 1
     --save-images-path`` of the seeded iter-1 checkpoint on a 12-frame v3 set,

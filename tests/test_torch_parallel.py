@@ -1,9 +1,10 @@
 """The port's mesh and process bootstrap against the JAX package's, in one process.
 
-* ``ParallelConfig``: the JAX dataclass's fields and defaults; the model and
-  space axes raise;
-* ``make_mesh``: a layout builds or raises as the JAX ``make_mesh`` does over
-  that many devices (the conftest's 8 CPU devices);
+* ``ParallelConfig``: the JAX dataclass's fields and defaults;
+* ``make_mesh``: a layout (data, model and space axes) builds or raises as
+  the JAX ``make_mesh`` does over that many devices (the conftest's 8 CPU
+  devices), each rank where JAX puts its device; the shardings' specs
+  those of the JAX package;
 * ``process_local_batch_slice``: the JAX package's rows at world sizes 1, 2, 4;
 * ``initialize``: a no-op without torchrun's environment; the backend is
   the caller's (gloo on the CPU or for a shared card, NCCL otherwise);
@@ -29,7 +30,8 @@ from hmd_ego_pose_tpu_torch.config import ParallelConfig
 from hmd_ego_pose_tpu_torch.models.efficientnet import EfficientNet, MBConv
 from hmd_ego_pose_tpu_torch.ops import augment_device as aug
 from hmd_ego_pose_tpu_torch.parallel import distributed
-from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL, DataMesh, make_mesh, shard_batch
+from hmd_ego_pose_tpu_torch.parallel.mesh import (
+    LOCAL, DataMesh, batch_sharding, image_sharding, make_mesh, replicated_sharding)
 
 PORT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "hmd_ego_pose_tpu_torch")
 
@@ -39,23 +41,44 @@ def test_parallel_config_is_the_jax_dataclass():
     assert port == {f.name: f.default for f in dataclasses.fields(JaxParallelConfig)}
 
 
-@pytest.mark.parametrize("field", ["model_parallel", "spatial_parallel"])
-def test_model_and_space_axes_raise(field):
-    with pytest.raises(ValueError, match="ROADMAP Queue A"):
-        ParallelConfig(**{field: 2})
-    ParallelConfig(**{field: 1})
-
-
-@pytest.mark.parametrize("n, data", [(1, -1), (2, -1), (4, -1), (8, -1), (2, 2), (4, 4), (4, 2), (2, 4), (8, 3)])
-def test_make_mesh_builds_or_raises_as_jax(n, data):
+@pytest.mark.parametrize("n, data, model, space", [
+    (1, -1, 1, 1), (2, -1, 1, 1), (4, -1, 1, 1), (8, -1, 1, 1), (2, 2, 1, 1), (4, 4, 1, 1), (4, 2, 1, 1),
+    (2, 4, 1, 1), (8, 3, 1, 1),
+    (8, 2, 1, 4), (8, -1, 1, 4), (4, 1, 1, 4), (4, -1, 2, 2), (8, 2, 2, 2), (8, -1, 4, 1), (2, 1, 2, 1),
+    (8, 2, 1, 3),  # does not cover the ranks
+    (6, -1, 4, 1),  # the derived data axis does not either
+])
+def test_make_mesh_builds_or_raises_as_jax(n, data, model, space):
+    layout = dict(data_parallel=data, model_parallel=model, spatial_parallel=space)
     try:
-        want = jax_make_mesh(JaxParallelConfig(data_parallel=data), devices=jax.devices()[:n])
+        want = jax_make_mesh(JaxParallelConfig(**layout), devices=jax.devices()[:n])
     except ValueError:
         with pytest.raises(ValueError, match="mesh"):
-            make_mesh(ParallelConfig(data_parallel=data), world=n, rank=0)
+            make_mesh(ParallelConfig(**layout), world=n, rank=0)
         return
-    mesh = make_mesh(ParallelConfig(data_parallel=data), world=n, rank=n - 1)
-    assert mesh.world == want.shape["data"] == n and mesh.rank == n - 1
+    for r in range(n):
+        mesh = make_mesh(ParallelConfig(**layout), world=n, rank=r)
+        where = tuple(int(i[0]) for i in np.nonzero(want.devices == jax.devices()[r]))
+        assert (mesh.rank, mesh.model_rank, mesh.space_rank) == where
+        assert (mesh.world, mesh.model, mesh.space) == (want.shape["data"], want.shape["model"], want.shape["space"])
+        assert mesh.process_rank == r and mesh.processes == n
+
+
+def test_shardings_are_the_jax_packages():
+    """The specs of ``tests/test_parallel_spatial.py::test_make_mesh_spatial_axis``;
+    each rank's part of a global array."""
+    mesh = make_mesh(ParallelConfig(data_parallel=2, spatial_parallel=4), world=8, rank=6)
+    assert (mesh.rank, mesh.space_rank) == (1, 2)
+    assert image_sharding(mesh).spec == ("data", "space")
+    assert image_sharding(make_mesh(ParallelConfig(), world=8, rank=0)).spec == ("data", None)
+    assert batch_sharding(mesh).spec == ("data",) and replicated_sharding(mesh).spec == ()
+    images = np.arange(4 * 16 * 3 * 1).reshape(4, 16, 3, 1)
+    assert (image_sharding(mesh)(images) == images[2:4, 8:12]).all()
+    assert (batch_sharding(mesh)(images) == images[2:4]).all()
+    assert (replicated_sharding(mesh)(images) == images).all()
+    # a height the space axis does not divide stays whole (the level is computed whole)
+    assert (image_sharding(mesh)(images[:, :6]) == images[2:4, :6]).all()
+    assert mesh.sharded(16) and not mesh.sharded(6) and not LOCAL.sharded(16)
 
 
 @pytest.mark.parametrize("world", [1, 2, 4])
@@ -94,11 +117,12 @@ def test_backend_is_the_callers_choice(monkeypatch):
 
 
 def test_shard_batch_takes_the_ranks_rows():
+    """``batch_sharding``, the one way to take a rank's rows of the global batch."""
     for full in (torch.arange(24).reshape(8, 3), np.arange(8 * 5).reshape(8, 5)):
         for rank in range(4):
-            got = shard_batch(DataMesh(rank=rank, world=4, device=torch.device("cpu")), full)
+            got = batch_sharding(DataMesh(rank=rank, world=4, device=torch.device("cpu")))(full)
             assert type(got) is type(full) and (got == full[2 * rank:2 * rank + 2]).all()
-        assert (shard_batch(LOCAL, full) == full).all()
+        assert (batch_sharding(LOCAL)(full) == full).all()
 
 
 def draws_with_noise(batch: int):
@@ -128,9 +152,9 @@ def test_drop_connect_masks_are_the_global_batchs_columns(monkeypatch):
     masks = []
     forward = MBConv.forward
 
-    def recording(self, x, keep_mask=None, keep_prob=1.0):
+    def recording(self, x, keep_mask=None, keep_prob=1.0, full_h=None):
         masks.append(None if keep_mask is None else keep_mask.clone())
-        return forward(self, x, keep_mask, keep_prob)
+        return forward(self, x, keep_mask, keep_prob, full_h)
 
     monkeypatch.setattr(MBConv, "forward", recording)
     net = EfficientNet(0).train()

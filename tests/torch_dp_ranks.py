@@ -17,7 +17,12 @@ Jobs (dicts with a ``kind``):
   from the overrides), then its own epoch code for a few steps: per step the
   losses and the state digest, at the end the state and the collective
   counts; for the host pipeline and windows also each rank's batch rows;
-* ``cli``: ``cli.main(["train", ...])`` in a working directory.
+* ``cli``: ``cli.main(["train", ...])`` in a working directory;
+* ``spatial``: on a mesh of ``job["layout"]`` (data, model, space) of its
+  own, from a state file the test saved: the raw forward (``forward``), the
+  fused predict (``predict``), a train step (``step``) or the engine
+  (``engine``: process 0 serves, the others follow) on seeded inputs
+  (``spatial_inputs``); whole-height outputs of the rank's data rows.
 """
 
 from __future__ import annotations
@@ -105,7 +110,7 @@ def bn_job(job, mesh, device: str = "cpu"):
     import torch
 
     from hmd_ego_pose_tpu_torch.nn.core import BatchNorm
-    from hmd_ego_pose_tpu_torch.parallel.mesh import shard_batch
+    from hmd_ego_pose_tpu_torch.parallel.mesh import batch_sharding
 
     inp = bn_inputs(**job.get("shape", {}))
     out = {}
@@ -117,15 +122,30 @@ def bn_job(job, mesh, device: str = "cpu"):
                 getattr(bn, name).copy_(torch.from_numpy(inp[key]))
         bn.mesh, bn.update_stats = mesh, update_stats
         bn.train()
-        x = torch.from_numpy(shard_batch(mesh, inp["x"])).to(device).requires_grad_(True)
+        x = torch.from_numpy(batch_sharding(mesh)(inp["x"])).to(device).requires_grad_(True)
         y = bn(x)
-        y.backward(torch.from_numpy(shard_batch(mesh, inp["cotangent"])).to(device))
+        y.backward(torch.from_numpy(batch_sharding(mesh)(inp["cotangent"])).to(device))
         out[update_stats] = {"y": y.detach().cpu().numpy(), "x_grad": x.grad.cpu().numpy(),
                              "weight_grad": bn.weight.grad.cpu().numpy(), "bias_grad": bn.bias.grad.cpu().numpy(),
                              "running_mean": bn.running_mean.cpu().numpy(),
                              "running_var": bn.running_var.cpu().numpy()}
     out["collectives"] = dict(mesh.stats.calls)
     return out
+
+
+def record_first_grads(optimizer, model, out: dict) -> None:
+    """Record in ``out["grads"]`` the first step's gradients as the update
+    reads them: after the mesh's all-reduce (and the clip), before the
+    optimizer's own step."""
+    opt_step = optimizer.opt.step
+
+    def recorded_opt_step(*a, **kw):
+        if "grads" not in out:
+            names = {id(p): k for k, p in model.named_parameters()}
+            out["grads"] = {names[id(p)]: p.grad.cpu().numpy() for p in optimizer.params}
+        return opt_step(*a, **kw)
+
+    optimizer.opt.step = recorded_opt_step
 
 
 class _NoLogger:
@@ -154,7 +174,7 @@ def steps_job(job, workdir: str, device: str = "cpu"):
     import torch
 
     from hmd_ego_pose_tpu_torch.data.device_dataset import gather_raw_batch
-    from hmd_ego_pose_tpu_torch.parallel.mesh import shard_batch, state_digest
+    from hmd_ego_pose_tpu_torch.parallel.mesh import batch_sharding, state_digest
     from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES
 
     trainer = build(job, workdir, device)
@@ -181,15 +201,7 @@ def steps_job(job, workdir: str, device: str = "cpu"):
         return metrics
 
     step.prepare, step.prepare_host, step.update = recorded_prepare, recorded_prepare_host, recorded_update
-    opt_step = trainer.optimizer.opt.step
-
-    def recorded_opt_step(*a, **kw):  # the first step's gradients, as the update reads them
-        if "grads" not in out:
-            names = {id(p): k for k, p in trainer.model.named_parameters()}
-            out["grads"] = {names[id(p)]: p.grad.cpu().numpy() for p in trainer.optimizer.params}
-        return opt_step(*a, **kw)
-
-    trainer.optimizer.opt.step = recorded_opt_step
+    record_first_grads(trainer.optimizer, trainer.model, out)
     mesh.stats.reset()
     if trainer.path == "resident":
         idxs = trainer.pipeline.epoch_indices(trainer.config.train.oversample)[:job["steps"]]
@@ -197,7 +209,7 @@ def steps_job(job, workdir: str, device: str = "cpu"):
             if job.get("drop_connect", False):
                 trainer._resident_steps(idxs[s:s + 1])
             else:  # the reference steps: augmentation draws as configured, no drop-connect
-                idx = torch.from_numpy(shard_batch(mesh, idxs[s])).to(trainer.device)
+                idx = torch.from_numpy(batch_sharding(mesh)(idxs[s])).to(trainer.device)
                 step(trainer.data, idx, trainer.draws(), None)
     elif trainer.path == "windowed":
         trainer._windowed_epoch()
@@ -236,8 +248,121 @@ def cli_job(job, workdir: str):
                             for root, _, files in os.walk(workdir) for f in files)}
 
 
+SPATIAL_SIZE = 128
+CAMERA = [570.0, 570.0, 64.0, 64.0, 1000.0, 1.0]
+
+
+def spatial_inputs(what: str, batch: int, seed: int):
+    """The seeded inputs of a ``spatial`` job (those of
+    ``tests/test_parallel_spatial.py``): NHWC images and cameras; for a step
+    also the ground truth and model points; for the engine uint8 frames."""
+    rng = np.random.RandomState(seed)
+    f = np.float32
+    cams = np.tile(np.asarray([CAMERA], f), (batch, 1))
+    if what == "engine":
+        return {"frames": rng.randint(0, 255, (batch, SPATIAL_SIZE, SPATIAL_SIZE, 3), np.uint8)}
+    if what != "step":
+        return {"images": rng.normal(size=(batch, SPATIAL_SIZE, SPATIAL_SIZE, 3)).astype(f) * f(0.3),
+                "cams": cams}
+    model_points = (rng.normal(size=(1, 64, 3)) * 50).astype(f)
+    return {"model_points": model_points,
+            "images": rng.normal(size=(batch, SPATIAL_SIZE, SPATIAL_SIZE, 3)).astype(f) * f(0.1),
+            "cams": cams,
+            "gt_boxes": np.tile(np.asarray([[[30.0, 40.0, 90.0, 100.0]]], f), (batch, 1, 1)),
+            "gt_labels": np.zeros((batch, 1), np.int32),
+            "gt_transformation": np.tile(np.asarray([[[0.1, 0.2, 0.1, 10.0, -5.0, 500.0, 0.0, 0.0]]], f),
+                                         (batch, 1, 1)),
+            "gt_coords_3d": np.zeros((batch, 1, 63), f), "gt_valid": np.ones((batch, 1), bool)}
+
+
+def spatial_model(job, device: str = "cpu"):
+    import torch
+
+    from hmd_ego_pose_tpu_torch.config import ModelConfig
+    from hmd_ego_pose_tpu_torch.models.hmd_ego_pose import HMDEgoPose
+
+    cfg = ModelConfig(phi=0, image_size=SPATIAL_SIZE, compute_dtype="float32", **job.get("model", {}))
+    model = HMDEgoPose(cfg)
+    model.load_state_dict(torch.load(job["state"], weights_only=False))
+    return model.to(device), cfg
+
+
+def spatial_job(job, device: str = "cpu"):
+    """``job["what"]`` on a mesh of ``job["layout"]``; a mesh of one process
+    (``LOCAL``) when the job is run in the test's own process."""
+    import torch
+
+    from hmd_ego_pose_tpu_torch.config import Config, ParallelConfig, ServingConfig, TrainConfig
+    from hmd_ego_pose_tpu_torch.models import hmd_ego_pose
+    from hmd_ego_pose_tpu_torch.ops.augment_device import Batch
+    from hmd_ego_pose_tpu_torch.parallel import distributed
+    from hmd_ego_pose_tpu_torch.parallel.mesh import (
+        LOCAL, batch_sharding, image_sharding, make_mesh, replicate, state_digest)
+    from hmd_ego_pose_tpu_torch.serving.engine import InferenceEngine
+    from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES, TrainStep
+
+    if distributed.world_size() > 1:
+        data, model_axis, space = job["layout"]
+        mesh = make_mesh(ParallelConfig(data_parallel=data, model_parallel=model_axis, spatial_parallel=space),
+                         device=torch.device(device))
+    else:
+        mesh = LOCAL
+    model, cfg = spatial_model(job, device)
+    what = job["what"]
+    inp = spatial_inputs(what, job["batch"], job["seed"])
+    out = {"coords": [mesh.rank, mesh.model_rank, mesh.space_rank], "rows": [mesh.rows(job["batch"]).start,
+                                                                             mesh.rows(job["batch"]).stop]}
+    mesh.stats.reset()
+    if what in ("forward", "predict"):
+        replicate(mesh, model)
+        images = torch.from_numpy(image_sharding(mesh)(inp["images"])).to(device)
+        if what == "forward":
+            raw = hmd_ego_pose.apply(model, images, cfg)
+            out["outputs"] = {k: getattr(raw, k).cpu().numpy() for k in
+                              ("classification", "regression", "rotation", "translation_raw", "hand")}
+        else:
+            cams = torch.from_numpy(batch_sharding(mesh)(inp["cams"])).to(device)
+            det = hmd_ego_pose.predict(model, images, cams, cfg, score_threshold=0.05, iou_threshold=0.5,
+                                       max_detections=10)
+            out["detections"] = {k: v.cpu().numpy() for k, v in det._asdict().items()}
+    elif what == "step":
+        config = Config(model=cfg, train=TrainConfig(batch_size=job["batch"], learning_rate=1e-3))
+        replicate(mesh, model)
+        step = TrainStep(model, config, inp["model_points"], torch.device(device), mesh=mesh)
+        rows = batch_sharding(mesh)
+        batch = Batch(*(torch.from_numpy(rows(inp[k])).to(device) for k in
+                        ("images", "cams", "gt_boxes", "gt_labels", "gt_transformation", "gt_coords_3d",
+                         "gt_valid")))
+        generator = torch.Generator().manual_seed(job["drop_connect_seed"]) if "drop_connect_seed" in job else None
+        record_first_grads(step.optimizer, model, out)
+        metrics = step.update(step.losses(batch, generator))
+        out["metrics"] = {k: float(metrics[k]) for k in METRIC_NAMES}
+        out["digest"] = state_digest(model)
+        out["state"] = {k: v.detach().cpu().numpy().copy() for k, v in model.state_dict().items()}
+    elif what == "engine":
+        engine = InferenceEngine(model, cfg, ServingConfig(max_batch_size=1, score_threshold=0.0),
+                                 frame_shape=(SPATIAL_SIZE, SPATIAL_SIZE), device=device,
+                                 mesh=mesh)
+        out["batch_sizes"] = engine.batch_sizes
+        if engine.leader:
+            engine.start()
+            try:
+                poses = [engine.infer_blocking(frame, timeout=60.0) for frame in inp["frames"]]
+            finally:
+                engine.stop()
+            out["poses"] = [None if p is None else [np.asarray(v, np.float32) for v in p] for p in poses]
+        else:
+            out["served"] = engine.follow()
+    else:
+        raise ValueError(what)
+    out["collectives"] = dict(mesh.stats.calls)
+    return out
+
+
 def run_job(job, mesh, workdir: str, device: str = "cpu"):
     kind = job["kind"]
+    if kind == "spatial":
+        return spatial_job(job, device)
     if kind == "bn":
         return bn_job(job, mesh, device)
     if kind == "steps":
