@@ -74,12 +74,21 @@ Phases, each printing one JSON line of its own:
                detection and byte-equal to the server's packet for the RGB8
                frame ``serving/frameio.py`` decodes from that payload, every
                conversion of the server on the compiled path.  Round trip p50
-               and max per kind; three I420 requests under
+               and max per kind; one I420 request under
                ``utils/profiler.py::profile_trace``: host and device ms,
                kernels, launch and aten calls, the top ten aten ops by self
                device time, kernels by device time and host rows by self host
                time, each per request.  Kernel launch counts are reset just before
-               the engine is built and read just after the phase.
+               the engine is built and read just after the phase.  The engine
+               serves through CUDA graphs, one per batch size, captured by its
+               warm-up: ``eager_batches`` must stay 0; each batch size's replay
+               of the golden frames must equal the eager ``_predict`` of the
+               same frames bit for bit, and two batches of one size in flight
+               must each resolve to their own eager answers; then batch-1
+               round trips, graph against eager in turns (the eager turns with
+               the graphs set aside), and one profiled request of each (kernels,
+               launch calls, graph launches, host and device ms); the
+               capture's seconds and the graphs' pool bytes.
 9. evaluate -- ``cli make-synthetic`` writes the 1000-frame, 256 px, seed-0,
                hand-render-v3 set into a temporary directory, in a process
                of its own (``--generate``) started after the device line, so
@@ -94,14 +103,23 @@ Phases, each printing one JSON line of its own:
                (the JAX package's evaluation, ``scripts/make_eval_reference.py``).
 10. train   -- on the same set: first four fixed training steps (augmentation
                and drop-connect off) of ``cli train``'s trainer from the
-               artifact, whose six loss terms must lie within the stated
+               artifact, eagerly and then, from the same state, through the
+               trainer's CUDA graph of its step (``train/step.py::ResidentGraph``),
+               whose six loss terms must each lie within the stated
                tolerance of ``hmd_ego_pose_tpu_torch/train/references/
                handrel_v3_train_steps.json`` (the JAX package's steps,
-               ``scripts/make_train_reference.py``); then, with the launch
+               ``scripts/make_train_reference.py``), ``target_assign`` launched
+               once per replay; the gradient leaves that differ between two
+               backwards of one batch from one state (cuDNN's default
+               algorithms); with ``cudnn.deterministic`` four augmented steps
+               with drop-connect, eager and graphed with the same indices,
+               draws and masks, bit-equal in losses and state; six steps of
+               each path in turns, timed; then, with the launch
                counts reset just before and read just after, ``cli train``'s
                trainer (``cli.build_trainer``: phi-0, 256 px, fp32, batch 16,
                Adam 1e-4, frozen backbone, oversample 1) for one epoch over the
-               600 train frames and validation on the 200 val frames.  Every
+               600 train frames, replaying its step's graph, and validation on
+               the 200 val frames.  Every
                loss finite, ``target_assign`` launched once per step,
                ``dequantize`` once at the restore,
                ``min_distances`` once; the backbone's
@@ -752,16 +770,72 @@ def phase_target_assign(dev) -> dict:
     }
 
 
-class TimedStep:
+class StepTimes:
+    """Synchronised step times and each step's losses, read after the step;
+    ``part_ms`` the parts' times where the timer sees them."""
+
+    def __init__(self):
+        self.step_ms, self.losses, self.part_ms = [], [], {}
+
+    def summary(self, batch: int, start: int = 0, stop=None) -> dict:
+        """Times of the steps ``start`` .. ``stop``."""
+        import numpy as np
+
+        step_ms = np.asarray(self.step_ms[start:stop])
+        parts = {k: v[start:stop] for k, v in self.part_ms.items()}
+        return {
+            "steps": len(step_ms), "step_ms_p50": float(np.percentile(step_ms, 50)),
+            "step_ms_max": float(step_ms.max()), "step_ms_first": float(step_ms[0]),
+            "images_per_s": batch * len(step_ms) / (step_ms.sum() / 1e3),
+            "augment_share": float(np.sum(parts["prepare"]) / step_ms.sum()) if parts else None,
+            "part_ms_p50": {k: float(np.percentile(v, 50)) for k, v in parts.items()} if parts else None,
+            "loss_first": self.losses[start]["loss"], "loss_last": self.losses[start:stop][-1]["loss"],
+        }
+
+    def check_finite(self) -> None:
+        import numpy as np
+
+        bad = [i for i, m in enumerate(self.losses) if not all(np.isfinite(v) for v in m.values())]
+        if bad:
+            raise AssertionError(f"non-finite losses at steps {bad}: {[self.losses[i] for i in bad]}")
+
+
+class TimedGraph(StepTimes):
+    """Wraps a trainer's ``ResidentGraph`` (the CUDA graph of its step): each
+    step synchronised and timed (the first one's time holds the warm-up step
+    and the capture), its losses read from the graph's rows after it."""
+
+    def __init__(self, graph):
+        super().__init__()
+        self.graph = graph
+
+    def __getattr__(self, name):
+        return getattr(self.graph, name)
+
+    def __call__(self, idx, draws=None, generator=None):
+        import torch
+
+        from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.graph(idx, draws, generator)
+        torch.cuda.synchronize()
+        self.step_ms.append((time.perf_counter() - t0) * 1e3)
+        self.losses.append(dict(zip(METRIC_NAMES, self.graph.metrics[self.graph.done - 1].tolist())))
+
+
+class TimedStep(StepTimes):
     """Wraps a trainer's step: synchronised times of its parts (batch, augment
     and preprocess; forward + targets + loss; backward; optimizer update) and
-    each step's losses, read after the step.  Resident and windowed epochs
-    call it, the host pipeline's epochs call its ``host_step``."""
+    each step's losses, read after the step.  Eager resident and windowed
+    epochs call it, the host pipeline's epochs call its ``host_step``."""
 
     PARTS = ("prepare", "forward", "backward", "optimizer")
 
     def __init__(self, step):
-        self.step, self.step_ms, self.losses = step, [], []
+        super().__init__()
+        self.step = step
         self.part_ms = {k: [] for k in self.PARTS}
         update = step.optimizer.step
 
@@ -803,54 +877,58 @@ class TimedStep:
     def host_step(self, batch, draws=None, generator=None):
         return self._timed(lambda: self.step.prepare_host(batch, draws), generator)
 
-    def summary(self, batch: int, start: int = 0, stop=None) -> dict:
-        """Times of the steps ``start`` .. ``stop``."""
-        import numpy as np
-
-        step_ms = np.asarray(self.step_ms[start:stop])
-        parts = {k: v[start:stop] for k, v in self.part_ms.items()}
-        return {
-            "steps": len(step_ms), "step_ms_p50": float(np.percentile(step_ms, 50)),
-            "step_ms_max": float(step_ms.max()), "step_ms_first": float(step_ms[0]),
-            "images_per_s": batch * len(step_ms) / (step_ms.sum() / 1e3),
-            "augment_share": float(np.sum(parts["prepare"]) / step_ms.sum()),
-            "part_ms_p50": {k: float(np.percentile(v, 50)) for k, v in parts.items()},
-            "loss_first": self.losses[start]["loss"], "loss_last": self.losses[start:stop][-1]["loss"],
-        }
-
-    def check_finite(self) -> None:
-        import numpy as np
-
-        bad = [i for i, m in enumerate(self.losses) if not all(np.isfinite(v) for v in m.values())]
-        if bad:
-            raise AssertionError(f"non-finite losses at steps {bad}: {[self.losses[i] for i in bad]}")
-
 
 def profile_steps(trainer, steps: int = 1) -> dict:
     """Device busy share of a few more (unsynchronised) train steps under
     torch.profiler, and the kernels that take the most device time; None
-    where the profiler sees no device time."""
+    where the profiler sees no device time.  A graphed trainer's steps are
+    replays of its graph: the kernels it runs against the launch calls and
+    ``cudaGraphLaunch`` calls the host makes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     rows = trainer.pipeline.epoch_indices(1)[:steps]
-    step = trainer.step_fn.step if isinstance(trainer.step_fn, TimedStep) else trainer.step_fn
+    if trainer.graphed:
+        graph = trainer.graph.graph if isinstance(trainer.graph, TimedGraph) else trainer.graph
+        graph.reset()
+
+        def step(row):
+            graph(torch.from_numpy(row), trainer.draws(), trainer.generator)
+    else:
+        eager = trainer.step_fn.step if isinstance(trainer.step_fn, TimedStep) else trainer.step_fn
+
+        def step(row):
+            eager(trainer.data, torch.from_numpy(row).to(trainer.device), trainer.draws(), trainer.generator)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for row in rows:
-            step(trainer.data, torch.from_numpy(row).to(trainer.device), trainer.draws(), trainer.generator)
+            step(row)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = on_device(prof.key_averages())
+    averages = prof.key_averages()
+    events = on_device(averages)
     busy = sum(device_us(e) for e in events)
     top = sorted(events, key=device_us, reverse=True)[:6]
     return {
+        "graphed": trainer.graphed,
         "profiled_steps": len(rows), "wall_ms_per_step": wall_us / 1e3 / len(rows),
         "device_ms_per_step": busy / 1e3 / len(rows) if busy else None,
         "device_busy_share": busy / wall_us if busy else None,
+        "kernels_per_step": sum(e.count for e in events if not e.key.startswith(("Memcpy", "Memset"))) / len(rows),
+        **launch_calls(averages, len(rows), "step"),
         "top_kernels_ms_per_step": {e.key[:80]: device_us(e) / 1e3 / len(rows) for e in top} if busy else None,
     }
+
+
+def launch_calls(averages, n: int, unit: str) -> dict:
+    """Kernel launch calls and CUDA graph launches the host made, per ``unit``."""
+    from torch.autograd import DeviceType
+
+    ops = [e for e in averages if e.device_type == DeviceType.CPU]
+    kernel = sum(e.count for e in ops if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    graph = sum(e.count for e in ops if e.key in ("cudaGraphLaunch", "cuGraphLaunch"))
+    return {f"launch_calls_per_{unit}": kernel / n, f"graph_launches_per_{unit}": graph / n}
 
 
 LOSS_TERMS = ("total", "classification", "regression", "rotation", "translation", "hand")
@@ -888,12 +966,15 @@ def fixed_batch(trainer, s: int):
 
 
 def fit_timed(trainer) -> dict:
-    """``trainer.fit()`` with every step timed (``TimedStep``) and validation
-    timed; the card synchronised at the end."""
+    """``trainer.fit()`` with every step timed (``TimedGraph`` when the trainer
+    replays its step's graph, else ``TimedStep``) and validation timed; the
+    card synchronised at the end."""
     import torch
 
-    timed = TimedStep(trainer.step_fn)
-    trainer.step_fn = timed
+    if trainer.graphed:
+        timed = trainer.graph = TimedGraph(trainer.graph)
+    else:
+        timed = trainer.step_fn = TimedStep(trainer.step_fn)
     validate, val_s = trainer.validate, []
 
     def timed_validate(*a, **kw):
@@ -941,6 +1022,166 @@ def check_checkpoints(trainer, best, ckpt_dir: str, steps: int, work: str) -> di
     return {"checkpoints": restored, "opt_leaves": len(opt)}
 
 
+AB_STEPS = 4  # graph against eager: augmented steps of each path from one state
+TURN_STEPS = 6  # step time in turns: steps of each path
+
+
+def restore_state(trainer, state: dict) -> None:
+    """Put ``trainer`` back at ``state`` (its model's state_dict, cloned before
+    its first step) in place, so that a captured graph still finds every
+    tensor where it was: the model's tensors copied back, Adam's moments and
+    count zeroed, as before a first step."""
+    import torch
+
+    with torch.no_grad():
+        model_state = trainer.model.state_dict()
+        for k, v in state.items():
+            model_state[k].copy_(v)
+        for moments in trainer.optimizer.opt.state.values():
+            for t in moments.values():
+                t.zero_()
+    trainer.optimizer.count = 0
+
+
+def state_gap(a: dict, b: dict) -> dict:
+    """Tensors of two state_dicts that differ, and the largest absolute gap."""
+    import torch
+
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    gap = max((float((a[k].double() - b[k].double()).abs().max()) for k in differ), default=0.0)
+    return {"tensors_differing": len(differ), "max_abs_gap": gap, "first_differing": differ[:3]}
+
+
+def graph_against_eager(trainer, reference: dict) -> dict:
+    """From the artifact's state, on a trainer built as ``cli train`` builds it:
+
+    1. the four reference steps (augmentation and drop-connect off) through
+       the trainer's step graph, then eagerly, each run held to the JAX
+       package's losses; ``target_assign`` once per graphed step;
+    2. whether the eager step repeats itself: one backward of the first
+       reference batch twice from one state, the gradient leaves that differ
+       (cuDNN's default weight-gradient algorithms of some convolutions
+       accumulate with atomics, so the eager step differs from itself, and
+       from the graph, in the last bits);
+    3. with ``torch.backends.cudnn.deterministic``: ``AB_STEPS`` augmented
+       steps with drop-connect, eagerly and through a graph of their own,
+       with the same indices, draws and masks; losses and every parameter
+       and BN buffer bit-equal, or the phase fails;
+    4. ``TURN_STEPS`` augmented steps of each path in turns (eager, graph,
+       graph, eager, ...), timed, with cuDNN's defaults (a graph of their own)."""
+    import numpy as np
+    import torch
+
+    from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
+    from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES, ResidentGraph
+
+    if not trainer.graphed:
+        raise AssertionError("the resident trainer on the card must hold a step graph")
+    dev, batch = trainer.device, trainer.config.train.batch_size
+    start = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+
+    def clone():
+        torch.cuda.synchronize()
+        return {k: v.clone() for k, v in trainer.model.state_dict().items()}
+
+    # 1. the reference steps through the graph, then eagerly
+    graph, ref_steps = trainer.graph, []
+    LAUNCHES.reset()
+
+    def graph_step(s):
+        graph(fixed_batch(trainer, s), None, None)
+        metrics = dict(zip(METRIC_NAMES, graph.metrics[s]))
+        ref_steps.append({k: float(v) for k, v in metrics.items()})
+        return metrics
+
+    t0 = time.perf_counter()
+    graph_gaps = hold_to_reference(reference, graph_step, "graphed training")
+    ref_graph_s = time.perf_counter() - t0
+    steps = len(reference["steps"])
+    if LAUNCHES.get("target_assign") != steps:
+        raise AssertionError(f"the graph must launch target_assign once per step ({steps}), got {LAUNCHES.snapshot()}")
+    graph_state = clone()
+    restore_state(trainer, start)
+    eager_rows = []
+
+    def eager_step(s):
+        metrics = trainer.step_fn(trainer.data, fixed_batch(trainer, s), None, None)
+        eager_rows.append(torch.stack([metrics[k] for k in METRIC_NAMES]))
+        return metrics
+
+    eager_gaps = hold_to_reference(reference, eager_step, "eager training")
+    ref_bits = {"losses_bit_equal": torch.equal(graph.metrics[:steps], torch.stack(eager_rows)),
+                "state": state_gap(graph_state, clone())}
+
+    # 2. does the eager step repeat itself?
+    def gradients():
+        restore_state(trainer, start)
+        bundle = trainer.step_fn.losses(trainer.step_fn.prepare(trainer.data, fixed_batch(trainer, 0), None))
+        bundle.total.backward()
+        grads = {n: p.grad.clone() for n, p in trainer.model.named_parameters() if p.grad is not None}
+        trainer.optimizer.zero_grad()
+        return grads
+
+    first, second = gradients(), gradients()
+    repeat = [n for n in first if not torch.equal(first[n], second[n])]
+
+    # 3. deterministic cuDNN: the augmented steps, eager against graph, bit for bit
+    rows = np.random.default_rng(5).permutation(len(trainer.train_dataset))[:AB_STEPS * batch]
+    rows = rows.reshape(AB_STEPS, batch).astype(np.int64)
+    torch.backends.cudnn.deterministic = True
+    try:
+        restore_state(trainer, start)
+        trainer.generator.manual_seed(5)
+        eager_aug = []
+        for row in rows:
+            metrics = trainer.step_fn(trainer.data, torch.from_numpy(row).to(dev), trainer.draws(), trainer.generator)
+            eager_aug.append(torch.stack([metrics[k] for k in METRIC_NAMES]))
+        eager_state, eager_aug = clone(), torch.stack(eager_aug)
+        restore_state(trainer, start)
+        trainer.generator.manual_seed(5)
+        aug_graph = ResidentGraph(trainer.step_fn, trainer.data, AB_STEPS)
+        LAUNCHES.reset()
+        for row in rows:
+            aug_graph(torch.from_numpy(row), trainer.draws(), trainer.generator)
+        aug_launches = LAUNCHES.get("target_assign")
+        aug_state = state_gap(eager_state, clone())
+    finally:
+        torch.backends.cudnn.deterministic = False
+    aug_equal = torch.equal(aug_graph.metrics, eager_aug)
+    if not aug_equal or aug_state["tensors_differing"] or aug_launches != AB_STEPS:
+        raise AssertionError(f"with deterministic cuDNN the graphed augmented steps must be the eager ones bit for "
+                             f"bit: losses equal {aug_equal}, state {aug_state}, target_assign {aug_launches}")
+    del aug_graph
+
+    # 4. step time in turns, cuDNN's defaults: eager, graph, graph, eager, ...
+    turn_graph = ResidentGraph(trainer.step_fn, trainer.data, TURN_STEPS)
+    turn_graph(torch.from_numpy(rows[0]), trainer.draws(), trainer.generator)  # warm-up step and capture
+    turn_graph.reset()
+    turns = {"eager": [], "graph": []}
+    order = [("eager", "graph"), ("graph", "eager")] * (TURN_STEPS // 2)
+    for i, path in enumerate(p for pair in order for p in pair):
+        row, draws = rows[i % AB_STEPS], trainer.draws()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if path == "eager":
+            trainer.step_fn(trainer.data, torch.from_numpy(row).to(dev), draws, trainer.generator)
+        else:
+            turn_graph(torch.from_numpy(row), draws, trainer.generator)
+        torch.cuda.synchronize()
+        turns[path].append((time.perf_counter() - t0) * 1e3)
+    return {
+        "reference_max_rel_gap": graph_gaps, "reference_steps": ref_steps,
+        "reference_max_rel_gap_eager": eager_gaps, "reference_graph_s": ref_graph_s,
+        "reference_graph_against_eager": ref_bits,
+        "eager_backward_twice_leaves_differing": len(repeat), "eager_backward_twice_first": repeat[:3],
+        "deterministic_augmented_steps": AB_STEPS, "deterministic_bit_equal": True,
+        "target_assign_per_replay": aug_launches / AB_STEPS,
+        "turns_step_ms": turns,
+        "turns_step_ms_p50": {k: float(np.median(v)) for k, v in turns.items()},
+        "turns_graph_over_eager": float(np.median(turns["graph"]) / np.median(turns["eager"])),
+    }
+
+
 def phase_train(card: str, data: str, work: str) -> dict:
     import torch
 
@@ -955,18 +1196,13 @@ def phase_train(card: str, data: str, work: str) -> dict:
     quiet = io.StringIO()
 
     # 1. reference check: four steps from the artifact, augmentation and
-    # drop-connect off, fixed batches, against the JAX package's losses
+    # drop-connect off, fixed batches, against the JAX package's losses, eager
+    # and through the step's graph; then graph against eager, augmented
     with contextlib.redirect_stdout(quiet):
         ref_trainer = cli.build_trainer(args, logger=MetricLogger(os.path.join(work, "runs"), stdout=False),
                                         checkpoint_dir=os.path.join(work, "ref_ckpt"))
-    ref_steps = []
-
-    def ref_step(s):
-        metrics = ref_trainer.step_fn(ref_trainer.data, fixed_batch(ref_trainer, s), None, None)
-        ref_steps.append({k: float(v) for k, v in metrics.items()})
-        return metrics
-
-    ref_gaps = hold_to_reference(reference, ref_step, "training")
+    graph_ab = graph_against_eager(ref_trainer, reference)
+    ref_gaps, ref_steps = graph_ab.pop("reference_max_rel_gap"), graph_ab.pop("reference_steps")
     del ref_trainer
     torch.cuda.empty_cache()
 
@@ -984,6 +1220,8 @@ def phase_train(card: str, data: str, work: str) -> dict:
     launches_restore = LAUNCHES.snapshot()
     backbone = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()
                 if k.startswith("backbone_net.")}
+    if not trainer.graphed:
+        raise AssertionError("cli train's resident trainer on the card must replay its step's CUDA graph")
     run = fit_timed(trainer)
     launches = LAUNCHES.snapshot()
 
@@ -1016,7 +1254,8 @@ def phase_train(card: str, data: str, work: str) -> dict:
     train_metrics, result = run["epochs"][-1]
     return {
         "reference_max_rel_gap": ref_gaps, "reference_tolerance_rel": reference["tolerance_rel"],
-        "reference_steps": ref_steps, **timed.summary(batch), "batch": batch, "frames": frames,
+        "reference_steps": ref_steps, "graph_against_eager": graph_ab, "graphed": trainer.graphed,
+        **timed.summary(batch), "batch": batch, "frames": frames,
         "val_frames": len(trainer.val_dataset),
         "startup_s": t_startup, "fit_s": run["fit_s"], "epoch_s": train_metrics["epoch_seconds"],
         "validate_s": run["val_s"][0] if run["val_s"] else None, "profile": profile,
@@ -2041,7 +2280,6 @@ def profile_requests(client, payloads, kind: int, size) -> dict:
     ops = [e for e in events if e.device_type == DeviceType.CPU]
     kernels = [e for e in on_device(events) if not e.key.startswith(("Memcpy", "Memset"))]
     device_ms = sum(device_us(e) for e in on_device(events)) / 1e3 / n
-    launch_calls = sum(e.count for e in ops if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
 
     def top10(rows, key):
         return [{"name": e.key[:96], "ms_per_request": key(e) / 1e3 / n, "calls_per_request": e.count / n}
@@ -2051,7 +2289,7 @@ def profile_requests(client, payloads, kind: int, size) -> dict:
         "requests": n, "host_ms": host_ms, "device_ms": device_ms or None,
         "device_busy_share": device_ms / host_ms if device_ms else None,
         "ops_device_ms": sum(device_us(e) for e in ops) / 1e3 / n,
-        "kernels_per_request": sum(e.count for e in kernels) / n, "launch_calls_per_request": launch_calls / n,
+        "kernels_per_request": sum(e.count for e in kernels) / n, **launch_calls(events, n, "request"),
         "aten_calls_per_request": sum(e.count for e in ops if e.key.startswith("aten::")) / n,
         "top10_ops_self_device": top10([e for e in ops if e.key.startswith("aten::")], device_us),
         "top10_kernels": top10(kernels, device_us),
@@ -2065,7 +2303,7 @@ def serve_yuv(endpoint: dict, frames) -> dict:
     NV12, each answer a detection and byte-equal to the packet the same server
     answers for the RGB8 frame ``serving/frameio.py`` decodes from that
     payload; the server's conversions must all have taken the compiled path.
-    Then three I420 requests under the profiler."""
+    Then one I420 request under the profiler."""
     import numpy as np
 
     from hmd_ego_pose_tpu_torch.serving import frameio, protocol
@@ -2105,13 +2343,83 @@ def serve_yuv(endpoint: dict, frames) -> dict:
         conversions = frameio.CONVERSIONS.snapshot()
         if conversions != {"native": 2 * len(frames)}:
             raise AssertionError(f"the server's YUV conversions did not all take the compiled path: {conversions}")
-        profile = profile_requests(client, payloads["i420"][:3], protocol.KIND_I420, size)
+        profile = profile_requests(client, payloads["i420"][:1], protocol.KIND_I420, size)
     return {
         "frames_per_kind": len(frames), "byte_equal_to_rgb8_of_decoded": 2 * len(frames),
         "conversions": conversions,
         **{f"rtt_ms_{name}_p50": float(np.percentile(v, 50)) for name, v in rtts.items()},
         **{f"rtt_ms_{name}_max": max(v) for name, v in rtts.items()},
         "profile": profile,
+    }
+
+
+SERVE_TURNS = 10  # round trips of each path, graph against eager, in turns
+
+
+def engine_graphs(engine, frames) -> dict:
+    """The engine's CUDA graphs, one per batch size: each size's replay of the
+    golden frames (repeated to fill it) against the eager ``_predict`` of the
+    same frames, bit for bit; two batches of one size in flight at once,
+    each resolving to its own eager answer; the capture's seconds and the
+    graphs' pool."""
+    import numpy as np
+    import torch
+
+    def host(det):
+        torch.cuda.synchronize()
+        return [t.cpu() for t in det]
+
+    def eager(f, c):
+        return host(engine._predict(torch.from_numpy(f).to(engine.device), torch.from_numpy(c).to(engine.device)))
+
+    def cameras(b):
+        return np.tile(engine._default_camera()[None], (b, 1))
+
+    if sorted(engine.graphs) != engine.batch_sizes:
+        raise AssertionError(f"graphs for {sorted(engine.graphs)}, batch sizes {engine.batch_sizes}")
+    for b in engine.batch_sizes:
+        f = frames[np.arange(b) % len(frames)]
+        if not all(torch.equal(g, w) for g, w in zip(host(engine._dispatch_device(f, cameras(b))), eager(f, cameras(b)))):
+            raise AssertionError(f"batch size {b}: the graph's replay differs from the eager predict")
+    a, b = frames[[0, 1]], frames[[4, 5]]
+    first = engine._dispatch_device(a, cameras(2))
+    second = engine._dispatch_device(b, cameras(2))  # the same graph replays before the first batch is read
+    for got, f in ((first, a), (second, b)):
+        if not all(torch.equal(g, w) for g, w in zip(host(got), eager(f, cameras(2)))):
+            raise AssertionError("a batch in flight did not keep its own answer")
+    return {"batch_sizes": engine.batch_sizes, "replays_bit_equal_to_eager": len(engine.batch_sizes),
+            "in_flight_own_answers": 2, "capture_s": engine.capture_s, "graph_pool_bytes": engine.graph_pool_bytes}
+
+
+def rtt_turns(client, engine, frames) -> dict:
+    """Round trips of batch-1 RGB8 requests, graph against eager in turns
+    (graph, eager, eager, graph, ...; the eager turns run with the engine's
+    graphs set aside), then one profiled request of each."""
+    import numpy as np
+
+    from hmd_ego_pose_tpu_torch.serving import protocol
+
+    held, rtts, profiles = engine.graphs, {"graph": [], "eager": []}, {}
+    order = [("graph", "eager"), ("eager", "graph")] * (SERVE_TURNS // 2)
+    try:
+        for i, path in enumerate(p for pair in order for p in pair):
+            engine.graphs = held if path == "graph" else {}
+            t = time.perf_counter()
+            if client.infer(frames[i % len(frames)]) is None:
+                raise AssertionError(f"{path} turn {i}: no detection served")
+            rtts[path].append((time.perf_counter() - t) * 1e3)
+        for path in ("graph", "eager"):
+            engine.graphs = held if path == "graph" else {}
+            profiles[path] = profile_requests(client, [frames[0].tobytes()], protocol.KIND_RGB8, frames.shape[1:3])
+    finally:
+        engine.graphs = held
+    return {
+        "rtt_ms": rtts, "rtt_ms_p50": {k: float(np.median(v)) for k, v in rtts.items()},
+        "rtt_ms_max": {k: max(v) for k, v in rtts.items()},
+        "profile_one_request": {k: {n: p[n] for n in ("host_ms", "device_ms", "kernels_per_request",
+                                                       "launch_calls_per_request", "graph_launches_per_request",
+                                                       "aten_calls_per_request")}
+                                for k, p in profiles.items()},
     }
 
 
@@ -2167,6 +2475,10 @@ def phase_serve(dev, golden, frames, outputs, cams, cfg, card: str) -> dict:
                 if not report["ok"]:
                     raise AssertionError(f"served pose off the golden: {report}")
                 reports.append(report)
+            if engine.eager_batches:
+                raise AssertionError(f"{engine.eager_batches} batches of a captured size ran eagerly")
+            graphs = engine_graphs(engine, frames)
+            turns = rtt_turns(client, engine, frames)
         # cli serve --signaling-url: the workstation answers the HMD's offer
         sig = signaling.SignalingServer(port=0).start()
         url = "http://%s:%d/" % sig.address
@@ -2177,6 +2489,8 @@ def phase_serve(dev, golden, frames, outputs, cams, cfg, card: str) -> dict:
             raise AssertionError(f"the answer names {endpoint}, the server listens on {host}:{port}")
         yuv = serve_yuv(endpoint, frames)
         stats = engine.stats()
+        if engine.eager_batches:
+            raise AssertionError(f"{engine.eager_batches} batches of a captured size ran eagerly")
     finally:
         if responder is not None:
             responder.stop()
@@ -2191,7 +2505,8 @@ def phase_serve(dev, golden, frames, outputs, cams, cfg, card: str) -> dict:
         "tie_switches": sum(r["tie_switch"] for r in reports),
         "rtt_ms_p50": float(np.percentile(rtts, 50)), "rtt_ms_max": max(rtts),
         "signaling_bootstrap_ms": bootstrap_ms, "signaling_bootstrap_ms_p50": float(np.median(bootstrap_ms)),
-        "endpoint": endpoint, **yuv,
+        "endpoint": endpoint, **yuv, "graphs": graphs, "graph_against_eager": turns,
+        "eager_batches": engine.eager_batches,
         "engine_stats": stats, "launches": launches, "card": card,
     }
 

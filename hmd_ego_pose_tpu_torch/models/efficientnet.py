@@ -8,13 +8,16 @@ stages 3, 5 and 7.
 
 Drop-connect (stochastic depth) runs in training mode on the residual
 blocks, at rate 0.2 * i / blocks for block i, when the forward is given a
-``torch.Generator``: the JAX package draws its masks from ``jax.random``,
-which torch cannot reproduce, so the masks are drawn from the generator (or
-handed to ``MBConv`` as they are, as the tests do).  Without a generator it
-is off, as with ``rng=None`` in JAX.  Under a data-parallel mesh
-(``mesh``) every rank draws the masks of the global batch and takes its
-rows' columns, so a rank drops what one process would drop for those rows;
-every space rank of a data row draws the same masks.
+``torch.Generator`` or the uniforms it would draw (``drop``): the JAX
+package draws its masks from ``jax.random``, which torch cannot reproduce,
+so the masks come from the generator (or are handed to ``MBConv`` as they
+are, as the tests do).  ``drop_connect_uniforms`` is the one draw, of every
+block at once: a caller that draws it ahead (the train step's CUDA graph,
+whose forward may make no upload) passes the same values the forward would
+have drawn.  Without either it is off, as with ``rng=None`` in JAX.  Under a
+data-parallel mesh (``mesh``) every rank draws the masks of the global batch
+and takes its rows' columns, so a rank drops what one process would drop
+for those rows; every space rank of a data row draws the same masks.
 
 Under a space axis (``parallel/spatial.py``) the forward takes the rank's
 slab of the image rows and the whole height (``full_h``), and passes each
@@ -82,6 +85,12 @@ def block_specs(coefficient: int) -> List[Dict[str, Any]]:
                 se_ratio=se,
             ))
     return blocks
+
+
+def drop_connect_uniforms(generator: torch.Generator, blocks: int, batch: int) -> torch.Tensor:
+    """One training forward's drop-connect uniforms, (blocks, batch) on the
+    generator's device: block i keeps example b where ``u[i, b] < keep_i``."""
+    return torch.rand((blocks, batch), generator=generator, device=generator.device)
 
 
 class MBConv(nn.Module):
@@ -167,19 +176,21 @@ class EfficientNet(nn.Module):
         self._blocks = nn.ModuleList([MBConv(s, eps, dtype) for s in self.specs])
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
-                full_h: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                full_h: Optional[int] = None, drop: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """``full_h``: the whole image height, of which ``x`` holds the rank's
-        rows under a space axis."""
+        rows under a space axis.  ``drop``: the drop-connect uniforms drawn
+        ahead (``drop_connect_uniforms``), in place of ``generator``."""
         h = out_height(full_h, 2)
         x = swish(self._bn0(self._conv_stem(x, full_h), h), self.dtype)
         n_blocks = len(self.specs)
         draws = None
-        if self.training and generator is not None:
+        if self.training and (drop is not None or generator is not None):
             # every block's uniforms in one draw and one copy to the device;
             # under a mesh the global batch's, of which this rank takes its columns
-            draws = torch.rand((n_blocks, x.shape[0] * self.mesh.world), generator=generator,
-                               device=generator.device)
-            draws = draws[:, self.mesh.rows(draws.shape[1])].to(x.device)
+            if drop is None:
+                drop = drop_connect_uniforms(generator, n_blocks, x.shape[0] * self.mesh.world)
+            draws = drop[:, self.mesh.rows(drop.shape[1])].to(x.device)
         features = []
         for i, (block, spec) in enumerate(zip(self._blocks, self.specs)):
             keep = 1.0 - DROP_CONNECT_RATE * i / n_blocks
@@ -206,5 +217,5 @@ class Backbone(nn.Module):
         self.model = EfficientNet(coefficient, eps, dtype, remat)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
-                full_h: Optional[int] = None):
-        return self.model(x, generator, full_h)
+                full_h: Optional[int] = None, drop: Optional[torch.Tensor] = None):
+        return self.model(x, generator, full_h, drop)

@@ -79,13 +79,15 @@ class HMDEgoPose(nn.Module):
         return h
 
     def forward(self, x: torch.Tensor, capture: Optional[dict] = None,
-                generator: Optional[torch.Generator] = None) -> RawOutputs:
+                generator: Optional[torch.Generator] = None, drop: Optional[torch.Tensor] = None
+                ) -> RawOutputs:
         """NCHW float input -> raw outputs (the conv stack runs in ``config.compute_dtype``).
 
-        ``generator`` draws the backbone's drop-connect masks in training mode."""
+        ``generator`` draws the backbone's drop-connect masks in training mode,
+        or ``drop`` holds their uniforms drawn ahead (``models/efficientnet.py``)."""
         h = self.input_height(x)
         heights = [-(-h // 2 ** level) for level in range(3, 8)]  # P3..P7, SAME strides of 2
-        feats = self.backbone_net(x, generator, h)
+        feats = self.backbone_net(x, generator, h, drop)
         if capture is not None:
             capture["backbone.p3"], capture["backbone.p4"], capture["backbone.p5"] = feats
         pyramid = self.bifpn(feats, capture, heights)
@@ -132,16 +134,19 @@ def apply(model: HMDEgoPose, images: torch.Tensor, config: ModelConfig,
 
 
 def apply_train(model: HMDEgoPose, images: torch.Tensor, config: ModelConfig,
-                generator: Optional[torch.Generator] = None) -> RawOutputs:
+                generator: Optional[torch.Generator] = None, drop: Optional[torch.Tensor] = None
+                ) -> RawOutputs:
     """The training forward (``apply(training=True, rng)`` of the JAX package):
     NHWC images -> raw outputs with autograd, every BN on batch statistics and
     moving its running statistics in place, drop-connect drawn from
-    ``generator`` (off without one).  Puts the whole model in training mode,
+    ``generator``, or from its uniforms ``drop`` drawn ahead
+    (``models/efficientnet.py::drop_connect_uniforms``), off without either.
+    Puts the whole model in training mode,
     the frozen backbone included: its BNs move as the JAX package's do.
     On the model's mesh, as ``apply``."""
     model.train()
     x = images.permute(0, 3, 1, 2).to(dtype_of(config.compute_dtype))
-    return model(x, generator=generator)
+    return model(x, generator=generator, drop=drop)
 
 
 def detect(

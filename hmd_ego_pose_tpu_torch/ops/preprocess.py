@@ -60,6 +60,16 @@ def _taps_tensor(out_size: int, in_size: int, device: torch.device):
     return tuple(torch.from_numpy(v).to(device) for v in (a, b, w0, w1))
 
 
+@functools.lru_cache(maxsize=16)
+def _normalization(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(1/255, -mean, 1/std) on ``device``, uploaded once per device: an upload
+    inside a preprocess that a CUDA graph captures would be illegal."""
+    inv255 = torch.tensor(np.float32(1.0) / np.float32(255.0), device=device)
+    neg_mean = torch.tensor([-m for m in IMAGENET_MEAN], dtype=torch.float32, device=device)
+    inv_std = torch.tensor(np.float32(1.0) / np.asarray(IMAGENET_STD, np.float32), device=device)
+    return inv255, neg_mean, inv_std
+
+
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """float32 ``a * b + c`` with a single rounding, from float64 operations only."""
     p = a.double() * b.double()  # exact: 24 + 24 bits
@@ -99,10 +109,7 @@ def preprocess_uint8_batch(frames: torch.Tensor, target_size: int) -> torch.Tens
     x = frames.to(torch.float32)
     if (rh, rw) != (h, w):
         x = torch.round(_lerp_pass(_lerp_pass(x, rh, 1), rw, 2))
-    dev = frames.device
-    inv255 = torch.tensor(np.float32(1.0) / np.float32(255.0), device=dev)
-    neg_mean = torch.tensor([-m for m in IMAGENET_MEAN], dtype=torch.float32, device=dev)
-    inv_std = torch.tensor(np.float32(1.0) / np.asarray(IMAGENET_STD, np.float32), device=dev)
+    inv255, neg_mean, inv_std = _normalization(frames.device)
     x = _fma(x, inv255.expand_as(x), neg_mean.expand_as(x)) * inv_std
     if rh != target_size or rw != target_size:
         x = torch.nn.functional.pad(x, (0, 0, 0, target_size - rw, 0, target_size - rh))

@@ -16,6 +16,24 @@ Per-stage latency (``stats()``, the JAX engine's keys): ``queue`` wait,
 Pose packet contract: axis-angle radians (network output x pi) and
 translation in meters (network output mm / 1000).
 
+Compiled programs.  The JAX engine compiles one fixed-batch executable
+before traffic (``warmup``) and serves through it (``_predict_aot``),
+falling back to ``jit`` for a shape it never compiled.  On a CUDA card, in a
+single process, this engine's ``warmup`` captures one CUDA graph per entry of
+``batch_sizes`` (``utils/graphs.py``): preprocess -> ``predict`` -> the
+packed (num_valid, rotation, translation), from static frame and camera
+buffers, all graphs in one memory pool (``graph_pool_bytes``; the capture
+takes ``capture_s``).  A batch is copied into its size's static buffers and
+the graph replayed; its outputs are copied on the stream into tensors the
+batch owns before the next batch can replay the same graph, since two
+batches are in flight at once.  A batch size without a graph runs eagerly,
+as the JAX engine's ``jit`` does, and counts in ``eager_batches`` (an
+engine that holds no graph counts none).  Where it stays eager: on the CPU,
+and on a mesh of several processes, whose gloo collectives cannot be
+captured.  The JAX engine keeps one fixed batch size; this one keeps the
+powers of two up to ``max_batch_size`` (five graphs at 16), as it has
+batched since its first version.
+
 ``mesh`` (a ``parallel/mesh.py::DataMesh``; the JAX engine's ``mesh``):
 frames over ``data``, the image height over ``space``, the model replicated
 (broadcast from process 0 and its digest checked), every batch size a
@@ -51,6 +69,7 @@ from hmd_ego_pose_tpu_torch.models import hmd_ego_pose
 from hmd_ego_pose_tpu_torch.models.folding import fold_batch_norms
 from hmd_ego_pose_tpu_torch.ops.preprocess import preprocess_uint8_batch
 from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL, DataMesh, replicate
+from hmd_ego_pose_tpu_torch.utils import graphs
 from hmd_ego_pose_tpu_torch.utils.device import DeviceLike, resolve_device
 
 # commands process 0 broadcasts to the followers of a mesh engine
@@ -150,6 +169,11 @@ class InferenceEngine:
         self.execute_stats = LatencyStats()
         self.fetch_stats = LatencyStats()
         self.total_stats = LatencyStats()
+        # batch size -> (static frames, static cameras, its CUDA graph), filled by warmup
+        self.graphs: Dict[int, Tuple[torch.Tensor, torch.Tensor, graphs.Graph]] = {}
+        self.eager_batches = 0  # batches of a size without a graph, while the engine holds graphs
+        self.capture_s: Optional[float] = None
+        self.graph_pool_bytes: Optional[int] = None
 
     # -- public API ------------------------------------------------------------
 
@@ -193,12 +217,30 @@ class InferenceEngine:
                 served += 1
 
     def warmup(self):
-        """Run every batch size once (cuDNN plans, lazy CUDA init) before traffic."""
+        """Before traffic: on a CUDA card in a single process, capture one CUDA
+        graph per batch size (module docstring); elsewhere run every batch
+        size once (cuDNN plans, lazy CUDA init)."""
         h, w = self.frame_shape
+        if self.device.type == "cuda" and self.mesh.processes == 1:
+            self._capture()
+            return
         for b in self.batch_sizes:
             frames = np.zeros((b, h, w, 3), np.uint8)
             cams = np.tile(self._default_camera()[None], (b, 1))
             self._to_host(self._dispatch_device(frames, cams))
+
+    def _capture(self):
+        h, w = self.frame_shape
+        t0 = time.perf_counter()
+        pool = torch.cuda.graph_pool_handle()
+        for b in self.batch_sizes:
+            frames = torch.zeros((b, h, w, 3), dtype=torch.uint8, device=self.device)
+            cams = torch.from_numpy(np.tile(self._default_camera()[None], (b, 1))).to(self.device)
+            graph = graphs.capture(lambda f=frames, c=cams: self._predict(f, c), self.device, pool=pool)
+            self.graphs[b] = (frames, cams, graph)
+        torch.cuda.synchronize(self.device)
+        self.capture_s = time.perf_counter() - t0
+        self.graph_pool_bytes = graphs.pool_bytes(pool, self.device)
 
     def submit(self, frame: np.ndarray, camera: Optional[np.ndarray] = None) -> Future:
         """Enqueue one RGB8 frame; resolves to (rotation_rad, translation_m) or None."""
@@ -262,7 +304,18 @@ class InferenceEngine:
 
     def _dispatch_device(self, frames_u8: np.ndarray, cameras: np.ndarray):
         """Upload and enqueue the batch (broadcast to the followers); returns
-        device tensors without waiting."""
+        device tensors without waiting: the batch's own, also when its size's
+        graph ran."""
+        held = self.graphs.get(frames_u8.shape[0])
+        if held is not None:
+            frames, cams, graph = held
+            frames.copy_(torch.from_numpy(frames_u8))
+            cams.copy_(torch.from_numpy(np.ascontiguousarray(cameras, np.float32)))
+            graph.replay()
+            # the next replay of this graph overwrites its outputs: copy them first
+            return tuple(t.clone() for t in graph.outputs)
+        if self.graphs:
+            self.eager_batches += 1
         if self._followers:
             self._command(_BATCH, frames_u8.shape[0])
         frames = torch.from_numpy(frames_u8).to(self.device)

@@ -17,7 +17,15 @@ Counterpart of ``hmd_ego_pose_tpu/train/state.py`` (optax):
   gradient becomes ``(g / norm) * limit``, with no epsilon
   (``torch.nn.utils.clip_grad_norm_`` adds 1e-6, so it is not used);
 * the learning rate is injected: ``set_learning_rate`` writes it into the
-  parameter groups;
+  parameter groups.  On a CUDA card Adam is ``capturable`` and its learning
+  rate a float32 device tensor (optax's injected float32), which
+  ``set_learning_rate`` fills: its update has no host arithmetic and no host
+  read, so a CUDA graph of the train step holds it (``train/step.py``), and
+  the plateau schedule changes the rate without a new capture.  The eager
+  steps on the card use the same optimizer, so graph and eager make the same
+  update.  ``torch.optim.SGD`` has no capturable mode (its update reads a tensor
+  learning rate on the host), so SGD keeps a float rate and its steps stay
+  eager; on the CPU both keep a float rate;
 * under a data-parallel mesh (``parallel/mesh.py``) the gradients are
   averaged over the ranks before the clip, in one all-reduce of the
   trainable gradients packed into one buffer, so the clip's norm is the
@@ -96,8 +104,13 @@ class Optimizer:
                 if key.startswith("backbone_net."):
                     p.requires_grad_(False)
         lr = config.learning_rate
+        device = self.params[0].device if self.params else torch.device("cpu")
+        self.capturable = device.type == "cuda" and not config.fine_tune
         if config.fine_tune:
             self.opt = torch.optim.SGD(self.params, lr=lr, momentum=config.sgd_momentum, nesterov=True)
+        elif self.capturable:
+            self.opt = torch.optim.Adam(self.params, lr=torch.tensor(lr, dtype=torch.float32, device=device),
+                                        betas=(ADAM_B1, ADAM_B2), eps=ADAM_EPS, capturable=True)
         else:
             self.opt = torch.optim.Adam(self.params, lr=lr, betas=(ADAM_B1, ADAM_B2), eps=ADAM_EPS)
         self.count = 0
@@ -108,7 +121,10 @@ class Optimizer:
 
     def set_learning_rate(self, lr: float) -> None:
         for group in self.opt.param_groups:
-            group["lr"] = float(lr)
+            if self.capturable:
+                group["lr"].fill_(float(lr))  # in place: a captured step reads this tensor
+            else:
+                group["lr"] = float(lr)
 
     def clip_gradients(self) -> None:
         """optax ``clip_by_global_norm``: g -> (g / norm) * limit when norm >= limit."""
@@ -168,7 +184,9 @@ class Optimizer:
         step = int(np.asarray(leaves[6]))
         mu, nu = leaves[7:7 + n], leaves[7 + n:]
         for p, (_, _, kind), m, v in zip(self.params, self.entries, mu, nu):
-            self.opt.state[p] = {"step": torch.tensor(float(step), dtype=torch.float32),
+            # a capturable Adam keeps its count on the parameters' device
+            where = p.device if self.capturable else torch.device("cpu")
+            self.opt.state[p] = {"step": torch.tensor(float(step), dtype=torch.float32, device=where),
                                  "exp_avg": _from_jax(m, kind, p), "exp_avg_sq": _from_jax(v, kind, p)}
 
     def _state(self, p: torch.Tensor, name: str) -> torch.Tensor:

@@ -344,3 +344,108 @@ def test_cli_parity_and_iter1_evaluation_on_the_card_equal_the_cpus(cuda_device,
     for name, want in results["cpu"].items():
         assert abs(results["cuda"][name] - want) <= chip_smoke.EVAL_TOLERANCES[chip_smoke.scalar_kind(name)], name
     assert sorted(os.listdir(tmp_path / "cuda")) == sorted(os.listdir(tmp_path / "cpu"))
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs (utils/graphs.py): the engine's and the resident step's
+# ---------------------------------------------------------------------------
+
+
+def _to_host(det):
+    torch.cuda.synchronize()
+    return [t.cpu() for t in det]
+
+
+def test_engine_graphs_equal_eager_with_two_batches_in_flight(cuda_device):
+    """The engine's warmup captures one graph per batch size (phi-0, 256 px,
+    bf16 as served, seeded weights); each replay equals the eager ``_predict``
+    of the same frames bit for bit; two batches of one size in flight keep
+    their own answers; a size without a graph runs eagerly and counts."""
+    from hmd_ego_pose_tpu_torch.config import ModelConfig, ServingConfig
+    from hmd_ego_pose_tpu_torch.models.hmd_ego_pose import HMDEgoPose, init_weights
+    from hmd_ego_pose_tpu_torch.serving.engine import InferenceEngine
+
+    cfg = ModelConfig(phi=0, image_size=256, compute_dtype="bfloat16")
+    model = init_weights(HMDEgoPose(cfg), torch.Generator().manual_seed(0))
+    engine = InferenceEngine(model, cfg, ServingConfig(max_batch_size=4, score_threshold=0.0),
+                             frame_shape=(256, 256), device=cuda_device)
+    engine.warmup()
+    assert sorted(engine.graphs) == engine.batch_sizes == [1, 2, 4]
+    assert engine.capture_s > 0 and engine.graph_pool_bytes > 0
+    rng = np.random.default_rng(5)
+
+    def eager(frames, cams):
+        return _to_host(engine._predict(torch.from_numpy(frames).to(cuda_device), torch.from_numpy(cams).to(cuda_device)))
+
+    for b in engine.batch_sizes:
+        frames = rng.integers(0, 256, size=(b, 256, 256, 3), dtype=np.uint8)
+        cams = np.tile(engine._default_camera()[None], (b, 1))
+        got = _to_host(engine._dispatch_device(frames, cams))
+        assert all(torch.equal(g, w) for g, w in zip(got, eager(frames, cams))), b
+    a, b = (rng.integers(0, 256, size=(2, 256, 256, 3), dtype=np.uint8) for _ in range(2))
+    cams = np.tile(engine._default_camera()[None], (2, 1))
+    first = engine._dispatch_device(a, cams)
+    second = engine._dispatch_device(b, cams)  # the same graph replays before the first batch is read
+    for got, frames in ((first, a), (second, b)):
+        assert all(torch.equal(g, w) for g, w in zip(_to_host(got), eager(frames, cams)))
+    assert engine.eager_batches == 0
+    engine._dispatch_device(np.concatenate([a, b[:1]]), np.tile(engine._default_camera()[None], (3, 1)))
+    assert engine.eager_batches == 1
+
+
+def test_resident_step_graph_equals_eager_and_launches_target_assign_per_replay(cuda_device, tmp_path):
+    """Two trainers from one seed on an 8-frame 128 px set, augmentation and
+    drop-connect on: three steps of ``ResidentGraph`` (warm-up, capture, two
+    replays) against three eager steps with the same draws and masks: the
+    losses and every parameter and BN buffer bit-equal; ``target_assign``
+    launched once a step; Adam's count on the card.  With deterministic
+    cuDNN: some of its default weight-gradient algorithms accumulate with
+    atomics, so an eager step need not repeat its own bits."""
+    from hmd_ego_pose_tpu_torch import cli
+    from hmd_ego_pose_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from hmd_ego_pose_tpu_torch.data.colibri import ColibriDataset
+    from hmd_ego_pose_tpu_torch.ops.augment_device import draw_augment
+    from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES
+    from hmd_ego_pose_tpu_torch.train.trainer import Trainer
+    from hmd_ego_pose_tpu_torch.utils.logging import MetricLogger
+
+    data = str(tmp_path / "syn")
+    cli.main(["make-synthetic", "--out-dir", data, "--num-frames", "8", "--frame-size", "128",
+              "--hand-render-version", "3"])
+    cfg = Config(model=ModelConfig(image_size=128),
+                 train=TrainConfig(batch_size=2, oversample=1, seed=3, checkpoint_dir=str(tmp_path / "ckpt")))
+    eager, graphed = (Trainer(cfg, ColibriDataset(data, 0, 1, "train"), None, device=cuda_device,
+                              logger=MetricLogger(stdout=False)) for _ in range(2))
+    assert graphed.graphed and graphed.graph.steps == 3
+    ge, gg = torch.Generator().manual_seed(7), torch.Generator().manual_seed(7)
+    rows = [torch.tensor([0, 1]), torch.tensor([2, 0]), torch.tensor([1, 2])]
+    want = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for idx in rows:
+            metrics = eager.step_fn(eager.data, idx.to(cuda_device), draw_augment(ge, 2, 128, 128), ge)
+            want.append(torch.stack([metrics[k] for k in METRIC_NAMES]))
+        LAUNCHES.reset()
+        for idx in rows:
+            graphed.graph(idx, draw_augment(gg, 2, 128, 128), gg)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert LAUNCHES.snapshot() == {"target_assign": len(rows)}
+    assert torch.equal(graphed.graph.metrics, torch.stack(want))
+    se, sg = eager.model.state_dict(), graphed.model.state_dict()
+    assert all(torch.equal(se[k], sg[k]) for k in se)
+    assert graphed.optimizer.count == len(rows)
+    steps = [s["step"] for s in graphed.optimizer.opt.state.values()]
+    assert all(s.device.type == "cuda" and float(s) == len(rows) for s in steps)
+
+
+def test_a_failed_capture_raises(cuda_device):
+    """A host read inside the captured function: the capture raises, it does not run eagerly."""
+    from hmd_ego_pose_tpu_torch.utils import graphs
+
+    x = torch.ones(4, device=cuda_device)
+    with pytest.raises(RuntimeError):
+        graphs.capture(lambda: (x * 2).sum().item(), cuda_device)
+    torch.cuda.synchronize()
+    assert float((x * 2).sum()) == 8.0  # the card still works

@@ -40,6 +40,15 @@ ARTIFACT = os.path.join(REPO, "trained", "syn1000_phi0_576ep_handrel_int8.npz")
 ADD_S_FIELDS = {"sym_point_distance_mean_mm", "sym_point_distance_std_mm"}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs several workers at once: torch's CPU kernels take two threads each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def sets(tmp_path_factory):
     """Two 24-frame synthetic sets written by the port's CLI: {name: (root, object_ids)}."""

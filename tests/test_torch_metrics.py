@@ -29,6 +29,15 @@ from hmd_ego_pose_tpu_torch.ops.iou import iou_matrix_np
 T = torch.from_numpy
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs several workers at once: torch's CPU kernels take two threads each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _points(rng, n, center):
     return (rng.uniform(-60, 60, size=(n, 3)) + center).astype(np.float32)
 

@@ -27,6 +27,15 @@ RTOL, ATOL = 2e-3, 2e-4
 F32 = torch.float32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs several workers at once: torch's CPU kernels take two threads each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _nchw(x):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(x))).permute(0, 3, 1, 2)
 

@@ -19,6 +19,15 @@ from hmd_ego_pose_tpu_torch.ops.preprocess import preprocess_uint8_batch
 T = torch.from_numpy
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs several workers at once: torch's CPU kernels take two threads each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("size", [128, 256, 512])
 def test_anchors_bit_equal_to_jax(size):
     want_boxes, want_trans = jax_anchors.anchors_for_shape((size, size), JaxAnchorConfig())

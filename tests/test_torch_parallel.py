@@ -212,6 +212,7 @@ def test_launch_makes_the_tensors_card_current(monkeypatch):
     monkeypatch.setattr(build, "library", lambda name: Lib)
     monkeypatch.setattr(torch.cuda, "device", rec.device)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d: type("S", (), {"cuda_stream": 1000 + d.index}))
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
     kernels.LAUNCHES.reset()
     kernels.launch("target_assign", "hegp_target_assign", dev, 7, 8)
     assert rec.calls == [([dev], (7, 8, 1001))] and rec.entered == [dev, None]

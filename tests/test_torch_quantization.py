@@ -40,6 +40,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARTIFACTS = ("syn1000_phi0_576ep_handrel_int8", "syn1000_phi0_448ep_int8")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs several workers at once: torch's CPU kernels take two threads each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _random_int8(rows, cols, seed):
     rng = np.random.default_rng(seed)
     values = rng.integers(-127, 128, size=(rows, cols), dtype=np.int8)

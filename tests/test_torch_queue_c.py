@@ -57,6 +57,15 @@ GOLDEN = os.path.join(REPO, "tests", "goldens")
 HANDREL = os.path.join(REPO, "trained", "syn1000_phi0_576ep_handrel_int8.npz")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs several workers at once: torch's CPU kernels take two threads each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("h,w", [(300, 300), (480, 640), (720, 1280), (1080, 1920),
                                  (300, 200), (299, 299), (333, 500), (1000, 1279)])
 def test_device_preprocess_bit_equal_to_jitted_jax(h, w):

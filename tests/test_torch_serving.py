@@ -37,6 +37,15 @@ CASES = {  # golden prefix -> (artifact, hand_relative)
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs several workers at once: torch's CPU kernels take two threads each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _golden(prefix):
     golden = dict(np.load(os.path.join(GOLDEN, f"{prefix}_ckpt_expected.npz")).items())
     n = int(golden["n_frames"])

@@ -19,6 +19,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke
 from hmd_ego_pose_tpu.serving import signaling as jax_signaling
@@ -31,6 +32,15 @@ from hmd_ego_pose_tpu_torch.serving.server import PoseClient, PoseServer
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARTIFACT = os.path.join(REPO, "trained", "syn1000_phi0_576ep_handrel_int8.npz")
 PACKAGES = {"port": (signaling, signaling_client), "jax": (jax_signaling, jax_client)}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs several workers at once: torch's CPU kernels take two threads each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _url(server):
