@@ -101,6 +101,10 @@ Phases, each printing one JSON line of its own:
                once (one class), and every scalar must lie within the stated
                tolerances of ``hmd_ego_pose_tpu_torch/eval/references/handrel_v3_val.json``
                (the JAX package's evaluation, ``scripts/make_eval_reference.py``).
+               The evaluation predicts through one CUDA graph
+               (``train/step.py::EvalForward``, captured once); then every
+               batch of it again, replayed and eager in turns, bit-equal in
+               all six detection fields, with the p50 ms a batch of each.
 10. train   -- on the same set: first four fixed training steps (augmentation
                and drop-connect off) of ``cli train``'s trainer from the
                artifact, eagerly and then, from the same state, through the
@@ -112,8 +116,9 @@ Phases, each printing one JSON line of its own:
                once per replay; the gradient leaves that differ between two
                backwards of one batch from one state (cuDNN's default
                algorithms); with ``cudnn.deterministic`` four augmented steps
-               with drop-connect, eager and graphed with the same indices,
-               draws and masks, bit-equal in losses and state; six steps of
+               with drop-connect, eager (colour ops grouped by op) and graphed
+               (colour ops in fixed shapes inside the graph) with the same
+               indices, draws and masks, bit-equal in losses and state; six steps of
                each path in turns, timed; then, with the launch
                counts reset just before and read just after, ``cli train``'s
                trainer (``cli.build_trainer``: phi-0, 256 px, fp32, batch 16,
@@ -128,8 +133,12 @@ Phases, each printing one JSON line of its own:
                model, ``last`` with the optimizer's leaves.  Times: step p50 and
                max (synchronised) and its parts, images/s, epoch, validation
                and start-up seconds, and a torch.profiler sample of one more
-               step (device time per step, busy share; the sample's time is
+               step (device time, kernel launch, graph launch and copy calls
+               per step, busy share; the sample's time is
                nearly all the profiler's own, so it is kept to one step).
+               Validation predicts through one graph (``captures`` 1).  The
+               fixed-shape colour pass against the grouped one at 256x256 and
+               480x640 (``colour_cases``), bit-equal, with the ms of each.
 11. train_dp -- data-parallel training: two ranks of ``cli train``'s trainer
                (``cli.build_trainer`` under torchrun's environment, global batch
                16 split 8 + 8) share the one card over gloo, each a subprocess
@@ -176,7 +185,9 @@ Phases, each printing one JSON line of its own:
                then one epoch (oversample 1, augmentation on: the multi-object
                warp) and validation: every loss finite, ``target_assign`` once
                per step, ``min_distances`` twice (once per class), the
-               checkpoints written and restored.
+               checkpoints written and restored; the two-class validation
+               through one captured graph, its last batch replayed and eager
+               bit-equal.
 14. train_windowed -- the v3 set's 600 train frames with
                ``device_resident_budget_bytes`` of a third of them: three
                windows of 200 frames over one epoch, each window's index rows
@@ -224,7 +235,9 @@ Phases, each printing one JSON line of its own:
                save's; ``cli evaluate --iter 1 --save-images-path`` of it on
                the v3 set's 200 val frames, every scalar within the evaluate
                phase's tolerances of the JAX evaluation, one ``det_`` /
-               ``samplevis_`` pair per true positive; four fixed training
+               ``samplevis_`` pair per true positive, through one captured
+               graph (its first two batches replayed and eager bit-equal);
+               four fixed training
                steps of ``cli train --iter 1``'s trainer from it within the
                train phase's tolerance; ``cli format-labels`` of 8 seeded
                256 px pickles (``label_pickles``, one corrupt) with the JAX
@@ -922,13 +935,15 @@ def profile_steps(trainer, steps: int = 1) -> dict:
 
 
 def launch_calls(averages, n: int, unit: str) -> dict:
-    """Kernel launch calls and CUDA graph launches the host made, per ``unit``."""
+    """Kernel launch calls, CUDA graph launches and memory copy calls the host made, per ``unit``."""
     from torch.autograd import DeviceType
 
     ops = [e for e in averages if e.device_type == DeviceType.CPU]
     kernel = sum(e.count for e in ops if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
     graph = sum(e.count for e in ops if e.key in ("cudaGraphLaunch", "cuGraphLaunch"))
-    return {f"launch_calls_per_{unit}": kernel / n, f"graph_launches_per_{unit}": graph / n}
+    copies = sum(e.count for e in ops if e.key in ("cudaMemcpyAsync", "cuMemcpyAsync"))
+    return {f"launch_calls_per_{unit}": kernel / n, f"graph_launches_per_{unit}": graph / n,
+            f"copy_calls_per_{unit}": copies / n}
 
 
 LOSS_TERMS = ("total", "classification", "regression", "rotation", "translation", "hand")
@@ -1020,6 +1035,133 @@ def check_checkpoints(trainer, best, ckpt_dir: str, steps: int, work: str) -> di
     if int(opt[0].item()) != steps:
         raise AssertionError(f"the saved optimizer count is {opt[0]}, not {steps}")
     return {"checkpoints": restored, "opt_leaves": len(opt)}
+
+
+# the colour cases: slot 0 runs every op once (examples 0-12) and the noise op
+# twice more; slot 1 draws the noise op three times; examples 3 and 7 have
+# one active slot, example 5 is not augmented
+COLOUR_OPS = ((0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 10, 10, 5),
+              (10, 4, 10, 7, 0, 1, 2, 3, 9, 5, 6, 8, 11, 12, 10, 13))
+COLOUR_SIZES = ((256, 256), (480, 640))
+
+
+def colour_cases(h: int, w: int, seed: int = 0):
+    """16 seeded (h, w) frames (noise, gradients, a flat channel) and colour
+    draws (``COLOUR_OPS``) on the host."""
+    import torch
+
+    from hmd_ego_pose_tpu_torch.ops import augment_device as aug
+
+    g = torch.Generator().manual_seed(seed)
+    b = len(COLOUR_OPS[0])
+    noise = torch.randint(0, 256, (b, h, w, 3), generator=g)
+    ramp = (torch.arange(w)[None, None, :, None] * 255 // max(1, w - 1)).expand(b, h, w, 3)
+    frames = torch.where(torch.rand((b, h, 1, 1), generator=g) < 0.5, noise, ramp).to(torch.uint8)
+    frames[1, ..., 2] = 77  # a flat channel: autocontrast and equalize keep it
+    n_slots = torch.full((b,), 2)
+    n_slots[[3, 7]] = 1
+    apply = torch.ones(b, dtype=torch.bool)
+    apply[5] = False
+    draws = aug.AugmentDraws(
+        apply, n_slots, torch.tensor(COLOUR_OPS).T.contiguous(), torch.randint(1, 14, (b, 2), generator=g),
+        torch.rand((b, 2), generator=g),
+        torch.stack([torch.randint(0, h, (b, 2), generator=g), torch.randint(0, w, (b, 2), generator=g)], dim=-1),
+        {}, torch.zeros(b), torch.ones(b))
+    for slot in range(aug.MAX_SLOTS):
+        m = aug.slot_ops(draws, slot).count(aug.GAUSSIAN_NOISE)
+        draws.noise[slot] = torch.randn((m, h, w, 3), generator=g)
+    return frames, draws
+
+
+def colour_fixed_against_grouped(dev) -> dict:
+    """On the card at each of ``COLOUR_SIZES``: the fixed-shape colour pass
+    (the resident step graph's) against ``color_augment_batch`` (grouped by
+    op, the eager paths'), bit for bit, and the pass's device ms; and whether ``torch.mean``'s float32 sum of a row's grey levels depends on the rows beside it (3 rows
+    against the same rows among 16), which the contrast op's integer sum
+    avoids: a finding, not a gate."""
+    import torch
+
+    from hmd_ego_pose_tpu_torch.ops import augment_device as aug
+
+    out = {}
+    for h, w in COLOUR_SIZES:
+        frames, draws = colour_cases(h, w)
+        x = frames.to(dev)
+        fixed = aug.slot_draws(draws, h, w, dev)
+        want = aug.color_augment_batch(x, draws)
+        got = aug.color_augment_fixed(x, fixed)
+        rows = (got != want).flatten(1).any(dim=1).nonzero().flatten().tolist()
+        if rows:
+            raise AssertionError(f"at {h}x{w} the fixed-shape colour pass differs from the grouped one in rows {rows}")
+        gray = aug._grayscale(x.to(torch.float32))
+        float_mean_3 = torch.mean(gray[:3], dim=(1, 2))
+        float_mean_16 = torch.mean(gray, dim=(1, 2))[:3]
+        out[f"{h}x{w}"] = {
+            "bit_equal": True, "fixed_ms": cuda_time_ms(lambda: aug.color_augment_fixed(x, fixed), reps=5),
+            "grouped_ms": cuda_time_ms(lambda: aug.color_augment_batch(x, draws), reps=5),
+            "float_mean_3_against_16_rows_equal": bool(torch.equal(float_mean_3, float_mean_16)),
+        }
+    return out
+
+
+@contextlib.contextmanager
+def recording_eval_forwards():
+    """``train/step.py::make_eval_forward`` replaced, for ``cli evaluate``
+    (which imports it when it runs), by one whose callables keep each
+    call's inputs; yields the list of ``RecordingForward``s made."""
+    from hmd_ego_pose_tpu_torch.train import step
+
+    made, make = [], step.make_eval_forward
+
+    def recording(*args, **kwargs):
+        made.append(RecordingForward(make(*args, **kwargs)))
+        return made[-1]
+
+    step.make_eval_forward = recording
+    try:
+        yield made
+    finally:
+        step.make_eval_forward = make
+
+
+class RecordingForward:
+    """A predict callable that keeps a copy of each call's inputs."""
+
+    def __init__(self, forward):
+        self.forward, self.calls = forward, []
+
+    def __call__(self, images, cameras):
+        self.calls.append((images.copy(), cameras.copy()))
+        return self.forward(images, cameras)
+
+
+def eval_graph_against_eager(forward, calls) -> dict:
+    """Each recorded batch predicted by ``forward`` (an ``EvalForward``: a
+    replay) and eagerly (``forward.eager``), in turns (graph, eager, eager,
+    graph, ...), each call synchronised and timed: the six fields bit-equal,
+    or the phase fails; the p50 ms a batch of each."""
+    import numpy as np
+
+    from hmd_ego_pose_tpu_torch.train.step import EvalForward
+
+    if not isinstance(forward, EvalForward) or forward.captures != 1:
+        raise AssertionError(f"the evaluation on the card must predict through one captured graph, got {forward!r}")
+    ms = {"graph": [], "eager": []}
+    differing = []
+    for i, (images, cameras) in enumerate(calls):
+        got = {}
+        for path in (("graph", "eager") if i % 2 == 0 else ("eager", "graph")):
+            t = time.perf_counter()
+            got[path] = (forward if path == "graph" else forward.eager)(images, cameras)
+            ms[path].append((time.perf_counter() - t) * 1e3)
+        differing += [(i, f) for f in got["graph"]._fields
+                      if getattr(got["graph"], f).tobytes() != getattr(got["eager"], f).tobytes()]
+    if differing or forward.captures != 1:
+        raise AssertionError(f"replayed batches differ from the eager predict in (batch, field) {differing[:6]}; "
+                             f"captures {forward.captures}")
+    return {"batches": len(calls), "bit_equal": True, "captures": forward.captures,
+            "batch_ms_p50": {k: float(np.median(v)) for k, v in ms.items()},
+            "graph_over_eager": float(np.median(ms["graph"]) / np.median(ms["eager"]))}
 
 
 AB_STEPS = 4  # graph against eager: augmented steps of each path from one state
@@ -1247,14 +1389,19 @@ def phase_train(card: str, data: str, work: str) -> dict:
         raise AssertionError("the backbone's BN running statistics did not move in training mode")
     saved = check_checkpoints(trainer, run["best"], ckpt_dir, steps, work)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    if getattr(trainer.predict_fn, "captures", None) != 1:
+        raise AssertionError("validation on the card must predict through one graph captured once, got "
+                             f"{trainer.predict_fn!r}")
 
     t_profile = time.perf_counter()
     profile = profile_steps(trainer)
     profile["profile_s"] = time.perf_counter() - t_profile
+    colour = colour_fixed_against_grouped(trainer.device)
     train_metrics, result = run["epochs"][-1]
     return {
         "reference_max_rel_gap": ref_gaps, "reference_tolerance_rel": reference["tolerance_rel"],
         "reference_steps": ref_steps, "graph_against_eager": graph_ab, "graphed": trainer.graphed,
+        "colour_fixed_against_grouped": colour, "eval_captures": trainer.predict_fn.captures,
         **timed.summary(batch), "batch": batch, "frames": frames,
         "val_frames": len(trainer.val_dataset),
         "startup_s": t_startup, "fit_s": run["fit_s"], "epoch_s": train_metrics["epoch_seconds"],
@@ -1809,12 +1956,16 @@ def phase_train_multi(card: str, work: str, generation: subprocess.Popen) -> dic
     if launches.get("min_distances", 0) != 2:
         raise AssertionError(f"a two-class validation must launch min_distances twice, got {launches}")
     saved = check_checkpoints(trainer, run["best"], ckpt_dir, steps, work)
+    forward = trainer.predict_fn
+    last = getattr(forward, "host_images", None)  # the validation's last batch, replayed and eager
+    eval_graph = eval_graph_against_eager(forward, [] if last is None else [
+        (last.numpy().copy(), forward.host_cameras.numpy().copy())])
     _, result = run["epochs"][-1]
     return {
         "reference_max_rel_gap": ref_gaps, "reference_tolerance_rel": reference["tolerance_rel"],
         "gt_0_yml_sha256": gt_hash, **generated, **timed.summary(batch),
         "frames": len(trainer.train_dataset), "val_frames": len(trainer.val_dataset), "fit_s": run["fit_s"],
-        "validate_s": run["val_s"][0] if run["val_s"] else None,
+        "validate_s": run["val_s"][0] if run["val_s"] else None, "eval_graph": eval_graph,
         "val_per_class": {c: {k: r.scalars()[k] for k in ("num_matched", "mean_ap", "mixed_point_distance_mean_mm")}
                           for c, r in sorted(result.per_class.items())},
         "launches": launches, **saved, "card": card,
@@ -2572,11 +2723,15 @@ def phase_evaluate(card: str, data: str, generation: subprocess.Popen) -> dict:
     report = io.StringIO()
     LAUNCHES.reset()
     t2 = time.perf_counter()
-    with contextlib.redirect_stdout(report):
+    with contextlib.redirect_stdout(report), recording_eval_forwards() as made:
         result = cli.main(["evaluate", "--dataset-path", data, "--ckpt", ARTIFACT, "--partition", "val"])
     t_evaluate = time.perf_counter() - t2
     launches = LAUNCHES.snapshot()
     print(report.getvalue().split("\n{")[0], flush=True)  # the 17-line report
+    if len(made) != 1:
+        raise AssertionError(f"cli evaluate made {len(made)} predict callables, not one")
+    # every batch of the evaluation again, replayed and eager in turns, bit for bit
+    eval_graph = eval_graph_against_eager(made[0].forward, made[0].calls)
 
     got = result.scalars()
     worst = {kind: 0.0 for kind in EVAL_TOLERANCES}
@@ -2592,7 +2747,7 @@ def phase_evaluate(card: str, data: str, generation: subprocess.Popen) -> dict:
     if launches.get("min_distances", 0) != 1:
         raise AssertionError(f"one class must make exactly one min_distances launch, got {launches}")
     return {
-        "frames": frames, **generated, "read_s": t_read, "evaluate_s": t_evaluate,
+        "frames": frames, **generated, "read_s": t_read, "evaluate_s": t_evaluate, "eval_graph": eval_graph,
         "gt_0_yml_sha256": gt_hash, "launches": launches, "scalars": got,
         "worst_gap": worst, "tolerances": EVAL_TOLERANCES,
         "tpu_bf16_sidecar_for_reference_only": {k: sidecar[k] for k in (
@@ -2818,10 +2973,13 @@ def phase_cli_rest(card: str, data: str, work: str) -> dict:
     # 2. cli evaluate --iter 1 --save-images-path on the 200 val frames
     images = os.path.join(work, "iter1_images")
     t = time.perf_counter()
-    with contextlib.redirect_stdout(quiet):
+    with contextlib.redirect_stdout(quiet), recording_eval_forwards() as made:
         result = cli.main(["evaluate", "--dataset-path", data, "--ckpt", ckpt, "--partition", "val", "--iter", "1",
                            "--save-images-path", images])
     seconds["evaluate"] = time.perf_counter() - t
+    if len(made) != 1:
+        raise AssertionError(f"cli evaluate --iter 1 made {len(made)} predict callables, not one")
+    eval_graph = eval_graph_against_eager(made[0].forward, made[0].calls[:2])
     got = result.scalars()
     worst = {kind: 0.0 for kind in EVAL_TOLERANCES}
     off = []
@@ -2907,7 +3065,7 @@ def phase_cli_rest(card: str, data: str, work: str) -> dict:
         raise AssertionError(f"cli_rest launches {launches}, expected {want_launches} (dequantize: the artifact, the "
                              "evaluation's and the trainer's restores)")
     return {
-        "seconds": seconds, "iter1_npz_digest": digest, "scalars": got, "worst_gap": worst,
+        "seconds": seconds, "iter1_npz_digest": digest, "scalars": got, "worst_gap": worst, "eval_graph": eval_graph,
         "tolerances": EVAL_TOLERANCES, "true_positives": result.num_matched, "image_files": len(written),
         "train_max_rel_gap": train_gaps, "train_tolerance_rel": reference["train"]["tolerance_rel"],
         "train_steps": steps, "format_labels_files": len(reference["format_labels_digests"]),

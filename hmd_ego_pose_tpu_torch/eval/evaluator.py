@@ -4,7 +4,10 @@ Counterpart of ``hmd_ego_pose_tpu/eval/evaluator.py``, with the same
 behaviour:
 
 * frames are preprocessed on the host (``data/image.py::preprocess_image``)
-  and predicted in fixed batches of ``eval_batch_size``, the tail padded;
+  and predicted in fixed batches of ``eval_batch_size``, the tail padded, so
+  one shape serves every batch: on a card in a single process the predict
+  callable of ``cli evaluate`` and of the trainer's validation replays one
+  CUDA graph (``train/step.py::EvalForward``) and hands back host arrays;
 * detections are filtered at ``score_threshold`` and capped to
   ``max_detections`` by descending score; rotations are multiplied by pi and
   boxes divided by the image scale;

@@ -20,10 +20,26 @@ no read from the device; the tests build the draws from a JAX key and hold
 the port to the JAX function.
 
 Per-example branches.  The JAX package switches among the 14 ops per
-example and slot (``lax.switch`` under ``vmap``).  A Python loop over the
-examples would make hundreds of launches per step; here each slot groups
-the batch by op and runs every op once on its group (at most 13 op calls
-per slot), writing the group back by index.
+example and slot (``lax.switch`` under ``vmap``, which becomes a select over
+every branch).  A Python loop over the examples would make hundreds of
+launches per step.  Two versions here, equal row for row:
+
+* ``color_augment_batch`` (eager): each slot groups the batch by op on the
+  host and runs every op once on its group (at most 13 op calls per slot),
+  writing the group back by index, so each row goes through one op per
+  slot.  The eager step, the windowed and host-pipeline paths, the
+  data-parallel ranks and remat run it: it is the faster of the two
+  whenever the kernels may change from step to step, on the CPU and on
+  the card (``scripts/colour_pass_times.py``, PERF.md);
+* ``color_augment_fixed`` (fixed shapes, JAX's select): each slot runs all
+  13 ops over the whole batch and each row takes its op's result, from the
+  draws in fixed-shape tensors (``SlotDraws``, written by
+  ``write_slot_draws``), so the same kernels run every step: the resident
+  step's CUDA graph, whose replay cannot choose kernels, runs it
+  (``train/step.py::ResidentGraph``).
+
+The contrast op's mean grey level is summed in integers (``_mean_level``), so
+a row's mean does not depend on how many rows its reduction sees.
 
 Objects.  A frame holds K objects (K = 1 in the colibri sets, mask value
 255); a multi-object scene's mask holds each object at its own pixel value
@@ -200,7 +216,9 @@ def _factor(m, r):
 def op_autocontrast(img, m):
     lo = torch.floor(torch.amin(img, dim=(1, 2), keepdim=True))
     hi = torch.floor(torch.amax(img, dim=(1, 2), keepdim=True))
-    stretched = torch.floor((img - lo) * (255.0 / torch.clamp(hi - lo, min=1.0)))
+    span = torch.clamp(hi - lo, min=1.0)
+    # 255 / span divided, as JAX does (a number over a tensor is reciprocal() * 255 in torch)
+    stretched = torch.floor((img - lo) * (torch.full_like(span, 255.0) / span))
     return torch.where(hi <= lo, img, torch.clamp(stretched, 0, 255))
 
 
@@ -239,8 +257,18 @@ def op_color(img, m, r):
     return _blend(gray, img, _factor(m, r))
 
 
+def _mean_level(gray):
+    """(M, H, W) integer grey levels -> (M,) float32 mean per row: the levels
+    summed exactly in int64, then divided in float32 (a float32 sum is exact
+    only up to 2**24 / 255 pixels, and its rounding would then depend on how
+    the reduction splits the rows); the divisor a tensor, so the card divides
+    as the CPU does instead of multiplying by a reciprocal."""
+    total = gray.to(torch.int64).sum(dim=(1, 2)).to(torch.float32)
+    return total / torch.full_like(total, float(gray.shape[1] * gray.shape[2]))
+
+
 def op_contrast(img, m, r):
-    mean = torch.floor(torch.mean(_grayscale(img), dim=(1, 2)))
+    mean = torch.floor(_mean_level(_grayscale(img)))
     return _blend(mean[:, None, None, None].expand_as(img), img, _factor(m, r))
 
 
@@ -293,6 +321,24 @@ def op_blur(img, m):
 
 def op_smooth(img, m):
     return _conv3x3(img, _SMOOTH_K)
+
+
+_FACTOR_OPS = {COLOR: op_color, CONTRAST: op_contrast, BRIGHTNESS: op_brightness, SHARPNESS: op_sharpness}
+_PLAIN_OPS = {AUTOCONTRAST: op_autocontrast, EQUALIZE: op_equalize, INVERT: op_invert, POSTERIZE: op_posterize,
+              SOLARIZE: op_solarize, BLUR: op_blur, SMOOTH: op_smooth}
+
+
+def apply_op(op: int, img, m, r=None, yx=None, noise=None):
+    """Colour op ``op`` (not the identity) on the rows ``img``, with their
+    magnitudes ``m`` (M,) and, where the op takes them, factors ``r`` (M,),
+    cutout centres ``yx`` (M, 2) or noise (M, H, W, 3)."""
+    if op in _FACTOR_OPS:
+        return _FACTOR_OPS[op](img, m, r)
+    if op == CUTOUT:
+        return op_cutout(img, m, yx)
+    if op == GAUSSIAN_NOISE:
+        return op_gaussian_noise(img, m, noise)
+    return _PLAIN_OPS[op](img, m)
 
 
 # ---------------------------------------------------------------------------
@@ -372,21 +418,80 @@ def color_augment_batch(images_u8: torch.Tensor, draws: AugmentDraws) -> torch.T
         for op in sorted(set(ops) - {IDENTITY}):
             rows = [b for b, o in enumerate(ops) if o == op]
             idx = torch.tensor(rows, device=dev)
-            sub = img.index_select(0, idx)
             m = draws.magnitudes[rows, slot].to(device=dev, dtype=torch.float32)
-            if op in (COLOR, CONTRAST, BRIGHTNESS, SHARPNESS):
-                r = draws.factors[rows, slot].to(device=dev, dtype=torch.float32)
-                out = {COLOR: op_color, CONTRAST: op_contrast, BRIGHTNESS: op_brightness,
-                       SHARPNESS: op_sharpness}[op](sub, m, r)
-            elif op == CUTOUT:
-                out = op_cutout(sub, m, draws.cutout_yx[rows, slot].to(dev))
-            elif op == GAUSSIAN_NOISE:
-                out = op_gaussian_noise(sub, m, draws.noise[slot].to(dev))
-            else:
-                out = {AUTOCONTRAST: op_autocontrast, EQUALIZE: op_equalize, INVERT: op_invert,
-                       POSTERIZE: op_posterize, SOLARIZE: op_solarize, BLUR: op_blur,
-                       SMOOTH: op_smooth}[op](sub, m)
-            img = img.index_copy(0, idx, out)
+            r = draws.factors[rows, slot].to(device=dev, dtype=torch.float32) if op in _FACTOR_OPS else None
+            yx = draws.cutout_yx[rows, slot].to(dev) if op == CUTOUT else None
+            noise = draws.noise[slot].to(dev) if op == GAUSSIAN_NOISE else None
+            img = img.index_copy(0, idx, apply_op(op, img.index_select(0, idx), m, r, yx, noise))
+    return img.to(torch.uint8)
+
+
+class SlotDraws(NamedTuple):
+    """A batch's colour draws in fixed shapes, for ``color_augment_fixed``: the
+    static inputs of the resident step's CUDA graph.  ``noise`` holds each
+    slot's noise draws from row 0, in example order (``AugmentDraws.noise``),
+    and each example reads its own row through ``noise_rows``."""
+
+    ops: torch.Tensor  # (2, B) int64: each slot's op per example (``slot_ops``)
+    magnitudes: torch.Tensor  # (B, 2) float32
+    factors: torch.Tensor  # (B, 2) float32
+    cutout_yx: torch.Tensor  # (B, 2, 2) int64
+    noise_rows: torch.Tensor  # (2, B) int64: the row of ``noise[slot]`` of each example (0 without noise)
+    noise: torch.Tensor  # (2, N, H, W, 3) float32, N at least either slot's noise draws
+
+
+def noise_rows(ops: List[int]) -> List[int]:
+    """One slot's ops -> the row of the slot's noise draws each example reads
+    (the draws are in example order; 0 for an example without noise)."""
+    rows, n = [], 0
+    for op in ops:
+        rows.append(n if op == GAUSSIAN_NOISE else 0)
+        n += op == GAUSSIAN_NOISE
+    return rows
+
+
+def write_slot_draws(draws: AugmentDraws, out: SlotDraws) -> None:
+    """Write ``draws`` (host tensors) into the ``SlotDraws`` buffers ``out``
+    (any device): each slot's noise draws into the first rows of
+    ``out.noise[slot]``; the rows beyond them are left as they are (no
+    example reads them)."""
+    ops = [slot_ops(draws, slot) for slot in range(MAX_SLOTS)]
+    out.ops.copy_(torch.tensor(ops))
+    out.noise_rows.copy_(torch.tensor([noise_rows(o) for o in ops]))
+    for name in ("magnitudes", "factors", "cutout_yx"):
+        getattr(out, name).copy_(getattr(draws, name))
+    for slot, values in draws.noise.items():
+        out.noise[slot, :values.shape[0]].copy_(values)
+
+
+def slot_draws(draws: AugmentDraws, height: int, width: int, device=None) -> SlotDraws:
+    """``draws`` as new ``SlotDraws`` on ``device`` (default: the draws'), the
+    noise in a (2, B, H, W, 3) tensor of zeros beyond the draws."""
+    b = draws.apply.shape[0]
+    dev = draws.apply.device if device is None else torch.device(device)
+
+    def empty(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = SlotDraws(empty((MAX_SLOTS, b), torch.int64), empty((b, MAX_SLOTS)), empty((b, MAX_SLOTS)),
+                    empty((b, MAX_SLOTS, 2), torch.int64), empty((MAX_SLOTS, b), torch.int64),
+                    torch.zeros((MAX_SLOTS, b, height, width, 3), device=dev))
+    write_slot_draws(draws, out)
+    return out
+
+
+def color_augment_fixed(images_u8: torch.Tensor, draws: SlotDraws) -> torch.Tensor:
+    """(B, H, W, 3) uint8 -> colour-augmented uint8, as ``color_augment_batch``
+    row for row, in fixed shapes: per slot, every op over the whole batch and
+    each row's result selected by its op id (the identity keeps the row)."""
+    img = images_u8.to(torch.float32)
+    for slot in range(MAX_SLOTS):
+        ops, m, r, yx = draws.ops[slot], draws.magnitudes[:, slot], draws.factors[:, slot], draws.cutout_yx[:, slot]
+        noise = draws.noise[slot].index_select(0, draws.noise_rows[slot])
+        out = img
+        for op in range(IDENTITY):
+            out = torch.where((ops == op)[:, None, None, None], apply_op(op, img, m, r, yx, noise), out)
+        img = out
     return img.to(torch.uint8)
 
 

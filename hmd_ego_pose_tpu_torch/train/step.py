@@ -39,29 +39,40 @@ Losses stay on the device: nothing is read back inside a step.
 
 ``ResidentGraph`` is the counterpart of the jitted step and of the body of
 ``make_epoch_runner``'s scan, for the resident split of a single process on
-a CUDA card with Adam (``TrainStep.graphable``).  In front of each replay,
-eagerly: the frames gathered by the step's indices and colour-augmented into
-the graph's static frame buffer (the colour ops group the batch by op on the
-host, so the kernels they launch change from step to step and cannot sit in
-one graph), and the indices, the 6-DoF draws and the drop-connect uniforms
-copied into static buffers.  In the graph, in order: the gather of the other
-fields, the 6-DoF warp and preprocess, the training forward,
-``assign_targets_batch`` (``csrc/target_assign.cu`` launched on the
-capturing stream), the loss, ``backward()`` (the gradients in the graph's
-memory), the clip and Adam's update; each replay writes its six losses into
-row ``s`` of a (steps, 6) device buffer, the scan's stacked metrics, read
-once per epoch.  The first call is the warm-up: it runs the step eagerly on
-a side stream, then captures it (``utils/graphs.py``); the later calls
-replay.  With ``torch.backends.cudnn.deterministic`` graph and eager steps
-agree bit for bit on the card (``chip_smoke.py``); with cuDNN's default
-weight-gradient algorithms, which accumulate with atomics, neither repeats
-its own last bits (``scripts/step_bits.py``).
+a CUDA card with Adam (``TrainStep.graphable``).  In front of each replay the
+host only copies, into static buffers: the indices, the colour draws in
+fixed shapes (each slot's op per example from ``slot_ops``, magnitudes,
+factors, cutout centres), the 6-DoF draws and the drop-connect uniforms in
+one packed copy (``utils/device.py::PackedFields``), and the noise rows of
+the examples that drew the noise op, one copy per slot that has any.  In
+the graph, in order: the gather of the batch, the colour ops in fixed shapes
+(``ops/augment_device.py::color_augment_fixed``: every op over the batch and
+a per-row select, JAX's select under ``vmap``), the 6-DoF warp and
+preprocess, the training forward, ``assign_targets_batch``
+(``csrc/target_assign.cu`` launched on the capturing stream), the loss,
+``backward()`` (the gradients in the graph's memory), the clip and Adam's
+update; each replay writes its six losses into row ``s`` of a (steps, 6)
+device buffer, the scan's stacked metrics, read once per epoch.  The first
+call is the warm-up: it runs the step eagerly on a side stream, then
+captures it (``utils/graphs.py``); the later calls replay.  With
+``torch.backends.cudnn.deterministic`` graph and eager steps agree bit for
+bit on the card (``chip_smoke.py``); with cuDNN's default weight-gradient
+algorithms, which accumulate with atomics, neither repeats its own last bits
+(``scripts/step_bits.py``).
+
+``make_eval_forward`` is the counterpart of the JAX package's jitted
+``make_predict_fn``: on a CUDA card in a single process it returns an
+``EvalForward``, which predicts through one captured graph
+(``cli evaluate`` and the trainer's validation).  Eager by design: the CPU,
+a mesh of several processes, and of training the windowed and host-pipeline
+paths, remat, SGD, symmetric objects and the meshes (``TrainStep.graphable``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+import itertools
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -72,13 +83,15 @@ from hmd_ego_pose_tpu_torch.losses import LossBundle, total_loss
 from hmd_ego_pose_tpu_torch.models import hmd_ego_pose
 from hmd_ego_pose_tpu_torch.models.efficientnet import drop_connect_uniforms
 from hmd_ego_pose_tpu_torch.ops.anchors import device_anchors
-from hmd_ego_pose_tpu_torch.ops.augment_device import (AugmentDraws, Batch, RawBatch, augment_and_preprocess_batch,
-                                                       color_augment_batch)
+from hmd_ego_pose_tpu_torch.ops.augment_device import (MAX_SLOTS, AugmentDraws, Batch, RawBatch, SlotDraws,
+                                                       augment_and_preprocess_batch, color_augment_fixed,
+                                                       write_slot_draws)
 from hmd_ego_pose_tpu_torch.ops.decode import decode_translation, hand_to_relative
 from hmd_ego_pose_tpu_torch.ops.target_assign import assign_targets_batch
 from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL, DataMesh
 from hmd_ego_pose_tpu_torch.train.state import Optimizer
 from hmd_ego_pose_tpu_torch.utils import graphs
+from hmd_ego_pose_tpu_torch.utils.device import PackedFields
 
 METRIC_NAMES = ("loss", "classification_loss", "regression_loss", "rotation_loss",
                 "translation_loss", "hand_loss")
@@ -196,9 +209,10 @@ class ResidentGraph:
     ``METRIC_NAMES`` order, for up to ``steps`` steps between ``reset``s.
 
     ``graph(idx, draws, generator)`` runs one step, as ``step(data, idx,
-    draws, generator)`` does, and draws from ``generator`` in the same order.
-    The first call fixes which augmentations and whether drop-connect run,
-    and the batch size; a later call that differs raises."""
+    draws, generator)`` does, and draws from ``generator`` in the same order;
+    ``idx`` and ``draws`` are host tensors.  The first call fixes which
+    augmentations and whether drop-connect run, and the batch size; a later
+    call that differs raises."""
 
     def __init__(self, step: TrainStep, data: DeviceData, steps: int):
         if not step.graphable:
@@ -217,25 +231,63 @@ class ResidentGraph:
         self.row.zero_()
         self.done = 0
 
-    def _allocate(self, idx: torch.Tensor, six_dof: bool, drop: bool) -> None:
-        dev, b = self.step.device, idx.shape[0]
-        self.idx = torch.zeros((b,), dtype=torch.int64, device=dev)
-        self.frames = torch.zeros((b,) + tuple(self.data.frames.shape[1:]), dtype=torch.uint8, device=dev)
+    def _allocate(self, b: int, colour: bool, six_dof: bool, drop: bool) -> None:
+        """The static inputs: one packed buffer of the small fields, and each
+        slot's noise rows (host staging and device)."""
+        dev, f32, i64 = self.step.device, torch.float32, torch.int64
+        fields = {"idx": ((b,), i64)}
+        if colour:
+            fields.update(ops=((MAX_SLOTS, b), i64), noise_rows=((MAX_SLOTS, b), i64),
+                          magnitudes=((b, MAX_SLOTS), f32), factors=((b, MAX_SLOTS), f32),
+                          cutout_yx=((b, MAX_SLOTS, 2), i64))
+        if six_dof:
+            fields.update(apply=((b,), torch.bool), angles=((b,), f32), scales=((b,), f32))
+        if drop:
+            fields["drop"] = ((self.blocks, b), f32)
+        self.fields = PackedFields(fields, dev)
+        self.colour = None
+        if colour:  # host staging and device buffers of the same layout
+            shape = (MAX_SLOTS, b) + tuple(self.data.frames.shape[1:])
+            f, host = self.fields, self.fields.host
+            names = ("ops", "magnitudes", "factors", "cutout_yx", "noise_rows")
+            self.host_colour = SlotDraws(*(host[n] for n in names), torch.zeros(shape, pin_memory=dev.type == "cuda"))
+            self.colour = SlotDraws(*(f[n] for n in names), torch.zeros(shape, device=dev))
         self.draws = None
         if six_dof:
-            self.draws = AugmentDraws(torch.zeros(b, dtype=torch.bool, device=dev), None, None, None, None, None,
-                                      {}, torch.zeros(b, device=dev), torch.zeros(b, device=dev))
-        self.drop = torch.zeros((self.blocks, b), device=dev) if drop else None
+            self.draws = AugmentDraws(self.fields["apply"], None, None, None, None, None, {},
+                                      self.fields["angles"], self.fields["scales"])
+        self.drop = self.fields["drop"] if drop else None
 
     def _body(self) -> None:
-        step, dc = self.step, self.step.config.data
-        raw = RawBatch(self.frames, *(torch.index_select(a, 0, self.idx) for a in self.data[1:]))
+        step, dc, data, idx = self.step, self.step.config.data, self.data, self.fields["idx"]
+        frames = torch.index_select(data.frames, 0, idx)
+        if self.colour is not None:
+            frames = color_augment_fixed(frames, self.colour)
+        raw = RawBatch(frames, *(torch.index_select(a, 0, idx) for a in data[1:]))
         batch = augment_and_preprocess_batch(
             raw, self.draws, step.config.model.image_size, translation_scale_norm=dc.translation_scale_norm,
             use_colorspace=False, use_6dof=self.draws is not None)
         metrics = step.update(step.losses(batch, drop=self.drop))
         self.metrics.index_copy_(0, self.row, torch.stack([metrics[k] for k in METRIC_NAMES])[None])
         self.row.add_(1)
+
+    def _stage(self, idx: torch.Tensor, draws: Optional[AugmentDraws], generator: Optional[torch.Generator]) -> None:
+        """Write this step's inputs into the host buffers and queue their copies."""
+        fields = self.fields
+        fields.wait()  # the last step's copies have left the host buffers
+        host = fields.host
+        host["idx"].copy_(idx)
+        if self.colour is not None:
+            write_slot_draws(draws, self.host_colour)
+            for slot, values in draws.noise.items():  # only the rows drawn this step
+                m = values.shape[0]
+                self.colour.noise[slot, :m].copy_(self.host_colour.noise[slot, :m], non_blocking=True)
+        if self.draws is not None:
+            for name in ("apply", "angles", "scales"):
+                host[name].copy_(getattr(draws, name))
+        if generator is not None:  # what the eager forward would draw at this point
+            host["drop"].copy_(drop_connect_uniforms(generator, self.blocks, idx.shape[0]))
+        fields.upload()  # after the noise copies: ``wait`` covers them too
 
     def __call__(self, idx: torch.Tensor, draws: Optional[AugmentDraws] = None,
                  generator: Optional[torch.Generator] = None) -> None:
@@ -246,20 +298,12 @@ class ResidentGraph:
         six_dof = draws is not None and dc.use_6dof_augmentation
         key = (tuple(idx.shape), colour, six_dof, generator is not None)
         if self.graph is None:
-            self._allocate(idx, six_dof, generator is not None)
+            self._allocate(idx.shape[0], colour, six_dof, generator is not None)
             self._key = key
         elif key != self._key:
             raise ValueError(f"the graph was captured for (batch shape, colour, 6-DoF, drop-connect) "
                              f"{self._key}, this step is {key}")
-        self.idx.copy_(idx)
-        frames = torch.index_select(self.data.frames, 0, self.idx)
-        self.frames.copy_(color_augment_batch(frames, draws) if colour else frames)
-        if six_dof:
-            for static, drawn in zip((self.draws.apply, self.draws.angles, self.draws.scales),
-                                     (draws.apply, draws.angles, draws.scales)):
-                static.copy_(drawn)
-        if generator is not None:  # what the eager forward would draw at this point
-            self.drop.copy_(drop_connect_uniforms(generator, self.blocks, idx.shape[0]))
+        self._stage(idx, draws, generator)
         optimizer = self.step.optimizer
         if self.graph is None:
             count = optimizer.count
@@ -271,18 +315,124 @@ class ResidentGraph:
         self.done += 1
 
 
+_DETECTION_FIELDS = (("boxes", 4), ("scores", 1), ("labels", 1), ("rotation", 3), ("translation", 3), ("hand", 63))
+
+
+class HostDetections(NamedTuple):
+    """The six detection fields the evaluator reads, host arrays of leading
+    dims (B, K) (``ops/nms.py::Detections``)."""
+
+    boxes: np.ndarray
+    scores: np.ndarray
+    labels: np.ndarray  # int32
+    rotation: np.ndarray
+    translation: np.ndarray
+    hand: np.ndarray
+
+
+def _pack_detections(det) -> torch.Tensor:
+    """The six fields of ``det`` as one (B, K, 75) float32 tensor (the labels,
+    small integers, exact in float32)."""
+    return torch.cat([det.boxes, det.scores[..., None], det.labels[..., None].to(torch.float32), det.rotation,
+                      det.translation, det.hand], dim=-1)
+
+
+def _unpack_detections(packed: np.ndarray) -> HostDetections:
+    """``_pack_detections``' array back into the six fields."""
+    widths = [w for _, w in _DETECTION_FIELDS]
+    parts = np.split(packed, np.cumsum(widths)[:-1], axis=-1)
+    fields = {name: (part[..., 0] if w == 1 else part) for (name, w), part in zip(_DETECTION_FIELDS, parts)}
+    fields["labels"] = fields["labels"].astype(np.int32)
+    return HostDetections(**fields)
+
+
+class EvalForward:
+    """``predict`` over ``model`` (eval mode, unfolded) as one CUDA graph:
+    numpy (images (B, S, S, 3) float32, cameras (B, 6) float32) ->
+    ``HostDetections``, the counterpart of the JAX package's jitted
+    ``make_predict_fn``.
+
+    The first call captures the graph at its batch (``eval_batch_size``: the
+    evaluator pads the tail), reading static image and camera buffers; each
+    call copies the arrays in through pinned host buffers (one copy each),
+    replays, and copies the six fields back as one packed array, before the
+    next replay can overwrite them.  A replay reads the parameters and BN
+    buffers at the addresses of the capture: Adam, the BN statistics' update
+    and ``load_state_dict`` write them in place, but a restore or ``.to()``
+    that makes new tensors would leave the graph reading stale memory, so
+    each call compares every parameter's and buffer's ``data_ptr()`` with the
+    capture's (no device sync) and captures again where one moved;
+    ``captures`` counts the captures.  The graph has a memory pool of its
+    own.  A capture that fails raises; a call at another batch raises."""
+
+    def __init__(self, model: torch.nn.Module, config: Config, device: torch.device,
+                 score_threshold: Optional[float] = None):
+        self.model, self.config, self.device = model, config, torch.device(device)
+        self.threshold = config.eval.score_threshold if score_threshold is None else score_threshold
+        self.graph: Optional[graphs.Graph] = None
+        self.captures = 0
+        self._pointers: Tuple[int, ...] = ()
+
+    def predict(self, images: torch.Tensor, cameras: torch.Tensor):
+        """The eager ``predict`` on device tensors -> ``ops/nms.py::Detections``."""
+        ec = self.config.eval
+        return hmd_ego_pose.predict(self.model, images, cameras, self.config.model, score_threshold=self.threshold,
+                                    iou_threshold=ec.nms_threshold, max_detections=ec.max_detections)
+
+    def eager(self, images: np.ndarray, cameras: np.ndarray) -> HostDetections:
+        """The same call without the graph: the eager ``predict``."""
+        up = (torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in (images, cameras))
+        with torch.no_grad():  # not inference mode: constants cached on first use serve training too
+            return _unpack_detections(_pack_detections(self.predict(*up)).cpu().numpy())
+
+    def _packed(self) -> torch.Tensor:
+        with torch.no_grad():
+            return _pack_detections(self.predict(self.images, self.cameras))
+
+    def _tensor_pointers(self) -> Tuple[int, ...]:
+        return tuple(t.data_ptr() for t in itertools.chain(self.model.parameters(), self.model.buffers()))
+
+    def __call__(self, images: np.ndarray, cameras: np.ndarray) -> HostDetections:
+        self.model.eval()
+        pointers = self._tensor_pointers()
+        if self.graph is not None and images.shape != tuple(self.images.shape):
+            raise ValueError(f"the graph was captured at images {tuple(self.images.shape)}, "
+                             f"this call has {images.shape}")
+        if self.graph is None:
+            pin = self.device.type == "cuda"
+            self.images = torch.zeros(images.shape, device=self.device)
+            self.cameras = torch.zeros(cameras.shape, device=self.device)
+            self.host_images, self.host_cameras = (torch.zeros(a.shape, pin_memory=pin) for a in (images, cameras))
+        # every earlier call ended with a sync, so the host buffers are free
+        self.host_images.copy_(torch.from_numpy(images))
+        self.host_cameras.copy_(torch.from_numpy(np.asarray(cameras, np.float32)))
+        self.images.copy_(self.host_images, non_blocking=True)
+        self.cameras.copy_(self.host_cameras, non_blocking=True)
+        if self.graph is None or pointers != self._pointers:
+            self.graph = None  # a recapture frees the old graph's memory first
+            self.graph = graphs.capture(self._packed, self.device)
+            self.captures += 1
+            self._pointers = pointers
+            self.host_out = torch.zeros(self.graph.outputs.shape, pin_memory=self.device.type == "cuda")
+        self.graph.replay()
+        self.host_out.copy_(self.graph.outputs, non_blocking=True)
+        if self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                copied = torch.cuda.Event()
+                copied.record()
+            copied.synchronize()
+        return _unpack_detections(self.host_out.numpy().copy())
+
+
 def make_eval_forward(model: torch.nn.Module, config: Config, device: torch.device,
                       score_threshold: Optional[float] = None):
     """The evaluator's predict callable over ``model`` (eval mode, unfolded):
-    numpy (images, cameras) -> detections on ``device``."""
-    thr = config.eval.score_threshold if score_threshold is None else score_threshold
-
-    def predict(images: np.ndarray, cameras: np.ndarray):
-        model.eval()
-        return hmd_ego_pose.predict(
-            model, torch.from_numpy(images).to(device), torch.from_numpy(cameras).to(device),
-            config.model, score_threshold=thr, iou_threshold=config.eval.nms_threshold,
-            max_detections=config.eval.max_detections,
-        )
-
-    return predict
+    numpy (images, cameras) -> ``HostDetections``.  On a CUDA card in a
+    single process an ``EvalForward`` (one captured graph); on the CPU, or
+    when the model's mesh (``parallel/mesh.py::attach``) has several
+    processes (gloo's collectives cannot be captured), its eager ``predict``
+    on ``device``, as the serving engine chooses."""
+    device = torch.device(device)
+    forward = EvalForward(model, config, device, score_threshold)
+    single = getattr(model, "mesh", LOCAL).processes == 1
+    return forward if device.type == "cuda" and single else forward.eager

@@ -6,6 +6,10 @@ card is an error, never a silent fall back to the CPU.
 
 ``pack_transfer`` uploads a host tree with one host-to-device copy per
 dtype, as the JAX package's ``utils/device.py::pack_transfer`` does.
+``PackedFields`` keeps named fields of several dtypes in one host buffer
+(pinned on a card) and one device buffer, uploaded with one asynchronous
+copy: the static inputs that a captured CUDA graph reads
+(``train/step.py::ResidentGraph``).
 ``UPLOADS`` counts the host-to-device copies of the restore path by what
 made them (``pack_transfer/<dtype>``, ``dequantize_group/values``, ...), in
 the style of ``kernels.LAUNCHES``; a copy to the CPU counts as well, so the
@@ -14,7 +18,8 @@ CPU tests read the counts the card gives.
 
 from __future__ import annotations
 
-from typing import Any, List, Union
+import math
+from typing import Any, Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -109,3 +114,44 @@ def pack_transfer(tree, device: DeviceLike = None):
         for i, piece in zip(idx, flat.split_with_sizes([leaves[i].size for i in idx])):
             out[i] = piece.view(leaves[i].shape)
     return _tree_fill(tree, iter(out))
+
+
+class PackedFields:
+    """Named tensors of several dtypes packed into one byte buffer on the host
+    (pinned for a CUDA device) and one on ``device``.  The host writes
+    ``host[name]``; ``upload()`` copies the whole buffer with one asynchronous
+    host-to-device copy; ``fields[name]`` are views of the device buffer, at
+    fixed addresses, which a captured graph reads.  ``wait()`` returns once
+    the last upload, and whatever the caller queued on the stream before it,
+    has been made, so the host may write the host buffers again; on the CPU
+    a copy is made at once."""
+
+    def __init__(self, fields: Dict[str, Tuple[Sequence[int], torch.dtype]], device: torch.device):
+        self.device = torch.device(device)
+        layout, size = {}, 0
+        for name, (shape, dtype) in fields.items():
+            nbytes = math.prod(shape) * dtype.itemsize
+            layout[name] = (size, nbytes, tuple(shape), dtype)
+            size += -(-nbytes // 8) * 8  # every field 8-byte aligned
+        cuda = self.device.type == "cuda"
+        self._host = torch.zeros(size, dtype=torch.uint8, pin_memory=cuda)
+        self._device = torch.zeros(size, dtype=torch.uint8, device=self.device)
+
+        def views(buffer):
+            return {name: buffer[o:o + n].view(dtype).view(shape) for name, (o, n, shape, dtype) in layout.items()}
+
+        self.host, self._fields = views(self._host), views(self._device)
+        self._copied = torch.cuda.Event() if cuda else None
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self._fields[name]
+
+    def wait(self) -> None:
+        if self._copied is not None:
+            self._copied.synchronize()
+
+    def upload(self) -> None:
+        self._device.copy_(self._host, non_blocking=True)
+        if self._copied is not None:
+            with torch.cuda.device(self.device):
+                self._copied.record()

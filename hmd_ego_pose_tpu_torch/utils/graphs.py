@@ -2,13 +2,18 @@
 
 The JAX package compiles its fixed-shape programs: the serving engine
 lowers one executable per batch size before traffic
-(``hmd_ego_pose_tpu/serving/engine.py::warmup``), and the trainer jits the
-step and scans it over an epoch (``train/step.py``).  On a CUDA card the
-counterpart is a captured CUDA graph: the kernels of one call of a function,
-with their arguments and memory, recorded once and replayed with one launch
-(``cudaGraphLaunch``).  ``capture`` is the helper the serving engine
-(``serving/engine.py``) and the resident train step (``train/step.py``)
-share:
+(``hmd_ego_pose_tpu/serving/engine.py::warmup``), the trainer jits the
+step and scans it over an epoch, and evaluation jits its predict
+(``train/step.py::make_eval_forward``).  On a CUDA card the counterpart is a
+captured CUDA graph: the kernels of one call of a function, with their
+arguments and memory, recorded once and replayed with one launch
+(``cudaGraphLaunch``).  ``capture`` is the helper its three users share: the
+serving engine (``serving/engine.py``, a graph per batch size), the
+resident train step, the frame gather and colour ops included
+(``train/step.py::ResidentGraph``), and evaluation's predict, for
+``cli evaluate`` and the trainer's validation
+(``train/step.py::EvalForward``, one graph in a pool of its own, captured
+again when a parameter has moved):
 
 * the function reads its inputs from static tensors that the caller fills
   before each replay, and its outputs live in the graph's memory, so a replay
@@ -27,8 +32,9 @@ share:
 
 A graph cannot hold a read of device data by the host, an upload from host
 memory, a shape that depends on the data, or a gloo collective.  The paths
-that need one stay eager; the engine's and the trainer's docstrings say
-which.
+that need one stay eager: the CPU, meshes of several processes, and of
+training the windowed and host-pipeline steps, remat, SGD and symmetric
+objects; the engine's and the trainer's docstrings say which.
 """
 
 from __future__ import annotations

@@ -9,7 +9,13 @@ function of the same numbers:
   magnitudes, with the cutout position and the noise fixed;
 * ``augment_6dof_device`` at fixed angles and scales, including a warp that
   moves the object out of the frame (the sample falls back to its input);
-* ``augment_and_preprocess_batch`` with every draw of the batch fixed.
+* ``augment_and_preprocess_batch`` with every draw of the batch fixed;
+* the fixed-shape colour pass (``color_augment_fixed``, the resident step
+  graph's): bit-equal per row to the grouped ``color_augment_batch`` on
+  draws that hold every op, an inactive second slot, an example not
+  augmented and noise in both slots (``chip_smoke.colour_cases``), and to
+  JAX's ``color_augment`` per example, its ``lax.switch`` run branch by
+  branch (``jax.disable_jit``).
 
 The JAX side runs op by op (not jitted), so each float operation is
 rounded on its own, as in the port: the uint8 images are then equal, op for
@@ -31,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from hmd_ego_pose_tpu.data.colibri import ColibriDataset as JaxColibriDataset
 from hmd_ego_pose_tpu.data.device_dataset import build_host_cache as jax_build_host_cache
 from hmd_ego_pose_tpu.ops import augment_device as jax_aug
@@ -198,3 +205,29 @@ def test_draw_augment_distributions():
         assert d.noise[slot].shape[0] == aug.slot_ops(d, slot).count(aug.GAUSSIAN_NOISE)
     again = aug.draw_augment(torch.Generator().manual_seed(0), 4000, 20, 30, 0.25, (0.5, 2.0))
     assert torch.equal(again.op_ids, d.op_ids) and torch.equal(again.noise[0], d.noise[0])
+
+
+@pytest.mark.parametrize("h,w", [(64, 64), (256, 256)])
+def test_color_augment_fixed_equals_grouped_per_row(h, w):
+    frames, draws = chip_smoke.colour_cases(h, w, seed=h)
+    ops = [aug.slot_ops(draws, slot) for slot in range(aug.MAX_SLOTS)]
+    assert set(ops[0]) == set(range(aug.NUM_OPS)) and ops[1][3] == ops[1][7] == aug.IDENTITY
+    assert all(draws.noise[slot].shape[0] == 3 for slot in range(aug.MAX_SLOTS))
+    want = aug.color_augment_batch(frames, draws)
+    got = aug.color_augment_fixed(frames, aug.slot_draws(draws, h, w))
+    assert torch.equal(got, want)
+    assert torch.equal(got[5], frames[5])  # not augmented
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_color_augment_fixed_matches_jax(seed):
+    b, h, w = 16, H, W
+    key = jax.random.PRNGKey(seed)
+    draws = draws_from_jax_key(key, b, h, w, chance=0.2)
+    frames = _frames(seed, b).astype(np.uint8)
+    keys = jax.random.split(key, b * 4).reshape(b, 4, 2)
+    with jax.disable_jit():  # lax.switch runs the drawn branch, op by op
+        want = np.stack([np.asarray(jax_aug.color_augment(jnp.asarray(f), k[1])) if on else f
+                         for f, k, on in zip(frames, keys, draws.apply.tolist())])
+    got = aug.color_augment_fixed(torch.from_numpy(frames), aug.slot_draws(draws, h, w))
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -347,7 +347,7 @@ def test_cli_parity_and_iter1_evaluation_on_the_card_equal_the_cpus(cuda_device,
 
 
 # ---------------------------------------------------------------------------
-# CUDA graphs (utils/graphs.py): the engine's and the resident step's
+# CUDA graphs (utils/graphs.py): the engine's, the resident step's, evaluation's
 # ---------------------------------------------------------------------------
 
 
@@ -396,7 +396,8 @@ def test_engine_graphs_equal_eager_with_two_batches_in_flight(cuda_device):
 def test_resident_step_graph_equals_eager_and_launches_target_assign_per_replay(cuda_device, tmp_path):
     """Two trainers from one seed on an 8-frame 128 px set, augmentation and
     drop-connect on: three steps of ``ResidentGraph`` (warm-up, capture, two
-    replays) against three eager steps with the same draws and masks: the
+    replays; the colour ops in fixed shapes inside the graph) against three
+    eager steps (colour ops grouped by op) with the same draws and masks: the
     losses and every parameter and BN buffer bit-equal; ``target_assign``
     launched once a step; Adam's count on the card.  With deterministic
     cuDNN: some of its default weight-gradient algorithms accumulate with
@@ -432,12 +433,64 @@ def test_resident_step_graph_equals_eager_and_launches_target_assign_per_replay(
     finally:
         torch.backends.cudnn.deterministic = False
     assert LAUNCHES.snapshot() == {"target_assign": len(rows)}
+    assert graphed.graph.colour is not None  # the colour ops ran inside the graph
     assert torch.equal(graphed.graph.metrics, torch.stack(want))
     se, sg = eager.model.state_dict(), graphed.model.state_dict()
     assert all(torch.equal(se[k], sg[k]) for k in se)
     assert graphed.optimizer.count == len(rows)
     steps = [s["step"] for s in graphed.optimizer.opt.state.values()]
     assert all(s.device.type == "cuda" and float(s) == len(rows) for s in steps)
+
+
+@pytest.mark.parametrize("num_classes", [1, 2])
+def test_eval_graph_equals_the_eager_predict(cuda_device, num_classes):
+    """``make_eval_forward`` on the card (phi-0, 256 px, fp32, seeded weights,
+    every score kept): one capture at ``eval_batch_size``; three batches
+    replayed, each bit-equal to the eager predict in all six fields; a
+    parameter replaced by a new tensor makes a second capture whose replay is
+    the eager predict of the changed model."""
+    from hmd_ego_pose_tpu_torch.config import Config, EvalConfig, ModelConfig
+    from hmd_ego_pose_tpu_torch.models.hmd_ego_pose import HMDEgoPose, init_weights
+    from hmd_ego_pose_tpu_torch.train.step import EvalForward, make_eval_forward
+
+    cfg = Config(model=ModelConfig(phi=0, image_size=256, num_classes=num_classes),
+                 eval=EvalConfig(score_threshold=0.0))
+    model = init_weights(HMDEgoPose(cfg.model), torch.Generator().manual_seed(0)).to(cuda_device)
+    forward = make_eval_forward(model, cfg, cuda_device)
+    assert isinstance(forward, EvalForward)
+    rng = np.random.default_rng(num_classes)
+    b = cfg.eval.eval_batch_size
+    cams = np.tile(np.array([480, 480, 128, 128, 1000, 1], np.float32), (b, 1))
+
+    def held(images):
+        got, want = forward(images, cams), forward.eager(images, cams)
+        for f in got._fields:
+            assert getattr(got, f).tobytes() == getattr(want, f).tobytes(), f
+        return got
+
+    for _ in range(3):
+        got = held(rng.normal(size=(b, 256, 256, 3)).astype(np.float32))
+    assert forward.captures == 1 and (got.scores > 0).any()
+    if num_classes == 2:
+        assert set(np.unique(got.labels)) >= {0, 1}
+    conv = model.classifier.header.pointwise_conv.conv
+    conv.bias = torch.nn.Parameter(conv.bias.detach() + 0.5)
+    held(rng.normal(size=(b, 256, 256, 3)).astype(np.float32))
+    assert forward.captures == 2
+
+
+@pytest.mark.parametrize("h,w", chip_smoke.COLOUR_SIZES)
+def test_color_augment_fixed_equals_grouped_on_the_card(cuda_device, h, w):
+    """The fixed-shape colour pass (the resident step graph's) against
+    ``color_augment_batch`` on the card, bit for bit per row, on draws with
+    every op, noise in both slots, an inactive slot and an example not
+    augmented (``chip_smoke.colour_cases``)."""
+    from hmd_ego_pose_tpu_torch.ops import augment_device as aug
+
+    frames, draws = chip_smoke.colour_cases(h, w)
+    x = frames.to(cuda_device)
+    fixed = aug.slot_draws(draws, h, w, cuda_device)
+    assert torch.equal(aug.color_augment_fixed(x, fixed), aug.color_augment_batch(x, draws))
 
 
 def test_a_failed_capture_raises(cuda_device):

@@ -10,14 +10,18 @@ capture raises).  Here, at phi-0 and 128 or 256 px:
 * drop-connect uniforms drawn ahead (``drop_connect_uniforms``): a step
   given them equals, bit for bit, the step that drew them from the
   generator;
-* the plumbing of ``train/step.py::ResidentGraph`` and of the engine's graphs,
-  with a stand-in capture whose replay runs the captured function again (and,
-  for the engine, writes into the captured outputs, as a graph's replay
-  overwrites its memory): a trainer's epoch through the graph equals the
-  eager epoch bit for bit (means, parameters, BN statistics, Adam's count);
-  the engine's replayed batches equal its eager ones, two batches in flight
-  keep their own answers, a size without a graph runs eagerly and counts in
-  ``eager_batches``;
+* the plumbing of ``train/step.py::ResidentGraph``, of ``EvalForward`` and of
+  the engine's graphs, with a stand-in capture whose replay runs the
+  captured function again (and, for the engine and the eval forward, writes
+  into the captured outputs, as a graph's replay overwrites its memory): a
+  trainer's epoch through the graph, colour ops included, equals the eager
+  epoch bit for bit (means, parameters, BN statistics, Adam's count, the
+  generator's state); every batch of a small evaluation through the eval
+  forward equals the eager predict, two validations of a trainer make one
+  capture, a parameter replaced by a new tensor makes another, and on the
+  CPU ``make_eval_forward`` captures nothing; the engine's replayed batches
+  equal its eager ones, two batches in flight keep their own answers, a size
+  without a graph runs eagerly and counts in ``eager_batches``;
 * the engine on the CPU (no graph) against the JAX engine on the CPU: the
   poses within the goldens' bounds (one bf16 step of tz), ``stats()`` with
   exactly the JAX engine's keys, ``eager_batches`` 0;
@@ -41,17 +45,19 @@ from hmd_ego_pose_tpu.ops.preprocess import preprocess_uint8_batch as jax_prepro
 from hmd_ego_pose_tpu.serving.engine import InferenceEngine as JaxEngine
 from hmd_ego_pose_tpu.train import checkpoint as jax_checkpoint
 from hmd_ego_pose_tpu_torch import cli, kernels
-from hmd_ego_pose_tpu_torch.config import Config, ModelConfig, ServingConfig, TrainConfig
+from hmd_ego_pose_tpu_torch.config import Config, EvalConfig, ModelConfig, ServingConfig, TrainConfig
 from hmd_ego_pose_tpu_torch.data.colibri import ColibriDataset
 from hmd_ego_pose_tpu_torch.data.image import read_png
 from hmd_ego_pose_tpu_torch.eval import golden as hold
+from hmd_ego_pose_tpu_torch.eval.evaluator import evaluate_model
 from hmd_ego_pose_tpu_torch.kernels import LAUNCHES, build
 from hmd_ego_pose_tpu_torch.models.efficientnet import drop_connect_uniforms
 from hmd_ego_pose_tpu_torch.models.hmd_ego_pose import HMDEgoPose, init_weights
 from hmd_ego_pose_tpu_torch.ops import preprocess
 from hmd_ego_pose_tpu_torch.ops.augment_device import draw_augment
 from hmd_ego_pose_tpu_torch.serving.engine import InferenceEngine
-from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES, ResidentGraph, TrainStep
+from hmd_ego_pose_tpu_torch.train import trainer as trainer_module
+from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES, EvalForward, ResidentGraph, TrainStep, make_eval_forward
 from hmd_ego_pose_tpu_torch.train.trainer import Trainer
 from hmd_ego_pose_tpu_torch.utils import graphs
 from hmd_ego_pose_tpu_torch.utils.logging import MetricLogger
@@ -204,7 +210,9 @@ def test_epoch_through_the_graph_equals_the_eager_epoch(dataset, monkeypatch):
     monkeypatch.setattr(graphs, "capture", _step_capture)
     graphed = _trainer(dataset)
     assert graphed.graphed and graphed.graph is not None
+    assert graphed.config.data.use_colorspace_augmentation
     got = graphed.train_epoch(0)
+    assert graphed.graph._key[1] and graphed.graph.colour is not None  # the colour ops ran in the graph
     assert got["steps"] == want["steps"] == graphed.graph.done == len(graphed.train_dataset) // BATCH
     assert {k: got[k] for k in METRIC_NAMES} == {k: want[k] for k in METRIC_NAMES}
     se, sg = _state(eager), _state(graphed)
@@ -220,6 +228,109 @@ def test_epoch_through_the_graph_equals_the_eager_epoch(dataset, monkeypatch):
     graphed.graph.reset()
     with pytest.raises(ValueError, match="captured for"):  # no drop-connect: another graph
         graphed.graph(torch.tensor([0, 1]), graphed.draws(), None)
+
+
+# ---------------------------------------------------------------------------
+# EvalForward's plumbing, replayed by re-running on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _eval_model(seed=0):
+    cfg = Config(model=ModelConfig(image_size=SIZE), eval=EvalConfig(score_threshold=0.0, eval_batch_size=4))
+    return init_weights(HMDEgoPose(cfg.model), torch.Generator().manual_seed(seed)), cfg
+
+
+def _eval_batch(seed, b=4):
+    rng = np.random.default_rng(seed)
+    images = rng.normal(size=(b, SIZE, SIZE, 3)).astype(np.float32)
+    cams = np.tile(np.array([480, 480, SIZE / 2, SIZE / 2, 1000, 1], np.float32), (b, 1))
+    return images, cams
+
+
+def _same(got, want):
+    for f in got._fields:
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
+
+
+def test_eval_forward_equals_the_eager_predict_on_every_batch(dataset, monkeypatch):
+    model, cfg = _eval_model()
+    monkeypatch.setattr(graphs, "capture", _engine_capture)
+    forward = EvalForward(model, cfg, torch.device("cpu"))
+    calls = []
+
+    def predict(images, cameras):
+        got = forward(images, cameras)
+        calls.append((got, forward.eager(images, cameras)))
+        return got
+
+    ds = ColibriDataset(dataset, 0, 1, "train")
+    got = evaluate_model(ds, predict, cfg, "cpu")
+    want = evaluate_model(ds, make_eval_forward(model, cfg, "cpu"), cfg, "cpu")
+    assert len(calls) == -(-len(ds) // 4) >= 2 and forward.captures == 1
+    for replayed, eager in calls:
+        _same(replayed, eager)
+        assert replayed.labels.dtype == np.int32 and replayed.boxes.shape == (4, cfg.eval.max_detections, 4)
+    assert (calls[0][0].scores > 0).any()  # detections, not only padding
+    assert got.scalars() == want.scalars()
+
+
+def test_two_validations_make_one_capture(dataset, monkeypatch):
+    monkeypatch.setattr(graphs, "capture", _engine_capture)
+    monkeypatch.setattr(trainer_module, "make_eval_forward",
+                        lambda model, config, device: EvalForward(model, config, device))
+    cfg = Config(model=ModelConfig(image_size=SIZE), eval=EvalConfig(eval_batch_size=2),
+                 train=TrainConfig(batch_size=BATCH, oversample=1, seed=3, checkpoint_dir="unused"))
+    t = Trainer(cfg, ColibriDataset(dataset, 0, 1, "train"), ColibriDataset(dataset, 0, 1, "train"),
+                device="cpu", logger=MetricLogger(stdout=False))
+    first = t.validate(max_images=2)
+    t.train_epoch(0)  # Adam and the BN statistics write in place: the graph's addresses hold
+    second = t.validate(max_images=2)
+    assert t.predict_fn.captures == 1
+    assert first.scalars() != second.scalars() or first.num_matched == 0
+
+
+def test_a_replaced_parameter_makes_a_new_capture(monkeypatch):
+    model, cfg = _eval_model()
+    monkeypatch.setattr(graphs, "capture", _engine_capture)
+    forward = EvalForward(model, cfg, torch.device("cpu"))
+    images, cams = _eval_batch(1)
+    _same(forward(images, cams), forward.eager(images, cams))
+    with torch.no_grad():
+        model.load_state_dict({k: v * 1.01 for k, v in model.state_dict().items()})  # in place
+    forward(images, cams)
+    assert forward.captures == 1
+    conv = model.classifier.header.pointwise_conv.conv
+    conv.bias = torch.nn.Parameter(conv.bias.detach() + 1.0)  # a new tensor: the graph would read stale memory
+    got = forward(images, cams)
+    assert forward.captures == 2
+    _same(got, forward.eager(images, cams))
+    with pytest.raises(ValueError, match="captured at"):
+        forward(*_eval_batch(2, b=2))
+
+
+def test_make_eval_forward_on_the_cpu_captures_nothing(monkeypatch):
+    def no_capture(*args, **kwargs):
+        raise AssertionError("the CPU captures no graph")
+
+    monkeypatch.setattr(graphs, "capture", no_capture)
+    model, cfg = _eval_model()
+    predict = make_eval_forward(model, cfg, "cpu")
+    assert not isinstance(predict, EvalForward)
+    images, cams = _eval_batch(3)
+    det = predict(images, cams)
+    want = EvalForward(model, cfg, torch.device("cpu")).eager(images, cams)
+    for f in want._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(det, f)), getattr(want, f), err_msg=f)
+
+
+def test_make_eval_forward_follows_the_models_mesh():
+    """On a card, the model's own mesh decides: one process captures, a mesh
+    of several processes predicts eagerly (no card is touched to decide)."""
+    model, cfg = _eval_model()
+    assert isinstance(make_eval_forward(model, cfg, "cuda"), EvalForward)
+    model.mesh = SimpleNamespace(processes=2)
+    predict = make_eval_forward(model, cfg, "cuda")
+    assert not isinstance(predict, EvalForward) and predict.__name__ == "eager"
 
 
 # ---------------------------------------------------------------------------
