@@ -119,7 +119,8 @@ Phases, each printing one JSON line of its own:
                with drop-connect, eager (colour ops grouped by op) and graphed
                (colour ops in fixed shapes inside the graph) with the same
                indices, draws and masks, bit-equal in losses and state; six steps of
-               each path in turns, timed; then, with the launch
+               each path in turns, timed, and of the deterministic graph beside
+               the default one (deterministic cuDNN's cost); then, with the launch
                counts reset just before and read just after, ``cli train``'s
                trainer (``cli.build_trainer``: phi-0, 256 px, fp32, batch 16,
                Adam 1e-4, frozen backbone, oversample 1) for one epoch over the
@@ -180,37 +181,56 @@ Phases, each printing one JSON line of its own:
                ``gt_0.yml`` must hash as the JAX generator's did; the artifact
                widened to two classes (``models/weights.py::widen_classes``)
                is saved as the start; four fixed steps of ``cli train
-               --object-ids 1,2``'s trainer held to
+               --object-ids 1,2``'s trainer through its step graph (object 2
+               is symmetric: the fixed-shape minimum distance in the graph)
+               held to
                ``hmd_ego_pose_tpu_torch/train/references/multi2_v3_train_steps.json``;
-               then one epoch (oversample 1, augmentation on: the multi-object
-               warp) and validation: every loss finite, ``target_assign`` once
-               per step, ``min_distances`` twice (once per class), the
-               checkpoints written and restored; the two-class validation
-               through one captured graph, its last batch replayed and eager
-               bit-equal.
+               the graph against the eager step (``variant_graph_against_eager``,
+               below); then one epoch through the graph (oversample 1,
+               augmentation on: the multi-object warp) and validation: every
+               loss finite, ``target_assign`` once per step, ``min_distances``
+               twice (once per class), the checkpoints written and restored;
+               the two-class validation through one captured graph, its last
+               batch replayed and eager bit-equal.
 14. train_windowed -- the v3 set's 600 train frames with
                ``device_resident_budget_bytes`` of a third of them: three
-               windows of 200 frames over one epoch, each window's index rows
-               cut to its first 2 steps (6 steps of the epoch's 36),
-               ``target_assign`` once per step; the device
-               memory held after each window's upload, over the model as
-               built, must stay within one window and Adam's moments (one
-               window resident at a time), and the peak is reported beside
-               the resident run's.
+               windows of 200 frames over one epoch through one step graph
+               over the window buffer (``data/device_dataset.py::WindowBuffer``,
+               filled in place), each window's index rows cut to its first 2
+               steps (6 steps of the epoch's 36), ``target_assign`` once per
+               step; one window resident at a time: the buffer one window's
+               bytes, every window at its address, and the memory held after
+               each fill, over the model and the buffer, within Adam's moments
+               and the graph's pool and not growing after the first window;
+               the peak beside the resident run's; the graph against the eager
+               step.
 15. train_host -- ``device_augment=False``: four fixed steps of host batches
-               (augmentation off) held to ``handrel_v3_train_steps.json``, the
-               largest gap between the host-preprocessed and the
-               device-preprocessed batch of step 0 per field, then an
-               augmented epoch through the host input pipeline (worker
-               threads) cut to its first 6 batches (of 37), then 2 steps of
-               batches made serially: step times and images/s beside
-               the resident run's.
+               (augmentation off) through the step graph (``HostGraph``)
+               held to ``handrel_v3_train_steps.json``, the largest gap
+               between the host-preprocessed and the device-preprocessed
+               batch of step 0 per field, then an augmented epoch through
+               the graph and the host input pipeline (worker threads) cut to
+               its first 6 batches (of 37), each wait for the next batch
+               timed apart from the replays; then the graph against the eager
+               step on three augmented batches made in this thread (the
+               host's ms to make one), and on two ``RawBatch``es of
+               ``device_resident=False`` (augmented in the graph).
 16. train_remat -- ``--no-freeze-backbone``, the same state, batch and
-               drop-connect seed through a remat and a plain step: losses
-               equal, BN statistics moved once (as the plain step's within
-               1e-5 relative), parameters finite and within 2 lr (one Adam
-               step); peak memory and step times of three steps of each
-               (five until PR 11).
+               drop-connect seed through one eager remat and one eager plain
+               step: losses equal, BN statistics moved once (as the plain
+               step's within 1e-5 relative), parameters finite and within 2 lr
+               (one Adam step); then each one's graph against its eager step
+               (remat's recompute inside the capture), the graphed remat step's
+               time over the graphed plain one's; then ``--fine-tune`` (Nesterov
+               SGD over a device learning rate) through its graph the same way.
+               ``variant_graph_against_eager``, in phases 13-16: with
+               ``cudnn.deterministic``, 2-3 steps from one state eagerly and
+               through a new graph, the same draws and masks: losses and state
+               bit-equal, ``target_assign`` once a step; two steps of each in
+               turns, timed; one replay profiled (0 kernel launch calls, one
+               graph launch); the graph's pool and the peak (the raw host
+               batches without turns, the plain and SGD steps without the
+               profile).
 17. export  -- ``cli export --ckpt trained/syn1000_phi0_576ep_handrel_int8.npz
                --quantize-int8`` on the card (phi-0, 256 px, fp32) into the
                temporary directory, with the launch counts reset just before
@@ -269,7 +289,6 @@ import faulthandler
 import hashlib
 import io
 import json
-import math
 import os
 import shutil
 import subprocess
@@ -841,8 +860,8 @@ class TimedGraph(StepTimes):
 class TimedStep(StepTimes):
     """Wraps a trainer's step: synchronised times of its parts (batch, augment
     and preprocess; forward + targets + loss; backward; optimizer update) and
-    each step's losses, read after the step.  Eager resident and windowed
-    epochs call it, the host pipeline's epochs call its ``host_step``."""
+    each step's losses, read after the step (the eager steps of a
+    data-parallel rank)."""
 
     PARTS = ("prepare", "forward", "backward", "optimizer")
 
@@ -887,31 +906,22 @@ class TimedStep(StepTimes):
     def __call__(self, data, idx, draws=None, generator=None):
         return self._timed(lambda: self.step.prepare(data, idx, draws), generator)
 
-    def host_step(self, batch, draws=None, generator=None):
-        return self._timed(lambda: self.step.prepare_host(batch, draws), generator)
-
 
 def profile_steps(trainer, steps: int = 1) -> dict:
-    """Device busy share of a few more (unsynchronised) train steps under
-    torch.profiler, and the kernels that take the most device time; None
-    where the profiler sees no device time.  A graphed trainer's steps are
-    replays of its graph: the kernels it runs against the launch calls and
-    ``cudaGraphLaunch`` calls the host makes."""
+    """Device busy share of a few more (unsynchronised) train steps of a
+    resident trainer under torch.profiler, and the kernels that take the most
+    device time; None where the profiler sees no device time.  The steps are
+    replays of the trainer's graph: the kernels it runs against the launch
+    calls and ``cudaGraphLaunch`` calls the host makes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     rows = trainer.pipeline.epoch_indices(1)[:steps]
-    if trainer.graphed:
-        graph = trainer.graph.graph if isinstance(trainer.graph, TimedGraph) else trainer.graph
-        graph.reset()
+    graph = trainer.graph.graph if isinstance(trainer.graph, TimedGraph) else trainer.graph
+    graph.reset()
 
-        def step(row):
-            graph(torch.from_numpy(row), trainer.draws(), trainer.generator)
-    else:
-        eager = trainer.step_fn.step if isinstance(trainer.step_fn, TimedStep) else trainer.step_fn
-
-        def step(row):
-            eager(trainer.data, torch.from_numpy(row).to(trainer.device), trainer.draws(), trainer.generator)
+    def step(row):
+        graph(torch.from_numpy(row), trainer.draws(), trainer.generator)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -981,15 +991,11 @@ def fixed_batch(trainer, s: int):
 
 
 def fit_timed(trainer) -> dict:
-    """``trainer.fit()`` with every step timed (``TimedGraph`` when the trainer
-    replays its step's graph, else ``TimedStep``) and validation timed; the
-    card synchronised at the end."""
+    """``trainer.fit()`` of a graphed trainer with every replay timed
+    (``TimedGraph``) and validation timed; the card synchronised at the end."""
     import torch
 
-    if trainer.graphed:
-        timed = trainer.graph = TimedGraph(trainer.graph)
-    else:
-        timed = trainer.step_fn = TimedStep(trainer.step_fn)
+    timed = trainer.graph = TimedGraph(trainer.graph)
     validate, val_s = trainer.validate, []
 
     def timed_validate(*a, **kw):
@@ -1210,7 +1216,9 @@ def graph_against_eager(trainer, reference: dict) -> dict:
        with the same indices, draws and masks; losses and every parameter
        and BN buffer bit-equal, or the phase fails;
     4. ``TURN_STEPS`` augmented steps of each path in turns (eager, graph,
-       graph, eager, ...), timed, with cuDNN's defaults (a graph of their own)."""
+       deterministic graph, then the reverse, ...), timed: the eager step and
+       a graph of its own with cuDNN's defaults, and the graph of 3 (captured
+       with ``cudnn.deterministic``: deterministic cuDNN's cost a replay)."""
     import numpy as np
     import torch
 
@@ -1281,7 +1289,7 @@ def graph_against_eager(trainer, reference: dict) -> dict:
         eager_state, eager_aug = clone(), torch.stack(eager_aug)
         restore_state(trainer, start)
         trainer.generator.manual_seed(5)
-        aug_graph = ResidentGraph(trainer.step_fn, trainer.data, AB_STEPS)
+        aug_graph = ResidentGraph(trainer.step_fn, trainer.data, AB_STEPS + TURN_STEPS)
         LAUNCHES.reset()
         for row in rows:
             aug_graph(torch.from_numpy(row), trainer.draws(), trainer.generator)
@@ -1289,28 +1297,30 @@ def graph_against_eager(trainer, reference: dict) -> dict:
         aug_state = state_gap(eager_state, clone())
     finally:
         torch.backends.cudnn.deterministic = False
-    aug_equal = torch.equal(aug_graph.metrics, eager_aug)
+    aug_equal = torch.equal(aug_graph.metrics[:AB_STEPS], eager_aug)
     if not aug_equal or aug_state["tensors_differing"] or aug_launches != AB_STEPS:
         raise AssertionError(f"with deterministic cuDNN the graphed augmented steps must be the eager ones bit for "
                              f"bit: losses equal {aug_equal}, state {aug_state}, target_assign {aug_launches}")
-    del aug_graph
 
-    # 4. step time in turns, cuDNN's defaults: eager, graph, graph, eager, ...
+    # 4. step time in turns: eager and graph with cuDNN's defaults, and the
+    # deterministic graph of 3: eager, graph, deterministic, deterministic, graph, eager, ...
     turn_graph = ResidentGraph(trainer.step_fn, trainer.data, TURN_STEPS)
     turn_graph(torch.from_numpy(rows[0]), trainer.draws(), trainer.generator)  # warm-up step and capture
     turn_graph.reset()
-    turns = {"eager": [], "graph": []}
-    order = [("eager", "graph"), ("graph", "eager")] * (TURN_STEPS // 2)
-    for i, path in enumerate(p for pair in order for p in pair):
+    graph_of = {"graph": turn_graph, "deterministic": aug_graph}
+    turns = {"eager": [], "graph": [], "deterministic": []}
+    order = [("eager", "graph", "deterministic"), ("deterministic", "graph", "eager")] * (TURN_STEPS // 2)
+    for i, path in enumerate(p for triple in order for p in triple):
         row, draws = rows[i % AB_STEPS], trainer.draws()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if path == "eager":
             trainer.step_fn(trainer.data, torch.from_numpy(row).to(dev), draws, trainer.generator)
         else:
-            turn_graph(torch.from_numpy(row), draws, trainer.generator)
+            graph_of[path](torch.from_numpy(row), draws, trainer.generator)
         torch.cuda.synchronize()
         turns[path].append((time.perf_counter() - t0) * 1e3)
+    del aug_graph, graph_of
     return {
         "reference_max_rel_gap": graph_gaps, "reference_steps": ref_steps,
         "reference_max_rel_gap_eager": eager_gaps, "reference_graph_s": ref_graph_s,
@@ -1321,7 +1331,144 @@ def graph_against_eager(trainer, reference: dict) -> dict:
         "turns_step_ms": turns,
         "turns_step_ms_p50": {k: float(np.median(v)) for k, v in turns.items()},
         "turns_graph_over_eager": float(np.median(turns["graph"]) / np.median(turns["eager"])),
+        "turns_deterministic_over_default_graph": float(np.median(turns["deterministic"])
+                                                        / np.median(turns["graph"])),
     }
+
+
+VARIANT_AB_STEPS = 3  # a variant's graph against its eager step: steps of each from one state
+VARIANT_TURNS = 2  # a variant's step times in turns: steps of each path
+VARIANT_GRAPH_ROWS = VARIANT_AB_STEPS + VARIANT_TURNS + 1  # and one profiled replay
+
+
+def graph_pool_mb(graph, device) -> float:
+    """The memory pool of a step's graph (a ``ResidentGraph`` or ``HostGraph``,
+    or a ``TimedGraph`` of one), MB."""
+    from hmd_ego_pose_tpu_torch.utils import graphs
+
+    graph = graph.graph if isinstance(graph, TimedGraph) else graph
+    return graphs.pool_bytes(graph.graph.graph.pool(), device) / 1e6
+
+
+def index_rows(frames: int, batch: int, steps: int = VARIANT_AB_STEPS, seed: int = 5) -> list:
+    """``steps`` seeded (batch,) index rows into ``frames`` frames, host int64 tensors."""
+    import numpy as np
+    import torch
+
+    rows = np.random.default_rng(seed).permutation(frames)[:steps * batch].reshape(steps, batch)
+    return [torch.from_numpy(r) for r in rows.astype(np.int64)]
+
+
+def profiled_calls(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: the kernels it ran, the launch,
+    graph-launch and copy calls the host made, and the profile's seconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    kernels = sum(e.count for e in on_device(averages) if not e.key.startswith(("Memcpy", "Memset")))
+    return {"kernels_per_step": kernels, **launch_calls(averages, 1, "step"), "profile_s": time.perf_counter() - t0}
+
+
+def variant_graph_against_eager(trainer, graph, sources, eager_step, drop: bool = True,
+                                turns: int = VARIANT_TURNS, profile: bool = True) -> dict:
+    """A training variant's graph against its eager step, from the trainer's
+    state, with ``torch.backends.cudnn.deterministic``:
+
+    1. the steps of ``sources`` (each step's source: an index row on the host
+       or a host pipeline's batch) through ``eager_step(source, draws,
+       generator)``, then from the same state through ``graph`` (a new
+       ``ResidentGraph`` or ``HostGraph`` of the trainer's step, with rows for
+       every step here), the trainer's generator seeded alike, so that both
+       take the same draws and drop-connect masks (``drop``): the losses and
+       every parameter and BN buffer bit-equal, ``target_assign`` once a
+       step, or the phase fails;
+    2. ``turns`` (even) steps of each in turns (eager, graph, graph, eager),
+       each synchronised and timed, both still with deterministic cuDNN;
+    3. with ``profile``, one more replay under torch.profiler: its kernels
+       and the launch, graph-launch and copy calls of the host;
+    4. the graph's memory pool and the peak memory of 1-3.
+
+    ``steps`` in the result counts the steps run (each launches
+    ``target_assign`` once, counted in ``kernels.LAUNCHES``)."""
+    import numpy as np
+    import torch
+
+    from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
+    from hmd_ego_pose_tpu_torch.ops.augment_device import Batch
+    from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES
+
+    start = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    generator = trainer.generator if drop else None
+
+    def draws(source):  # a host-augmented batch takes none
+        return None if isinstance(source, Batch) else trainer.draws()
+
+    def eager_losses(*args):
+        metrics = eager_step(*args)
+        return torch.stack([metrics[k] for k in METRIC_NAMES])
+
+    def run(step):
+        restore_state(trainer, start)
+        trainer.generator.manual_seed(5)
+        out = [step(source, draws(source), generator) for source in sources]
+        torch.cuda.synchronize()
+        return out, {k: v.clone() for k, v in trainer.model.state_dict().items()}
+
+    n, rows = len(sources), len(sources) + turns + int(profile)
+    if graph.steps < rows or graph.graph is not None:
+        raise ValueError(f"a new graph with rows for {rows} steps, got {graph.steps}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counted = LAUNCHES.get("target_assign")
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager_rows, eager_state = run(eager_losses)
+        _, graph_state = run(graph)
+        launches = LAUNCHES.get("target_assign") - counted
+        equal = torch.equal(graph.metrics[:n], torch.stack(eager_rows))
+        gap = state_gap(eager_state, graph_state)
+        if not equal or gap["tensors_differing"] or launches != 2 * n:
+            raise AssertionError(f"with deterministic cuDNN the graphed steps must be the eager ones bit for bit: "
+                                 f"losses equal {equal}, state {gap}, target_assign {launches} for {2 * n} steps")
+        times = {"eager": [], "graph": []}
+        order = [("eager", "graph"), ("graph", "eager")] * (turns // 2)
+        for i, path in enumerate(p for pair in order for p in pair):
+            source = sources[i % n]
+            step = eager_step if path == "eager" else graph
+            given = draws(source)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(source, given, generator)
+            torch.cuda.synchronize()
+            times[path].append((time.perf_counter() - t0) * 1e3)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        calls = None
+        if profile:
+            given = draws(sources[0])
+            counted = LAUNCHES.get("target_assign")
+            calls = profiled_calls(lambda: graph(sources[0], given, generator))
+            calls["target_assign"] = LAUNCHES.get("target_assign") - counted
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if calls is not None and (calls["launch_calls_per_step"] != 0 or calls["graph_launches_per_step"] != 1
+                              or calls["target_assign"] != 1):
+        raise AssertionError(f"a replay must make no kernel launch call, one graph launch and count target_assign "
+                             f"once: {calls}")
+    out = {
+        "steps": 2 * n + 2 * turns + int(profile), "deterministic_steps": n, "deterministic_bit_equal": True,
+        "target_assign_per_step": launches / (2 * n), "graph_pool_mb": graph_pool_mb(graph, trainer.device),
+        "peak_mem_gb": peak_gb, "profiled_replay": calls,
+    }
+    if turns:
+        out.update(turns_step_ms=times, turns_step_ms_p50={k: float(np.median(v)) for k, v in times.items()},
+                   turns_graph_over_eager=float(np.median(times["graph"]) / np.median(times["eager"])))
+    return out
 
 
 def phase_train(card: str, data: str, work: str) -> dict:
@@ -1904,15 +2051,17 @@ def phase_spatial(card: str, procs: list, go: str) -> dict:
 
 
 def phase_train_multi(card: str, work: str, generation: subprocess.Popen) -> dict:
-    """Two objects a frame: the 400-frame two-object set, the artifact widened to
-    two classes, four reference steps, then an epoch through cli train's
-    trainer with validation once per class."""
+    """Two objects a frame, object 2 symmetric: the 400-frame two-object set,
+    the artifact widened to two classes, four reference steps through the
+    step's graph, the graph against the eager step, then an epoch through cli
+    train's trainer (its graph) with validation once per class."""
     import torch
 
     from hmd_ego_pose_tpu_torch import cli
     from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
     from hmd_ego_pose_tpu_torch.models.weights import widen_classes
     from hmd_ego_pose_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES, ResidentGraph
     from hmd_ego_pose_tpu_torch.utils.logging import MetricLogger
 
     with open(MULTI_REFERENCE) as f:
@@ -1932,18 +2081,36 @@ def phase_train_multi(card: str, work: str, generation: subprocess.Popen) -> dic
     logger = MetricLogger(os.path.join(work, "runs"), stdout=False)
     with contextlib.redirect_stdout(io.StringIO()):
         ref_trainer = cli.build_trainer(args, logger=logger, checkpoint_dir=os.path.join(work, "multi_ref_ckpt"))
-    ref_gaps = hold_to_reference(
-        reference, lambda s: ref_trainer.step_fn(ref_trainer.data, fixed_batch(ref_trainer, s), None, None),
-        "multi-object training")
-    del ref_trainer
+    if not (ref_trainer.graphed and ref_trainer.step_fn.symmetric):
+        raise AssertionError("the two-object set (object 2 symmetric) must train through the step's graph")
+    graph = ref_trainer.graph
+    LAUNCHES.reset()
+
+    def graph_step(s):
+        graph(fixed_batch(ref_trainer, s).cpu(), None, None)
+        return dict(zip(METRIC_NAMES, graph.metrics[s]))
+
+    ref_gaps = hold_to_reference(reference, graph_step, "graphed multi-object training")
+    if LAUNCHES.get("target_assign") != len(reference["steps"]):
+        raise AssertionError(f"the graph must launch target_assign once per step, got {LAUNCHES.snapshot()}")
+    ref_pool_mb = graph_pool_mb(graph, ref_trainer.device)
+    variant = variant_graph_against_eager(
+        ref_trainer, ResidentGraph(ref_trainer.step_fn, ref_trainer.data, VARIANT_GRAPH_ROWS),
+        index_rows(len(ref_trainer.train_dataset), ref_trainer.config.train.batch_size),
+        lambda idx, draws, g: ref_trainer.step_fn(ref_trainer.data, idx.to(ref_trainer.device), draws, g))
+    del ref_trainer, graph
     torch.cuda.empty_cache()
 
     ckpt_dir = os.path.join(work, "multi_ckpt")
     LAUNCHES.reset()
+    torch.cuda.reset_peak_memory_stats()
     with contextlib.redirect_stdout(io.StringIO()):
         trainer = cli.build_trainer(args, logger=logger, oversample=1, checkpoint_dir=ckpt_dir)
+    if not trainer.graphed:
+        raise AssertionError("cli train's two-object trainer on the card must replay its step's graph")
     run = fit_timed(trainer)
     launches = LAUNCHES.snapshot()
+    epoch_pool_mb = graph_pool_mb(trainer.graph, trainer.device)
     timed, batch = run["timed"], trainer.config.train.batch_size
     steps = len(timed.step_ms)
     if trainer.config.model.num_classes != 2 or trainer.config.data.max_objects != 2:
@@ -1963,6 +2130,8 @@ def phase_train_multi(card: str, work: str, generation: subprocess.Popen) -> dic
     _, result = run["epochs"][-1]
     return {
         "reference_max_rel_gap": ref_gaps, "reference_tolerance_rel": reference["tolerance_rel"],
+        "reference_graph_pool_mb": ref_pool_mb, "graph_against_eager": variant, "graphed": True,
+        "epoch_graph_pool_mb": epoch_pool_mb, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
         "gt_0_yml_sha256": gt_hash, **generated, **timed.summary(batch),
         "frames": len(trainer.train_dataset), "val_frames": len(trainer.val_dataset), "fit_s": run["fit_s"],
         "validate_s": run["val_s"][0] if run["val_s"] else None, "eval_graph": eval_graph,
@@ -1972,9 +2141,23 @@ def phase_train_multi(card: str, work: str, generation: subprocess.Popen) -> dic
     }
 
 
+class FirstFrame:
+    """A dataset's first frame as a dataset of one (its per-frame bytes)."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def __len__(self):
+        return 1
+
+    def __getattr__(self, name):
+        return getattr(self.dataset, name)
+
+
 def phase_train_windowed(card: str, data: str, work: str, resident_peak_gb: float) -> dict:
     """The 600 train frames with a budget of a third of them (200 frames): three
-    windows, one resident at a time."""
+    windows through one buffer and one step graph, then the graph against the
+    eager step."""
     import torch
 
     from hmd_ego_pose_tpu_torch import cli
@@ -1982,11 +2165,11 @@ def phase_train_windowed(card: str, data: str, work: str, resident_peak_gb: floa
     from hmd_ego_pose_tpu_torch.data.device_dataset import build_host_cache
     from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
     from hmd_ego_pose_tpu_torch.train import trainer as trainer_module
+    from hmd_ego_pose_tpu_torch.train.step import ResidentGraph
     from hmd_ego_pose_tpu_torch.utils.logging import MetricLogger
 
-    cache = build_host_cache(ColibriDataset(data, 0, 1, "train"), 1)
-    per_frame, window = cache.bytes_per_frame(), cache.frames.shape[0] // 3
-    del cache
+    split = ColibriDataset(data, 0, 1, "train")
+    per_frame, window = build_host_cache(FirstFrame(split), 1).bytes_per_frame(), len(split) // 3
     args = cli.build_parser().parse_args(["train", "--dataset-path", data, "--ckpt", ARTIFACT, "--epo", "1"])
     LAUNCHES.reset()
     torch.cuda.reset_peak_memory_stats()
@@ -1994,36 +2177,38 @@ def phase_train_windowed(card: str, data: str, work: str, resident_peak_gb: floa
         trainer = cli.build_trainer(args, logger=MetricLogger(os.path.join(work, "runs"), stdout=False),
                                     data_overrides={"device_resident_budget_bytes": window * per_frame + 1024},
                                     oversample=1, checkpoint_dir=os.path.join(work, "windowed_ckpt"))
-    if trainer.path != "windowed" or trainer.window_frames != window:
-        raise AssertionError(f"expected windows of {window} frames, got the {trainer.path} path "
-                             f"({trainer.window_frames} frames)")
-    base = torch.cuda.memory_allocated()
-    resident, upload = [], trainer_module.upload_window
+    if trainer.path != "windowed" or trainer.window_frames != window or not trainer.graphed:
+        raise AssertionError(f"expected graphed windows of {window} frames, got the {trainer.path} path "
+                             f"({trainer.window_frames} frames, graphed {trainer.graphed})")
+    # the window buffer is allocated with the trainer: each window fills it in place
+    buffer_bytes = sum(t.numel() * t.element_size() for t in trainer.window.data)
+    base, address = torch.cuda.memory_allocated(), trainer.window.data.frames.data_ptr()
+    resident, fill = [], trainer.window.fill
 
-    def one_window(cache, rows, device):
-        if trainer.data is not None:
-            raise AssertionError("a window was uploaded while the previous one was still held")
-        out = upload(cache, rows, device)
+    def one_window(cache, rows):
+        out = fill(cache, rows)
         torch.cuda.synchronize()
+        if out.frames.data_ptr() != address:
+            raise AssertionError("a window was uploaded somewhere else than the window buffer")
         resident.append(torch.cuda.memory_allocated() - base)
         return out
 
-    timed = TimedStep(trainer.step_fn)
-    trainer.step_fn = timed
+    trainer.window.fill = one_window
+    timed = trainer.graph = TimedGraph(trainer.graph)
     plan = trainer_module.window_plan
     per_window = VARIANT_STEPS // 3
 
     def short_plan(*a, **kw):  # each window's index rows cut to its first per_window steps
         return [(rows, idxs[:per_window]) for rows, idxs in plan(*a, **kw)]
 
-    trainer_module.upload_window, trainer_module.window_plan = one_window, short_plan
+    trainer_module.window_plan = short_plan
     try:
         t0 = time.perf_counter()
         metrics = trainer.train_epoch(0)
         torch.cuda.synchronize()
         epoch_s = time.perf_counter() - t0
     finally:
-        trainer_module.upload_window, trainer_module.window_plan = upload, plan
+        trainer_module.window_plan = plan
     launches = LAUNCHES.snapshot()
     batch, steps = trainer.config.train.batch_size, len(timed.step_ms)
     window_bytes = window * per_frame
@@ -2032,30 +2217,44 @@ def phase_train_windowed(card: str, data: str, work: str, resident_peak_gb: floa
     timed.check_finite()
     if launches.get("target_assign", 0) != steps:
         raise AssertionError(f"target_assign must launch once per step ({steps}), got {launches}")
-    # over the model as built: one window, and Adam's two moments from the first step on
+    # one window resident: the buffer holds one window, and after the first
+    # window's steps (Adam's moments, the graph's memory) nothing grows but the
+    # windows' means (bytes)
+    pool_mb = graph_pool_mb(timed, trainer.device)
     adam_bytes = 2 * sum(p.numel() * p.element_size() for p in trainer.optimizer.params)
-    if max(resident) > window_bytes + adam_bytes + (1 << 20):
-        raise AssertionError(f"more than one window resident: {resident} bytes over the model's state, "
-                             f"a window is {window_bytes}, Adam's moments {adam_bytes}")
+    if (buffer_bytes > window_bytes + 1024 or max(resident[1:]) - min(resident[1:]) > (1 << 20)
+            or max(resident) > adam_bytes + pool_mb * 1e6 + (1 << 20)):
+        raise AssertionError(f"more than one window resident: a buffer of {buffer_bytes} bytes for a window of "
+                             f"{window_bytes}, {resident} bytes over the model and buffer after each fill "
+                             f"(Adam's moments {adam_bytes}, the graph's pool {pool_mb} MB)")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    variant = variant_graph_against_eager(
+        trainer, ResidentGraph(trainer.step_fn, trainer.window.data, VARIANT_GRAPH_ROWS),
+        index_rows(trainer.windows[-1], batch),
+        lambda idx, draws, g: trainer.step_fn(trainer.data, idx.to(trainer.device), draws, g))
     return {
         **timed.summary(batch), "windows": trainer.windows, "window_mb": window_bytes / 1e6,
-        "split_mb": per_frame * len(trainer.train_dataset) / 1e6, "epoch_s": epoch_s,
-        "data_resident_mb_after_each_upload": [r / 1e6 for r in resident], "adam_moments_mb": adam_bytes / 1e6,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30, "resident_run_peak_mem_gb": resident_peak_gb,
-        "launches": launches, "card": card,
+        "buffer_mb": buffer_bytes / 1e6, "split_mb": per_frame * len(trainer.train_dataset) / 1e6,
+        "epoch_s": epoch_s, "held_mb_after_each_fill": [r / 1e6 for r in resident],
+        "adam_moments_mb": adam_bytes / 1e6, "epoch_graph_pool_mb": pool_mb, "graph_against_eager": variant,
+        "peak_mem_gb": peak_gb, "resident_run_peak_mem_gb": resident_peak_gb, "launches": launches, "card": card,
     }
 
 
 def phase_train_host(card: str, data: str, work: str, resident: dict) -> dict:
     """device_augment=False: the host input pipeline.  Four fixed steps
-    (augmentation off) held to the resident path's JAX reference, then an
-    augmented epoch cut to ``VARIANT_STEPS`` batches (4 worker threads), then
-    four steps whose batches are made in this thread."""
+    (augmentation off) through the step's graph (``HostGraph``), held to the
+    resident path's JAX reference, then an augmented epoch through the graph
+    cut to ``VARIANT_STEPS`` batches (4 worker threads), the input's wait
+    apart from the replays; then the graph against the eager step on batches
+    made in this thread, for ``Batch`` and for ``RawBatch`` sources."""
     import numpy as np
     import torch
 
     from hmd_ego_pose_tpu_torch import cli
     from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
+    from hmd_ego_pose_tpu_torch.ops.augment_device import Batch, RawBatch
+    from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES, HostGraph
     from hmd_ego_pose_tpu_torch.utils.logging import MetricLogger
 
     with open(TRAIN_REFERENCE) as f:
@@ -2066,7 +2265,9 @@ def phase_train_host(card: str, data: str, work: str, resident: dict) -> dict:
     with contextlib.redirect_stdout(io.StringIO()):
         ref_trainer = cli.build_trainer(args, logger=logger, data_overrides=off,
                                         checkpoint_dir=os.path.join(work, "host_ref_ckpt"))
-        device_trainer = cli.build_trainer(args, logger=logger, checkpoint_dir=os.path.join(work, "host_ref_ckpt"))
+        # raw batches preprocessed on the device (and, at the end, augmented in the graph)
+        raw_trainer = cli.build_trainer(args, logger=logger, data_overrides={"device_resident": False},
+                                        checkpoint_dir=os.path.join(work, "host_ckpt"))
     batch = ref_trainer.config.train.batch_size
     seeds = np.zeros(batch, np.int64)
 
@@ -2075,28 +2276,56 @@ def phase_train_host(card: str, data: str, work: str, resident: dict) -> dict:
 
     # the same batch from the host preprocess and from the device one
     host = ref_trainer.step_fn.prepare_host(host_batch(0))
-    dev = device_trainer.step_fn.prepare(device_trainer.data, fixed_batch(device_trainer, 0), None)
+    dev = raw_trainer.step_fn.prepare_host(raw_trainer.pipeline._make_raw_batch(np.arange(batch), seeds))
     batch_gap = {name: float((a.double() - b.double()).abs().max()) for name, a, b in zip(host._fields, host, dev)}
-    del device_trainer
-    gaps = hold_to_reference(reference, lambda s: ref_trainer.step_fn.host_step(host_batch(s)),
-                             "host-pipeline training")
-    del ref_trainer
+    del host, dev
+    if not isinstance(ref_trainer.graph, HostGraph):
+        raise AssertionError(f"the host pipeline's trainer on the card must hold a HostGraph, got {ref_trainer.graph}")
+    graph = ref_trainer.graph
+    LAUNCHES.reset()
+
+    def graph_step(s):
+        graph(host_batch(s), None, None)
+        return dict(zip(METRIC_NAMES, graph.metrics[s]))
+
+    gaps = hold_to_reference(reference, graph_step, "graphed host-pipeline training")
+    if LAUNCHES.get("target_assign") != len(reference["steps"]):
+        raise AssertionError(f"the graph must launch target_assign once per step, got {LAUNCHES.snapshot()}")
+    del ref_trainer, graph
     torch.cuda.empty_cache()
 
     LAUNCHES.reset()
     with contextlib.redirect_stdout(io.StringIO()):
         trainer = cli.build_trainer(args, logger=logger, data_overrides={"device_augment": False}, oversample=1,
                                     checkpoint_dir=os.path.join(work, "host_ckpt"))
-    timed = TimedStep(trainer.step_fn)
-    trainer.step_fn = timed
-    # the epoch cut to its first VARIANT_STEPS batches (the sampler's rows as drawn)
-    epoch_indices = trainer.pipeline.epoch_indices
+    if not trainer.graphed:
+        raise AssertionError("the host pipeline's trainer on the card must replay its step's graph")
+    timed = trainer.graph = TimedGraph(trainer.graph)
+    # the epoch cut to its first VARIANT_STEPS batches (the sampler's rows as
+    # drawn), each wait for the pipeline's next batch timed apart from the replays
+    epoch_indices, batches, waits = trainer.pipeline.epoch_indices, trainer.pipeline.batches, []
     trainer.pipeline.epoch_indices = lambda oversample=1: epoch_indices(oversample)[:VARIANT_STEPS]
+
+    def waited(*a, **kw):
+        made = batches(*a, **kw)
+        try:
+            while True:
+                t = time.perf_counter()
+                try:
+                    out = next(made)
+                except StopIteration:
+                    return
+                waits.append((time.perf_counter() - t) * 1e3)
+                yield out
+        finally:
+            made.close()
+
+    trainer.pipeline.batches = waited
     t0 = time.perf_counter()
     metrics = trainer.train_epoch(0)
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
-    trainer.pipeline.epoch_indices = epoch_indices
+    trainer.pipeline.epoch_indices, trainer.pipeline.batches = epoch_indices, batches
     launches = LAUNCHES.snapshot()
     steps = len(timed.step_ms)
     if trainer.path != "host" or not steps == metrics["steps"] == VARIANT_STEPS:
@@ -2104,23 +2333,37 @@ def phase_train_host(card: str, data: str, work: str, resident: dict) -> dict:
     timed.check_finite()
     if launches.get("target_assign", 0) != steps:
         raise AssertionError(f"target_assign must launch once per step ({steps}), got {launches}")
-    # two more steps with each batch made in this thread before its step: the
-    # step's parts with no worker thread running beside the launches, and the
-    # host's time to make one augmented batch
+    pool_mb = graph_pool_mb(timed, trainer.device)
+
+    # the graph against the eager step on augmented batches made in this thread
+    # (the host's time to make one), host-preprocessed and raw
     serial = trainer.pipeline.batches(oversample=1, num_workers=1)
-    make_ms = []
-    for _ in range(2):
+    make_ms, made = [], []
+    for _ in range(VARIANT_AB_STEPS):
         t = time.perf_counter()
-        made = next(serial)
+        made.append(next(serial))
         make_ms.append((time.perf_counter() - t) * 1e3)
-        timed.host_step(made, None, trainer.generator)
     serial.close()
-    timed.check_finite()
+    if not all(isinstance(b, Batch) for b in made):
+        raise AssertionError("device_augment=False must give host-preprocessed batches")
+    variant = variant_graph_against_eager(trainer, HostGraph(trainer.step_fn, VARIANT_GRAPH_ROWS), made,
+                                          trainer.step_fn.host_step)
+    del trainer, made
+    torch.cuda.empty_cache()
+    serial = raw_trainer.pipeline.batches(oversample=1, num_workers=1)
+    raw = [next(serial) for _ in range(2)]
+    serial.close()
+    if raw_trainer.path != "host" or not all(isinstance(b, RawBatch) for b in raw):
+        raise AssertionError(f"device_resident=False must feed raw batches to the host path, got {raw_trainer.path}")
+    raw_variant = variant_graph_against_eager(raw_trainer, HostGraph(raw_trainer.step_fn, len(raw)), raw,
+                                              raw_trainer.step_fn.host_step, turns=0, profile=False)
     return {
         "reference_max_rel_gap": gaps, "reference_tolerance_rel": reference["tolerance_rel"],
-        "host_vs_device_batch_max_abs": batch_gap, **timed.summary(batch, 0, steps), "epoch_s": epoch_s,
-        "serial": {**timed.summary(batch, steps), "make_batch_ms_p50": float(np.median(make_ms))},
-        "workers": trainer.config.data.num_workers,
+        "host_vs_device_batch_max_abs": batch_gap, **timed.summary(batch), "epoch_s": epoch_s,
+        "input_wait_ms": waits, "input_wait_ms_p50": float(np.median(waits)),
+        "replay_ms_p50": float(np.median(timed.step_ms[1:])), "make_batch_ms_p50": float(np.median(make_ms)),
+        "workers": raw_trainer.config.data.num_workers, "epoch_graph_pool_mb": pool_mb,
+        "graph_against_eager": variant, "raw_graph_against_eager": raw_variant,
         "resident_step_ms_p50": resident["step_ms_p50"], "resident_images_per_s": resident["images_per_s"],
         "launches": launches, "card": card,
     }
@@ -2128,48 +2371,65 @@ def phase_train_host(card: str, data: str, work: str, resident: dict) -> dict:
 
 def phase_train_remat(card: str, data: str, work: str) -> dict:
     """remat_backbone with the backbone trainable: the same state, batch and
-    drop-connect seed through a remat and a plain step; then two more steps
-    of each for their times."""
+    drop-connect seed through one eager remat and one eager plain step (their
+    losses equal, the BN statistics moved once); then each one's graph
+    against its eager step, with the graphs' times in turns, peaks and
+    pools; then ``--fine-tune`` (Nesterov SGD) through its graph the same way."""
     import numpy as np
     import torch
 
     from hmd_ego_pose_tpu_torch import cli
     from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
+    from hmd_ego_pose_tpu_torch.train.state import NesterovSGD
+    from hmd_ego_pose_tpu_torch.train.step import ResidentGraph
     from hmd_ego_pose_tpu_torch.utils.logging import MetricLogger
 
-    args = cli.build_parser().parse_args(["train", "--dataset-path", data, "--ckpt", ARTIFACT, "--epo", "1",
-                                          "--no-freeze-backbone"])
+    argv = ["train", "--dataset-path", data, "--ckpt", ARTIFACT, "--epo", "1"]
     off = {"use_6dof_augmentation": False, "use_colorspace_augmentation": False}
-    runs, states, lr = {}, {}, None
+    runs, states, lr, steps = {}, {}, None, 0
     LAUNCHES.reset()
-    for remat in (True, False):
+
+    def build(extra, remat):
         with contextlib.redirect_stdout(io.StringIO()):
-            trainer = cli.build_trainer(args, logger=MetricLogger(os.path.join(work, "runs"), stdout=False),
+            trainer = cli.build_trainer(cli.build_parser().parse_args(argv + extra),
+                                        logger=MetricLogger(os.path.join(work, "runs"), stdout=False),
                                         data_overrides=off, model_overrides={"remat_backbone": remat},
                                         checkpoint_dir=os.path.join(work, "remat_ckpt"))
+        if not trainer.graphed:
+            raise AssertionError(f"the trainer of {extra}, remat {remat} on the card must replay its step's graph")
+        batch = trainer.config.train.batch_size
+        sources = [torch.arange(batch * s, batch * (s + 1)) for s in range(VARIANT_AB_STEPS)]
+
+        def eager(idx, draws, generator):
+            return trainer.step_fn(trainer.data, idx.to(trainer.device), draws, generator)
+
+        return trainer, sources, eager
+
+    for remat in (True, False):
+        trainer, sources, eager = build(["--no-freeze-backbone"], remat)
         lr = trainer.config.train.learning_rate
         before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
-        ms, peaks, later = [], [], []
-        for s in range(3):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            m = trainer.step_fn(trainer.data, fixed_batch(trainer, s), None, torch.Generator().manual_seed(5))
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
-            if s == 0:
-                first = {k: float(v) for k, v in m.items()}
-                states[remat] = ({k: v.clone() for k, v in trainer.model.state_dict().items()}, first)
-            else:
-                later.append(float(m["loss"]))
-        runs["remat" if remat else "plain"] = {"step_ms": ms, "step_ms_p50_after_first": float(np.median(ms[1:])),
-                                               "peak_mem_gb_first_step": peaks[0],
-                                               "peak_mem_gb": max(peaks), "losses_first": first,
-                                               "losses_later": later}
-        del trainer
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer.generator.manual_seed(5)
+        t0 = time.perf_counter()
+        m = eager(sources[0], None, trainer.generator)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        first = {k: float(v) for k, v in m.items()}
+        states[remat] = ({k: v.clone() for k, v in trainer.model.state_dict().items()}, first)
+        eager_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        restore_state(trainer, before)
+        # the plain step is the baseline: two steps, its times, no profile
+        n = len(sources) if remat else 2
+        variant = variant_graph_against_eager(
+            trainer, ResidentGraph(trainer.step_fn, trainer.data, n + VARIANT_TURNS + int(remat)), sources[:n], eager,
+            profile=remat)
+        steps += 1 + variant["steps"]
+        runs["remat" if remat else "plain"] = {"eager_step_ms_first": first_ms, "eager_peak_mem_gb_first_step": eager_peak,
+                                               "losses_first": first, "graph_against_eager": variant}
+        del trainer, eager
         torch.cuda.empty_cache()
-    launches = LAUNCHES.snapshot()
     (r_state, r_loss), (p_state, p_loss) = states[True], states[False]
     if r_loss != p_loss:
         raise AssertionError(f"remat changed the step's losses: {r_loss} against {p_loss}")
@@ -2189,18 +2449,33 @@ def phase_train_remat(card: str, data: str, work: str) -> dict:
     # differ in a noise-level gradient's sign put it at most 2 lr apart
     if not param_gap <= 2 * lr + 1e-6:
         raise AssertionError(f"remat and plain steps' parameters differ by {param_gap} > 2 lr")
-    later = [v for run in runs.values() for v in run["losses_later"]]
-    if not all(math.isfinite(v) for v in later):
-        raise AssertionError(f"non-finite losses in the later steps: {later}")
     backbone_moved = any(not torch.equal(p_state[k], before[k]) for k in params if k.startswith("backbone_net."))
     if not backbone_moved:
         raise AssertionError("the backbone did not train (--no-freeze-backbone)")
-    if launches.get("target_assign", 0) != 6:
-        raise AssertionError(f"target_assign must launch once per step (6), got {launches}")
+
+    # fine_tune: Nesterov SGD over a device learning rate, through its graph
+    trainer, sources, eager = build(["--fine-tune"], False)
+    if not isinstance(trainer.optimizer.opt, NesterovSGD):
+        raise AssertionError(f"--fine-tune must train with NesterovSGD, got {trainer.optimizer.opt!r}")
+    before = {k: v.clone() for k, v in trainer.model.state_dict().items() if not k.startswith("backbone_net.")}
+    sgd = variant_graph_against_eager(trainer, ResidentGraph(trainer.step_fn, trainer.data, 2 + VARIANT_TURNS),
+                                      sources[:2], eager, profile=False)
+    steps += sgd["steps"]
+    after = trainer.model.state_dict()
+    sgd["head_tensors_moved"] = sum(not torch.equal(after[k], v) for k, v in before.items())
+    if not sgd["head_tensors_moved"] or not all(torch.isfinite(after[k]).all() for k in before):
+        raise AssertionError(f"SGD's steps left the parameters unmoved or non-finite: {sgd['head_tensors_moved']} moved")
+    del trainer, eager
+    torch.cuda.empty_cache()
+    launches = LAUNCHES.snapshot()
+    if launches.get("target_assign", 0) != steps:
+        raise AssertionError(f"target_assign must launch once per step ({steps}), got {launches}")
+    graph_ms = {k: float(np.median(r["graph_against_eager"]["turns_step_ms"]["graph"])) for k, r in runs.items()}
     return {
         **runs, "losses_equal": True, "bn_stats_moved": len(moved), "bn_stat_max_rel_gap": stat_gap,
         "param_max_abs_gap": param_gap,
         "params_differing": sum(int((r_state[k] != p_state[k]).sum()) for k in params),
+        "remat_over_plain_graph_step": graph_ms["remat"] / graph_ms["plain"], "sgd": sgd,
         "launches": launches, "card": card,
     }
 

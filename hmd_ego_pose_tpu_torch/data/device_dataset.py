@@ -6,9 +6,12 @@ training splits are a few hundred frames: the v3 set's 600 train frames at
 are uploaded once, and each step the host sends a (B,) index vector.
 
 ``build_host_cache`` decodes the split into host arrays, ``upload_window``
-uploads them (all, or the rows of one window: a split larger than the
-trainer's budget goes up one window at a time), ``gather_raw_batch`` gathers
-a batch on the device.
+uploads them (all, or the rows of one window), ``gather_raw_batch`` gathers
+a batch on the device.  A split larger than the trainer's budget goes up one
+window at a time into a ``WindowBuffer``: one window's rows, allocated once
+and filled in place for each window, so that the window is the only one on
+the device and a captured CUDA graph of the step reads every window at the
+same addresses (``train/step.py::ResidentGraph``).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from hmd_ego_pose_tpu_torch.ops.augment_device import RawBatch
+from hmd_ego_pose_tpu_torch.utils.device import PackedFields
 
 
 class HostCache(NamedTuple):
@@ -101,6 +105,30 @@ def upload_window(cache: HostCache, rows: Optional[np.ndarray], device: torch.de
         return np.ascontiguousarray(a if rows is None else a[rows])
 
     return DeviceData(*(torch.from_numpy(sel(a)).to(device) for a in cache))
+
+
+class WindowBuffer:
+    """``frames`` rows of every field of a ``HostCache`` on ``device``, packed
+    in one buffer (``utils/device.py::PackedFields``: pinned host staging of
+    the same layout, one host-to-device copy a window).  ``data`` holds the
+    fields as a ``DeviceData`` of views at fixed addresses."""
+
+    def __init__(self, cache: HostCache, frames: int, device: torch.device):
+        self.frames = frames
+        self.packed = PackedFields({name: ((frames,) + a.shape[1:], torch.from_numpy(a[:0]).dtype)
+                                    for name, a in zip(HostCache._fields, cache)}, device)
+        self.data = DeviceData(*(self.packed[name] for name in HostCache._fields))
+
+    def fill(self, cache: HostCache, rows: np.ndarray) -> DeviceData:
+        """Copy the cache's ``rows`` (at most ``frames``) into the first rows of
+        the buffer; the rows after them keep what they held.  Returns ``data``."""
+        if len(rows) > self.frames:
+            raise ValueError(f"{len(rows)} rows for a window of {self.frames} frames")
+        self.packed.wait()  # the last window's copy has left the host buffer
+        for name, a in zip(HostCache._fields, cache):
+            np.take(a, rows, axis=0, out=self.packed.host[name].numpy()[:len(rows)])
+        self.packed.upload()
+        return self.data
 
 
 def gather_raw_batch(data: DeviceData, idx: torch.Tensor) -> RawBatch:

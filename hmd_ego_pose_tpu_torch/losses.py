@@ -13,16 +13,24 @@ below the cap, fills with the lowest-index negatives (masked out).
 score with a stable descending sort: the same anchors, in the same order,
 whatever the device; above the cap the same lowest-index positives are kept.
 
-Symmetric objects take the mean closest-point distance, which needs a
-(P3D x P3D) distance matrix per anchor; it is computed only for the anchors
-of symmetric objects.  ``symmetric`` says whether any ground truth may be
-symmetric: a caller that knows its data passes it (the trainer does),
-``None`` reads it off the targets (one host read).
+Symmetric objects take the mean closest-point distance, in the JAX
+package's fixed shape: the minimum distance of every anchor of the capped
+slice, then a select by ``is_sym`` between it and the paired distance.  No
+value is read back and no shape depends on the data, so a CUDA graph of the
+train step holds it (``train/step.py``); graph and eager run this one form on
+every device.  The minimum needs a (P3D x P3D) distance matrix per anchor:
+``min_squared_distance`` computes it ``MIN_DISTANCE_CHUNK`` anchors at a
+time and keeps none of it for the backward pass, which computes each chunk
+again; its gradient spreads evenly over tied minima, as ``torch.amin``'s
+and JAX's ``min``'s do.  ``symmetric`` says whether any ground truth may be
+symmetric (a flag fixed per dataset: the trainer passes it); ``False`` skips
+the minimum, which changes nothing, since the select would take the paired
+distance everywhere.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
@@ -31,6 +39,10 @@ from hmd_ego_pose_tpu_torch.ops.geometry import rotate_points_axis_angle
 from hmd_ego_pose_tpu_torch.ops.target_assign import AnchorTargets
 
 _PI = 3.141592653589793
+# anchors a chunk of the minimum distance: its (chunk, P3D, P3D, 3) differences
+# at 500 points are 192 MB, against 6.1 GB for the 2,048 anchors of a batch of
+# 16 at two objects (a 128-anchor slice an image)
+MIN_DISTANCE_CHUNK = 64
 
 
 class LossBundle(NamedTuple):
@@ -86,8 +98,53 @@ def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx[:, :, None].expand(-1, -1, x.shape[-1]))
 
 
+class _MinSquaredDistance(torch.autograd.Function):
+    """(M, P, 3) a, (M, Q, 3) b -> (M, P): ``amin(sum((a_i - b_j) ** 2), j)``
+    per row, ``MIN_DISTANCE_CHUNK`` rows at a time; the backward pass
+    computes each chunk's squared distances again (nothing of size P x Q is
+    saved) and gives each tied minimum an equal share of the gradient."""
+
+    @staticmethod
+    def _squared(a, b):
+        diff = a[:, :, None, :] - b[:, None, :, :]
+        return diff, torch.sum(diff * diff, dim=-1)
+
+    @staticmethod
+    def forward(ctx, a, b):
+        out = a.new_empty(a.shape[:2])
+        for s in range(0, a.shape[0], MIN_DISTANCE_CHUNK):
+            e = s + MIN_DISTANCE_CHUNK
+            out[s:e] = torch.amin(_MinSquaredDistance._squared(a[s:e], b[s:e])[1], dim=-1)
+        ctx.save_for_backward(a, b, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b, out = ctx.saved_tensors
+        need_a, need_b = ctx.needs_input_grad
+        grad_a = torch.zeros_like(a) if need_a else None
+        grad_b = torch.zeros_like(b) if need_b else None
+        for s in range(0, a.shape[0], MIN_DISTANCE_CHUNK):
+            e = s + MIN_DISTANCE_CHUNK
+            diff, d2 = _MinSquaredDistance._squared(a[s:e], b[s:e])
+            ties = d2 == out[s:e, :, None]
+            share = grad[s:e, :, None] / torch.sum(ties, dim=-1, keepdim=True)
+            g_diff = (2.0 * torch.where(ties, share, torch.zeros_like(share)))[..., None] * diff
+            if need_a:
+                grad_a[s:e] = torch.sum(g_diff, dim=2)
+            if need_b:
+                grad_b[s:e] = -torch.sum(g_diff, dim=1)
+        return grad_a, grad_b
+
+
+def min_squared_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, P, 3), (M, Q, 3) -> (M, P): each point of ``a``'s squared distance
+    to the closest point of ``b`` in the same row."""
+    return _MinSquaredDistance.apply(a, b)
+
+
 def transformation_loss(gt_transformation, pred_transformation, state, model_3d_points,
-                        max_positive_anchors: int = 64, symmetric: Optional[bool] = None):
+                        max_positive_anchors: int = 64, symmetric: bool = True):
     """Rotation point distance and translation smooth-L1 -> two (B,) losses.
 
     Args:
@@ -115,15 +172,10 @@ def transformation_loss(gt_transformation, pred_transformation, state, model_3d_
     rotated_gt = rotate_points_axis_angle(points, rot_gt)
 
     per_anchor = torch.mean(torch.linalg.norm(rotated_pred - rotated_gt, dim=-1), dim=-1)  # (B, P)
-    if symmetric is None:
-        symmetric = bool(is_sym.any())
-    if symmetric:
-        sel = is_sym.nonzero(as_tuple=True)
-        a, b = rotated_pred[sel], rotated_gt[sel]  # (M, P3D, 3)
-        diff = a[:, :, None, :] - b[:, None, :, :]
-        d2 = torch.sum(diff * diff, dim=-1)
-        min_d = torch.sqrt(torch.clamp(torch.amin(d2, dim=-1), min=1e-12))
-        per_anchor = per_anchor.index_put(sel, torch.mean(min_d, dim=-1))
+    if symmetric:  # every anchor's minimum distance, then the select (JAX's fixed shape)
+        d2 = min_squared_distance(rotated_pred.flatten(0, 1), rotated_gt.flatten(0, 1))
+        min_d = torch.sqrt(torch.clamp(d2, min=1e-12)).view(per_anchor.shape + (-1,))
+        per_anchor = torch.where(is_sym, torch.mean(min_d, dim=-1), per_anchor)
 
     validf = valid.to(torch.float32)
     capped_pos = torch.clamp(torch.sum(validf, dim=1), min=1.0)
@@ -139,7 +191,7 @@ def transformation_loss(gt_transformation, pred_transformation, state, model_3d_
 
 def total_loss(targets: AnchorTargets, classification, regression, rotation, translation, hand,
                model_3d_points, config: LossConfig = LossConfig(),
-               symmetric: Optional[bool] = None) -> LossBundle:
+               symmetric: bool = True) -> LossBundle:
     """Batch loss with the reference's weighting; every prediction is (B, N, D),
     the per-image losses are averaged over the batch."""
     transformation_pred = torch.cat([rotation, translation], dim=-1)

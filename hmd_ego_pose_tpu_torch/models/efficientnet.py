@@ -29,7 +29,15 @@ training forward in ``torch.utils.checkpoint`` (non-reentrant): the block
 keeps only its inputs, its drop-connect mask among them, and runs again in
 the backward pass.  The recompute leaves the BN running statistics alone
 (``BatchNorm.update_stats``), so they move once per step, as without remat;
-outputs and gradients are those of the plain forward.
+outputs and gradients are those of the plain forward.  The checkpoint does
+not save and restore the RNG states (``preserve_rng_state=False``): a block
+draws no randomness, its drop-connect mask being an input computed from
+uniforms drawn before the blocks run, and the CUDA generator's state cannot
+be read while a CUDA graph is being captured, so a captured train step
+(``train/step.py::ResidentGraph``) holds the recompute.  The call count that
+decides which call moves the statistics is Python's: a capture runs that
+Python once, so the graph records one forward that moves them and one
+recompute that does not, and each replay moves them once.
 """
 
 from __future__ import annotations
@@ -197,7 +205,7 @@ class EfficientNet(nn.Module):
             mask = draws[i] < keep if draws is not None and block.residual and keep < 1.0 else None
             if self.remat and self.training:
                 x = torch.utils.checkpoint.checkpoint(_first_call_moves_stats(block, keep, h), x, mask,
-                                                      use_reentrant=False)
+                                                      use_reentrant=False, preserve_rng_state=False)
             else:
                 x = block(x, mask, keep, h)
             h = out_height(h, spec["stride"])

@@ -1,12 +1,12 @@
-"""The optimizer of training: Adam, or SGD with Nesterov momentum, on ``torch.optim``.
+"""The optimizer of training: Adam (``torch.optim``), or SGD with Nesterov momentum.
 
 Counterpart of ``hmd_ego_pose_tpu/train/state.py`` (optax):
 
 * Adam(lr, b1 0.9, b2 0.999, eps 1e-8, each rounded to float32 as optax
-  holds them) for training, SGD(lr, momentum 0.9,
-  Nesterov) for ``fine_tune``: the same update formulas as optax's ``adam``
-  and ``sgd(nesterov=True)``, rounded differently (agreement is a float32
-  tolerance, not bits);
+  holds them) for training, ``NesterovSGD`` (lr, momentum 0.9) for
+  ``fine_tune``: the same update formulas as optax's ``adam`` and
+  ``sgd(nesterov=True)`` (Adam rounded differently: agreement is a float32
+  tolerance, not bits; ``NesterovSGD`` rounds as optax run op by op);
 * ``freeze_backbone``: optax's ``multi_transform`` with ``set_to_zero``
   keeps the backbone bit-identical and keeps no moments for it; here the
   backbone's parameters are not given to ``torch.optim`` at all and take no
@@ -17,15 +17,15 @@ Counterpart of ``hmd_ego_pose_tpu/train/state.py`` (optax):
   gradient becomes ``(g / norm) * limit``, with no epsilon
   (``torch.nn.utils.clip_grad_norm_`` adds 1e-6, so it is not used);
 * the learning rate is injected: ``set_learning_rate`` writes it into the
-  parameter groups.  On a CUDA card Adam is ``capturable`` and its learning
-  rate a float32 device tensor (optax's injected float32), which
-  ``set_learning_rate`` fills: its update has no host arithmetic and no host
-  read, so a CUDA graph of the train step holds it (``train/step.py``), and
-  the plateau schedule changes the rate without a new capture.  The eager
-  steps on the card use the same optimizer, so graph and eager make the same
-  update.  ``torch.optim.SGD`` has no capturable mode (its update reads a tensor
-  learning rate on the host), so SGD keeps a float rate and its steps stay
-  eager; on the CPU both keep a float rate;
+  parameter groups.  On a CUDA card both optimizers are ``capturable``: the
+  learning rate is a float32 device tensor (optax's injected float32), which
+  ``set_learning_rate`` fills in place; Adam runs ``torch.optim.Adam(capturable=True)``
+  and SGD ``NesterovSGD``, whose update is ``torch._foreach_*`` ops over that
+  tensor.  Neither update has host arithmetic or a host read, so a CUDA graph
+  of the train step holds it (``train/step.py``), and the plateau schedule
+  changes the rate without a new capture.  The eager steps on the card use
+  the same optimizer, so graph and eager make the same update.  On the CPU
+  Adam keeps a float rate and SGD the same float32 tensor;
 * under a data-parallel mesh (``parallel/mesh.py``) the gradients are
   averaged over the ranks before the clip, in one all-reduce of the
   trainable gradients packed into one buffer, so the clip's norm is the
@@ -74,10 +74,12 @@ ADAM_B1, ADAM_B2, ADAM_EPS, ADAM_EPS_ROOT = (float(np.float32(v)) for v in (0.9,
 
 
 def _to_jax(t: torch.Tensor, kind: str) -> np.ndarray:
+    """A copy, never a view of the optimizer's state (a CPU tensor's
+    ``numpy()`` shares its memory)."""
     t = t.detach().float()
     if kind == "conv":
         t = t.permute(2, 3, 1, 0)
-    return np.ascontiguousarray(t.cpu().numpy())
+    return np.array(t.cpu().numpy(), order="C")
 
 
 def _from_jax(a, kind: str, like: torch.Tensor) -> torch.Tensor:
@@ -89,9 +91,39 @@ def _from_jax(a, kind: str, like: torch.Tensor) -> torch.Tensor:
     return t.to(device=like.device, dtype=like.dtype).contiguous()
 
 
+class NesterovSGD(torch.optim.Optimizer):
+    """optax's ``sgd(lr, momentum, nesterov=True)`` over a float32 learning-rate
+    tensor (``param_groups[0]["lr"]``): per parameter, ``t = g + m * t`` and
+    ``p -= lr * (g + m * t)``, each operation rounded on its own as optax's
+    are (``p + (g + m * t) * -lr``: the negation is exact).  The momentum
+    traces are ``state[p]["momentum_buffer"]``, zeros before the first step."""
+
+    def __init__(self, params, lr: torch.Tensor, momentum: float):
+        super().__init__(params, {"lr": lr, "momentum": momentum})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            for p in params:
+                if "momentum_buffer" not in self.state[p]:
+                    self.state[p]["momentum_buffer"] = torch.zeros_like(p)
+            traces = [self.state[p]["momentum_buffer"] for p in params]
+            m = group["momentum"]
+            torch._foreach_mul_(traces, m)
+            torch._foreach_add_(traces, grads)  # t = g + m t
+            updates = torch._foreach_mul(traces, m)
+            torch._foreach_add_(updates, grads)  # g + m t
+            torch._foreach_mul_(updates, group["lr"])
+            torch._foreach_sub_(params, updates)
+
+
 class Optimizer:
-    """``torch.optim`` over the trainable parameters of an ``HMDEgoPose``, with
-    optax's clip, freeze and injected learning rate."""
+    """Adam or ``NesterovSGD`` over the trainable parameters of an
+    ``HMDEgoPose``, with optax's clip, freeze and injected learning rate."""
 
     def __init__(self, model: torch.nn.Module, config: TrainConfig, model_config: ModelConfig,
                  mesh: DataMesh = LOCAL):
@@ -105,9 +137,10 @@ class Optimizer:
                     p.requires_grad_(False)
         lr = config.learning_rate
         device = self.params[0].device if self.params else torch.device("cpu")
-        self.capturable = device.type == "cuda" and not config.fine_tune
+        self.capturable = device.type == "cuda"
         if config.fine_tune:
-            self.opt = torch.optim.SGD(self.params, lr=lr, momentum=config.sgd_momentum, nesterov=True)
+            self.opt = NesterovSGD(self.params, torch.tensor(lr, dtype=torch.float32, device=device),
+                                   config.sgd_momentum)
         elif self.capturable:
             self.opt = torch.optim.Adam(self.params, lr=torch.tensor(lr, dtype=torch.float32, device=device),
                                         betas=(ADAM_B1, ADAM_B2), eps=ADAM_EPS, capturable=True)
@@ -121,7 +154,7 @@ class Optimizer:
 
     def set_learning_rate(self, lr: float) -> None:
         for group in self.opt.param_groups:
-            if self.capturable:
+            if isinstance(group["lr"], torch.Tensor):
                 group["lr"].fill_(float(lr))  # in place: a captured step reads this tensor
             else:
                 group["lr"] = float(lr)

@@ -15,27 +15,39 @@ Where the batches come from (``path``), chosen as the JAX trainer chooses:
 * ``"windowed"``: a larger split goes up one window of
   ``budget // bytes_per_frame`` frames at a time: each epoch permutes the
   frames, cuts the permutation into windows and runs each window's own
-  oversampled index rows against it, the previous window freed before the
-  next one goes up (steps sample within the resident window); a tail
-  window too small for a batch is skipped that epoch.  The epoch's means
-  are the windows' means weighted by their steps;
+  oversampled index rows against it (steps sample within the resident
+  window); a tail window too small for a batch is skipped that epoch.  The
+  window lives in one buffer of ``window_frames`` rows, allocated once and
+  filled in place for each window (``data/device_dataset.py::WindowBuffer``),
+  so one window is resident at a time; a tail window fills its first rows,
+  and its index rows reach no further.  The epoch's means are the windows'
+  means weighted by their steps;
 * ``"host"``: the host input pipeline (``data/pipeline.py``), when a window
   would hold less than a batch, or without ``device_resident`` (raw batches,
   augmented on the device) or ``device_augment`` (batches augmented and
   preprocessed on the host); the epoch's means are the steps' mean.
 
-On a CUDA card the resident path replays the step as one captured CUDA
-graph (``train/step.py::ResidentGraph``, the counterpart of the JAX
-trainer's jitted step and scanned epoch), when ``TrainStep.graphable``: a
-single process, Adam, no remat and no symmetric object.  The graph holds the
-whole step, the frame gather and the colour ops included; it is captured at
-the first epoch's first step (the batch shape is fixed per run) and
-replayed by every later step; each epoch's losses are read once, from the
-graph's (steps, 6) buffer.  ``graphed`` says whether it is on.  These stay
-eager: the windowed path (each window is a new resident tensor), the host
-pipeline (its batches come from the host), remat, the data-parallel and
-space meshes (gloo's collectives cannot be captured), SGD and symmetric
-objects (``TrainStep.graphable``).  Validation predicts through one eval
+On a CUDA card in a single process every path replays the step as one
+captured CUDA graph (``TrainStep.graphable``; the counterpart of the JAX
+trainer's jitted step and scanned epoch), whatever the object set (the
+symmetric objects' loss has a fixed shape), the optimizer (Adam or SGD) and
+remat; ``graphed`` says whether it is on, ``graph`` holds it.  The graph
+holds the whole step; it is captured at the run's first step (the batch
+shape is fixed per run) and replayed by every later step; its (steps, 6)
+buffer of losses is read once per epoch (once per window: the windows'
+means are combined as the eager ones are):
+
+* resident: ``train/step.py::ResidentGraph`` over the split, the frame
+  gather and the colour ops included;
+* windowed: the same over the window buffer, which every window fills in
+  place, so one capture serves every window and epoch;
+* host: ``train/step.py::HostGraph``: each pipeline batch is copied into
+  pinned staging, uploaded in one copy with the draws, and the graph starts
+  from those static buffers (at the colour ops for a ``RawBatch``, at the
+  forward for a ``Batch``); the worker threads are the eager path's.
+
+The data-parallel and space meshes stay eager (gloo's collectives cannot be
+captured), and so does the CPU.  Validation predicts through one eval
 forward built with the trainer (``predict_fn``, as the JAX trainer's): on a
 card in a single process a graph captured at the first validation and
 replayed by every later one (``train/step.py::EvalForward``), whatever the
@@ -73,7 +85,7 @@ import numpy as np
 import torch
 
 from hmd_ego_pose_tpu_torch.config import Config
-from hmd_ego_pose_tpu_torch.data.device_dataset import build_host_cache, upload_window
+from hmd_ego_pose_tpu_torch.data.device_dataset import WindowBuffer, build_host_cache, upload_window
 from hmd_ego_pose_tpu_torch.data.pipeline import InputPipeline
 from hmd_ego_pose_tpu_torch.eval.evaluator import EvalResult, evaluate_model
 from hmd_ego_pose_tpu_torch.models.hmd_ego_pose import HMDEgoPose, init_weights
@@ -82,7 +94,7 @@ from hmd_ego_pose_tpu_torch.ops.augment_device import RawBatch, draw_augment, ta
 from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL, DataMesh, batch_sharding, replicate
 from hmd_ego_pose_tpu_torch.train.checkpoint import checkpoint_name, checkpoint_path, save_checkpoint
 from hmd_ego_pose_tpu_torch.train.plateau import ReduceLROnPlateau
-from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES, ResidentGraph, TrainStep, make_eval_forward
+from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES, HostGraph, ResidentGraph, TrainStep, make_eval_forward
 from hmd_ego_pose_tpu_torch.utils.device import DeviceLike, resolve_device
 from hmd_ego_pose_tpu_torch.utils.logging import MetricLogger
 
@@ -141,8 +153,8 @@ class Trainer:
         dc, batch = config.data, config.train.batch_size
         self.pipeline = InputPipeline(train_dataset, dc, batch, seed=config.train.seed,
                                       image_size=config.model.image_size)
-        self.data = None  # the resident split, or the window of the moment
-        self.host_cache, self.window_frames, self.windows = None, 0, []
+        self.data = None  # the resident split, or the window buffer once filled
+        self.host_cache, self.window_frames, self.windows, self.window = None, 0, [], None
         self.path = "host"
         if dc.device_resident and dc.device_augment:
             cache = build_host_cache(train_dataset, dc.max_objects)
@@ -152,6 +164,7 @@ class Trainer:
                 w = int(dc.device_resident_budget_bytes // max(1, cache.bytes_per_frame()))
                 if w >= batch:
                     self.host_cache, self.window_frames, self.path = cache, w, "windowed"
+                    self.window = WindowBuffer(cache, w, dev)
         self.frame_hw = train_dataset.load_image(0).shape[:2]
         symmetric = any(bool(train_dataset.load_annotations(i)["rotations"][:, 3].any())
                         for i in range(len(train_dataset)))
@@ -171,12 +184,19 @@ class Trainer:
         )
         self.best_metric = float("inf")
         self.best_checkpoint: Optional[str] = None
-        # the resident step's CUDA graph, captured by the first epoch's first step
-        self.graphed = self.path == "resident" and self.step_fn.graphable
+        # the step's CUDA graph, captured by the run's first step
+        self.graphed = self.step_fn.graphable
         self.graph: Optional[ResidentGraph] = None
         if self.graphed:
-            steps = len(train_dataset) * config.train.oversample // config.train.batch_size
-            self.graph = ResidentGraph(self.step_fn, self.data, max(1, steps))
+            tc = config.train
+            steps = max(1, len(train_dataset) * tc.oversample // tc.batch_size)
+            if self.path == "resident":
+                self.graph = ResidentGraph(self.step_fn, self.data, steps)
+            elif self.path == "windowed":
+                self.graph = ResidentGraph(self.step_fn, self.window.data,
+                                           max(1, self.window_frames * tc.oversample // tc.batch_size))
+            else:
+                self.graph = HostGraph(self.step_fn, steps)
         # validation's predict: one graph for the run on a card in one process
         self.predict_fn = make_eval_forward(self.model, config, dev)
 
@@ -205,7 +225,8 @@ class Trainer:
 
     def _graphed_steps(self, idxs: np.ndarray) -> Dict[str, torch.Tensor]:
         """``_resident_steps`` through the graph: the same draws in the same
-        order, the means summed in step order as the eager loop sums them."""
+        order, the means summed in step order as the eager loop sums them
+        (queued before the next window's replays overwrite the rows)."""
         self.graph.reset()
         for row in idxs:
             self.graph(torch.from_numpy(row.astype("int64")), self.draws(), self.generator)
@@ -221,22 +242,30 @@ class Trainer:
                            tc.batch_size, tc.oversample)
         means, steps = [], []
         for rows, idxs in plan:
-            self.data = None  # free the previous window before the next upload: one window resident
-            self.data = upload_window(self.host_cache, rows, self.device)
+            self.data = self.window.fill(self.host_cache, rows)  # in place: one window resident
             means.append(self._resident_steps(idxs))
             steps.append(idxs.shape[0])
         self.windows = [len(rows) for rows, _ in plan]
         return combine_means(means, steps), sum(steps)
 
     def _host_epoch(self) -> Tuple[Dict[str, torch.Tensor], int]:
+        """The host pipeline's batches, through the graph or eagerly; the
+        means of the (steps, 6) losses over the steps, alike on both."""
         collected = []
+        if self.graph is not None:
+            self.graph.reset()
         for batch in self.pipeline.batches(oversample=self.config.train.oversample, rows=self.rows):
             draws = self.draws() if isinstance(batch, RawBatch) else None
+            if self.graph is not None:
+                self.graph(batch, draws, self.generator)
+                continue
             metrics = self.step_fn.host_step(batch, draws, self.generator)
             collected.append(torch.stack([metrics[k] for k in METRIC_NAMES]))
-        if not collected:
+        n = self.graph.done if self.graph is not None else len(collected)
+        if n == 0:
             return {}, 0
-        return dict(zip(METRIC_NAMES, torch.stack(collected).mean(dim=0))), len(collected)
+        rows = self.graph.metrics[:n] if self.graph is not None else torch.stack(collected)
+        return dict(zip(METRIC_NAMES, rows.mean(dim=0))), n
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         """One epoch of steps; returns the metric means, ``steps`` and ``epoch_seconds``."""

@@ -9,8 +9,9 @@ captured CUDA graph: the kernels of one call of a function, with their
 arguments and memory, recorded once and replayed with one launch
 (``cudaGraphLaunch``).  ``capture`` is the helper its three users share: the
 serving engine (``serving/engine.py``, a graph per batch size), the
-resident train step, the frame gather and colour ops included
-(``train/step.py::ResidentGraph``), and evaluation's predict, for
+train step of every single-process path, the frame gather and colour ops
+included (``train/step.py::ResidentGraph`` for the resident split and the
+window buffer, ``HostGraph`` for the host pipeline), and evaluation's predict, for
 ``cli evaluate`` and the trainer's validation
 (``train/step.py::EvalForward``, one graph in a pool of its own, captured
 again when a parameter has moved):
@@ -32,9 +33,8 @@ again when a parameter has moved):
 
 A graph cannot hold a read of device data by the host, an upload from host
 memory, a shape that depends on the data, or a gloo collective.  The paths
-that need one stay eager: the CPU, meshes of several processes, and of
-training the windowed and host-pipeline steps, remat, SGD and symmetric
-objects; the engine's and the trainer's docstrings say which.
+that need one stay eager: the CPU and meshes of several processes; the
+engine's and the trainer's docstrings say which.
 """
 
 from __future__ import annotations

@@ -201,6 +201,20 @@ def test_graphable_only_on_a_card(dataset):
         ResidentGraph(t.step_fn, t.data, 3)
     with pytest.raises(ValueError, match="CUDA device"):
         graphs.capture(lambda: None, torch.device("cpu"))
+    sgd = _trainer(dataset, fine_tune=True)  # SGD's rate is a float32 tensor, filled in place
+    lr = sgd.optimizer.opt.param_groups[0]["lr"]
+    sgd.optimizer.set_learning_rate(5e-4)
+    assert not sgd.graphed and lr is sgd.optimizer.opt.param_groups[0]["lr"] and lr.dtype == torch.float32
+    assert float(lr) == np.float32(5e-4)
+    # on a card (no card is touched to decide) one process captures whatever the
+    # optimizer, objects and remat; a mesh of several processes does not
+    for model, train, symmetric in ((dict(remat_backbone=True), {}, False), ({}, dict(fine_tune=True), True),
+                                    (dict(num_classes=2), {}, True)):
+        config = Config(model=ModelConfig(image_size=SIZE, **model), train=TrainConfig(**train))
+        card = SimpleNamespace(device=torch.device("cuda"), mesh=SimpleNamespace(processes=1), config=config,
+                               optimizer=SimpleNamespace(capturable=True), symmetric=symmetric)
+        assert TrainStep.graphable.fget(card)
+        assert not TrainStep.graphable.fget(SimpleNamespace(**{**vars(card), "mesh": SimpleNamespace(processes=2)}))
 
 
 def test_epoch_through_the_graph_equals_the_eager_epoch(dataset, monkeypatch):

@@ -15,8 +15,9 @@ one and with two objects per frame:
 * the windowed epoch: ``trainer.window_plan`` gives the windows and index
   rows of the JAX trainer's ``_windowed_epoch`` for a seed (and leaves the
   stream where it leaves it), ``combine_means`` its ``_combine_means``; the
-  port's windowed epoch uploads those windows one at a time, the previous
-  one freed first, and its means are the windows' means weighted by steps;
+  port's windowed epoch copies those windows one at a time into its one
+  window buffer, in place, and its means are the windows' means weighted by
+  steps;
 * a budget below a batch of frames falls back to the host pipeline;
 * one multi-object train step (two classes, two ground-truth rows, from
   the shipped artifact widened by ``models/weights.py::widen_classes``):
@@ -55,7 +56,6 @@ from hmd_ego_pose_tpu_torch.data.device_dataset import build_host_cache
 from hmd_ego_pose_tpu_torch.models.weights import widen_classes
 from hmd_ego_pose_tpu_torch.ops import augment_device as aug
 from hmd_ego_pose_tpu_torch.ops.geometry import axis_angle_to_matrix
-from hmd_ego_pose_tpu_torch.train import trainer as trainer_module
 from hmd_ego_pose_tpu_torch.train.checkpoint import restore_checkpoint
 from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES
 from hmd_ego_pose_tpu_torch.train.trainer import Trainer, combine_means, window_plan
@@ -253,14 +253,17 @@ def test_windowed_epoch_runs_window_by_window(sets, monkeypatch):
     assert t.path == "windowed" and t.window_frames == 3 and t.data is None
     plan = window_plan(np.random.RandomState(0), len(tds), 3, BATCH, 2)
     uploads, losses = [], []
-    upload = trainer_module.upload_window
+    fill, buffer = t.window.fill, t.window.data.frames.data_ptr()
 
-    def one_window(cache, rows, device):
-        assert t.data is None  # the previous window is freed first
+    def one_window(cache, rows):
         uploads.append(rows)
-        return upload(cache, rows, device)
+        data = fill(cache, rows)
+        assert data.frames.data_ptr() == buffer  # the one window buffer, filled in place
+        for got, field in zip(data, cache):
+            np.testing.assert_array_equal(got[:len(rows)].numpy(), field[rows])
+        return data
 
-    monkeypatch.setattr(trainer_module, "upload_window", one_window)
+    monkeypatch.setattr(t.window, "fill", one_window)
     step = t.step_fn
 
     def recording(data, idx, draws, generator):
@@ -272,7 +275,7 @@ def test_windowed_epoch_runs_window_by_window(sets, monkeypatch):
     assert t.windows == [3, 3] and m["steps"] == sum(len(i) for _, i in plan) == 6
     for rows, (want_rows, _) in zip(uploads, plan):
         np.testing.assert_array_equal(rows, want_rows)
-    assert t.data.frames.shape[0] == 3
+    assert t.data is t.window.data and t.data.frames.shape[0] == 3
     per_window = [{k: torch.stack([s[k] for s in losses[i:i + 3]]).mean() for k in METRIC_NAMES}
                   for i in (0, 3)]
     want = combine_means(per_window, [3, 3])
