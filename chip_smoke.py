@@ -102,9 +102,10 @@ Phases, each printing one JSON line of its own:
                tolerances of ``hmd_ego_pose_tpu_torch/eval/references/handrel_v3_val.json``
                (the JAX package's evaluation, ``scripts/make_eval_reference.py``).
                The evaluation predicts through one CUDA graph
-               (``train/step.py::EvalForward``, captured once); then every
-               batch of it again, replayed and eager in turns, bit-equal in
-               all six detection fields, with the p50 ms a batch of each.
+               (``train/step.py::EvalForward``, captured once); then its
+               first six batches again, replayed and eager in turns,
+               bit-equal in all six detection fields, with the p50 ms a
+               batch of each.
 10. train   -- on the same set: first four fixed training steps (augmentation
                and drop-connect off) of ``cli train``'s trainer from the
                artifact, eagerly and then, from the same state, through the
@@ -118,7 +119,7 @@ Phases, each printing one JSON line of its own:
                algorithms); with ``cudnn.deterministic`` four augmented steps
                with drop-connect, eager (colour ops grouped by op) and graphed
                (colour ops in fixed shapes inside the graph) with the same
-               indices, draws and masks, bit-equal in losses and state; six steps of
+               indices, draws and masks, bit-equal in losses and state; two steps of
                each path in turns, timed, and of the deterministic graph beside
                the default one (deterministic cuDNN's cost); then, with the launch
                counts reset just before and read just after, ``cli train``'s
@@ -149,16 +150,38 @@ Phases, each printing one JSON line of its own:
                Four fixed steps (augmentation and drop-connect off) held to
                ``handrel_v3_train_steps.json`` within its tolerance and to the
                train phase's own four steps within 1e-5 relative; then ``fit``
-               of one short epoch (4 augmented steps with drop-connect,
+               of one short epoch (2 augmented steps with drop-connect,
                validation on rank 0 only, its metric broadcast, checkpoints by
                rank 0 only): every step finite, the ranks' losses and state
                digests (parameters and BN buffers) bit-identical after every
                step, ``target_assign`` once per step on each rank, ``dequantize``
-               once per rank, ``min_distances`` on rank 0 only.  Step p50 against
-               the train phase's, the collective calls per step and their share
+               once per rank, ``min_distances`` on rank 0 only.  The gloo
+               steps are eager; rank 0's validation predicts through one
+               graph (the predict makes no collective), its last batch
+               replayed and eager bit-equal, timed.  Step p50 against the
+               train phase's, the collective calls per step and their share
                of the step.  With two or more cards the fixed steps run again
-               over NCCL, one card per rank; with one the line says so.
-12. spatial -- the space axis: two ranks of a data 1 x space 2 mesh share the
+               over NCCL, one card per rank, through the trainer's step graph
+               with its collectives inside; with one the line says so.
+12. mesh_graph -- one NCCL rank on card 0 (``--mesh-graph-rank``, started
+               beside train_dp's ranks, its first step at start-up, stepping
+               once they have ended), its trainer on ``probe_mesh`` (a
+               ``DataMesh`` of one rank that makes every collective through
+               ``torch.distributed``): with ``cudnn.deterministic`` four
+               fixed steps eagerly on the probe mesh, through the trainer's
+               step graph (its 260 collectives inside) and through a
+               single-process graph, bit-equal in losses and state and within
+               the JAX reference's tolerance; a replay's collectives by kind
+               those of the eager step and of train_dp's gloo step; graphed
+               steps of both in turns; one replay profiled: 0 kernel launch
+               calls, one graph launch, ``target_assign`` once, its
+               collectives counted with no host seconds; the engine's graphs
+               at batch 1 and 2 on the probe mesh (frame broadcasts and pose
+               gather inside) and in one process, each replay bit-equal to
+               its eager predict, answering the six golden frames bit-equal
+               to each other.  NCCL moves no data at world 1: the phase
+               shows the capture, not NCCL's transport.
+13. spatial -- the space axis: two ranks of a data 1 x space 2 mesh share the
                card over gloo (``--spatial-rank``, started beside train_dp's,
                run once it has ended), each restoring the artifact (phi-0,
                256 px) and holding the rows 0-127 or 128-255 of every image:
@@ -175,7 +198,7 @@ Phases, each printing one JSON line of its own:
                parameter gap under 5e-3, both ranks' state digests equal; ``dequantize`` once and
                ``target_assign`` once on each rank.  The collective counts and
                ms by kind, the ms of a frame and the phase's wall seconds.
-13. train_multi -- ``cli make-synthetic --num-objects 2`` writes the 400-frame,
+14. train_multi -- ``cli make-synthetic --num-objects 2`` writes the 400-frame,
                256 px two-object set (fold 0: 240 train, 80 val; in a
                process of its own started beside the v3 set's), whose
                ``gt_0.yml`` must hash as the JAX generator's did; the artifact
@@ -192,7 +215,7 @@ Phases, each printing one JSON line of its own:
                twice (once per class), the checkpoints written and restored;
                the two-class validation through one captured graph, its last
                batch replayed and eager bit-equal.
-14. train_windowed -- the v3 set's 600 train frames with
+15. train_windowed -- the v3 set's 600 train frames with
                ``device_resident_budget_bytes`` of a third of them: three
                windows of 200 frames over one epoch through one step graph
                over the window buffer (``data/device_dataset.py::WindowBuffer``,
@@ -204,7 +227,7 @@ Phases, each printing one JSON line of its own:
                and the graph's pool and not growing after the first window;
                the peak beside the resident run's; the graph against the eager
                step.
-15. train_host -- ``device_augment=False``: four fixed steps of host batches
+16. train_host -- ``device_augment=False``: four fixed steps of host batches
                (augmentation off) through the step graph (``HostGraph``)
                held to ``handrel_v3_train_steps.json``, the largest gap
                between the host-preprocessed and the device-preprocessed
@@ -215,7 +238,7 @@ Phases, each printing one JSON line of its own:
                step on three augmented batches made in this thread (the
                host's ms to make one), and on two ``RawBatch``es of
                ``device_resident=False`` (augmented in the graph).
-16. train_remat -- ``--no-freeze-backbone``, the same state, batch and
+17. train_remat -- ``--no-freeze-backbone``, the same state, batch and
                drop-connect seed through one eager remat and one eager plain
                step: losses equal, BN statistics moved once (as the plain
                step's within 1e-5 relative), parameters finite and within 2 lr
@@ -223,7 +246,7 @@ Phases, each printing one JSON line of its own:
                (remat's recompute inside the capture), the graphed remat step's
                time over the graphed plain one's; then ``--fine-tune`` (Nesterov
                SGD over a device learning rate) through its graph the same way.
-               ``variant_graph_against_eager``, in phases 13-16: with
+               ``variant_graph_against_eager``, in phases 14-17: with
                ``cudnn.deterministic``, 2-3 steps from one state eagerly and
                through a new graph, the same draws and masks: losses and state
                bit-equal, ``target_assign`` once a step; two steps of each in
@@ -231,7 +254,7 @@ Phases, each printing one JSON line of its own:
                graph launch); the graph's pool and the peak (the raw host
                batches without turns, the plain and SGD steps without the
                profile).
-17. export  -- ``cli export --ckpt trained/syn1000_phi0_576ep_handrel_int8.npz
+18. export  -- ``cli export --ckpt trained/syn1000_phi0_576ep_handrel_int8.npz
                --quantize-int8`` on the card (phi-0, 256 px, fp32) into the
                temporary directory, with the launch counts reset just before
                and read just after: ``dequantize`` and ``quantize`` once
@@ -245,7 +268,7 @@ Phases, each printing one JSON line of its own:
                artifact.  Seconds of restore, fold, ``torch.export``, save,
                load-and-verify and int8 save, the ``.pt2`` size and the
                fp32/int8 size ratio.
-18. cli_rest -- the rest of the CLI, held to
+19. cli_rest -- the rest of the CLI, held to
                ``hmd_ego_pose_tpu_torch/eval/references/cli_rest.json`` (the
                JAX package's, ``scripts/make_cli_reference.py``), with the
                launch counts reset just before and read just after: the
@@ -268,11 +291,11 @@ Phases, each printing one JSON line of its own:
                the card, every statistic and head value within 1e-4 of the
                JAX package's at its layer's scale.  ``dequantize`` 3,
                ``quantize`` 1, ``min_distances`` 1, ``target_assign`` 4.
-19. shutdown -- server and engine stopped, every thread joined with a timeout.
+20. shutdown -- server and engine stopped, every thread joined with a timeout.
 
 Then the ``kernels`` JSON line (``target_assign``'s launches summed over the
-eight training runs, both data-parallel ranks, the iter-1 steps and both
-spatial ranks included, ``min_distances``' over the three evaluations,
+nine training runs, both data-parallel ranks, the probe mesh's steps, the
+iter-1 steps and both spatial ranks included, ``min_distances``' over the three evaluations,
 ``dequantize``'s over serve, cli_rest and the spatial ranks, ``quantize``'s
 over export and cli_rest), the nvidia-smi line,
 and as the last line
@@ -1171,7 +1194,7 @@ def eval_graph_against_eager(forward, calls) -> dict:
 
 
 AB_STEPS = 4  # graph against eager: augmented steps of each path from one state
-TURN_STEPS = 6  # step time in turns: steps of each path
+TURN_STEPS = 2  # step time in turns: steps of each path, cut to keep the script's time
 
 
 def restore_state(trainer, state: dict) -> None:
@@ -1561,7 +1584,7 @@ def phase_train(card: str, data: str, work: str) -> dict:
 
 
 # train_dp's augmented epoch, cut to keep the script's time
-DP_AUG_STEPS = 4
+DP_AUG_STEPS = 2
 # the windowed and host variants' steps, cut from a full epoch (36-37 steps)
 # to keep the script's time: each still runs the trainer's epoch code, the
 # windowed one over all three windows
@@ -1622,11 +1645,21 @@ def train_dp_rank(mode: str, data: str, work: str, go: str = "") -> dict:
         time.sleep(0.05)
     out["waited_s"] = time.perf_counter() - t0
     fixed, digests = [], []
+    if trainer.graphed != (not shared):
+        raise AssertionError(f"rank {rank}: an NCCL mesh's step must be graphed, a gloo mesh's eager: "
+                             f"graphed {trainer.graphed} over {dist.get_backend()}")
+    if trainer.graphed:
+        trainer.graph.reset()
     for s in range(4):
-        metrics = trainer.step_fn(trainer.data, batch_sharding(trainer.mesh)(fixed_batch(trainer, s)), None, None)
+        rows = batch_sharding(trainer.mesh)(fixed_batch(trainer, s))
+        if trainer.graphed:  # NCCL, a card per rank: the step's graph, its collectives inside
+            trainer.graph(rows.cpu(), None, None)
+            metrics = dict(zip(METRIC_NAMES, trainer.graph.metrics[s]))
+        else:
+            metrics = trainer.step_fn(trainer.data, rows, None, None)
         fixed.append({k: float(metrics[k]) for k in METRIC_NAMES})
         digests.append(state_digest(trainer.model))
-    out.update(fixed=fixed, fixed_digests=digests)
+    out.update(fixed=fixed, fixed_digests=digests, graphed=trainer.graphed)
     if shared:
         # fit runs the trainer's own epoch code, its epoch cut to the first
         # DP_AUG_STEPS index rows the sampler draws
@@ -1635,10 +1668,23 @@ def train_dp_rank(mode: str, data: str, work: str, go: str = "") -> dict:
         epoch_indices = trainer.pipeline.epoch_indices
         trainer.pipeline.epoch_indices = lambda oversample=1: epoch_indices(oversample)[:DP_AUG_STEPS]
         epochs = []
+        trainer.predict_fn = RecordingForward(trainer.predict_fn)  # rank 0's validation, graphed
+        validate, val_s = trainer.validate, []
+
+        def timed_validate(*a, **kw):
+            t = time.perf_counter()
+            result = validate(*a, **kw)
+            val_s.append(time.perf_counter() - t)
+            return result
+
+        trainer.validate = timed_validate
         trainer.mesh.stats.reset()
         t = time.perf_counter()
         best = trainer.fit(epochs=1, on_epoch_end=lambda epoch, metrics, result: epochs.append(metrics))
         fit_s = time.perf_counter() - t
+        if rank == 0:  # its last batch replayed and eager: bit-equal, one capture
+            out["eval_graph"] = eval_graph_against_eager(trainer.predict_fn.forward, trainer.predict_fn.calls[-1:])
+            out["validate_s"] = val_s[0]
         if (trainer.path != "resident" or [m["steps"] for m in epochs] != [DP_AUG_STEPS]
                 or len(timed.step_ms) != DP_AUG_STEPS):
             raise AssertionError(f"rank {rank}: {len(timed.step_ms)} steps on the {trainer.path} path, "
@@ -1661,9 +1707,9 @@ def train_dp_rank(mode: str, data: str, work: str, go: str = "") -> dict:
     return out
 
 
-def start_ranks(flag: list, work: str, tag: str, args: list) -> list:
-    """Two ranks of this script (``flag`` then ``<work>/<tag>_rank<r>`` then
-    ``args``) as subprocesses, under torchrun's environment on a free
+def start_ranks(flag: list, work: str, tag: str, args: list, world: int = 2) -> list:
+    """``world`` ranks of this script (``flag`` then ``<work>/<tag>_rank<r>``
+    then ``args``) as subprocesses, under torchrun's environment on a free
     127.0.0.1 port."""
     import socket
 
@@ -1671,11 +1717,11 @@ def start_ranks(flag: list, work: str, tag: str, args: list) -> list:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     procs = []
-    for rank in range(2):
+    for rank in range(world):
         rank_work = os.path.join(work, f"{tag}_rank{rank}")
         os.makedirs(rank_work, exist_ok=True)
-        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(rank),
-                   LOCAL_RANK=str(rank), PYTHONPATH=HERE)
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(world),
+                   RANK=str(rank), LOCAL_RANK=str(rank), PYTHONPATH=HERE)
         procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), *flag, rank_work, *args],
                                       env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                                       cwd=rank_work))
@@ -1770,12 +1816,18 @@ def phase_train_dp(card: str, data: str, work: str, train: dict, procs: list, go
                                  f"dequantize once at the restore: {r['launches']}")
     if zero["launches"].get("min_distances", 0) != 1 or one["launches"].get("min_distances", 0) != 0:
         raise AssertionError(f"validation must run on rank 0 only: {[r['launches'] for r in ranks]}")
+    if "eval_graph" not in zero or "eval_graph" in one:
+        raise AssertionError("rank 0, and only rank 0, validates through one captured graph")
     nccl = "not run: 1 card"
     if torch.cuda.device_count() >= 2:
+        # the fixed steps through the step's graph, its NCCL collectives inside, one card per rank
         nccl_ranks = join_dp_ranks("nccl", start_dp_ranks("nccl", data, os.path.join(work, "dp_nccl")))
-        if nccl_ranks[0]["backend"] != "nccl" or nccl_ranks[1]["device"] != "cuda:1":
-            raise AssertionError(f"not NCCL across cards: {[(r['backend'], r['device']) for r in nccl_ranks]}")
+        if (nccl_ranks[0]["backend"] != "nccl" or nccl_ranks[1]["device"] != "cuda:1"
+                or not all(r["graphed"] for r in nccl_ranks)):
+            raise AssertionError(f"not graphed NCCL across cards: "
+                                 f"{[(r['backend'], r['device'], r['graphed']) for r in nccl_ranks]}")
         nccl = hold_dp_fixed(nccl_ranks, reference, train["reference_steps"])
+        nccl["graphed"] = True
     aug = zero["augmented"]
     return {
         **held, "ranks": 2, "backend": "gloo", "shared_card": True, "batch_per_rank": 8,
@@ -1784,11 +1836,252 @@ def phase_train_dp(card: str, data: str, work: str, train: dict, procs: list, go
         "collective_calls_per_step": zero["collective_calls_per_step"],
         "collective_ms_per_step": zero["collective_ms_per_step"],
         "collective_share_of_step": zero["collective_share_of_step"],
+        "validation_graph": zero["eval_graph"], "validate_s": zero["validate_s"],
+        "single_process_validate_s": train["validate_s"],
         "fit_s": zero["fit_s"], "startup_s": [r["startup_s"] for r in ranks], "ranks_s": run_s,
         "waited_s": [r["waited_s"] for r in ranks],
         "val_metric_broadcast": zero["plateau"]["best"],
         "launches": {"target_assign": sum(r["launches"].get("target_assign", 0) for r in ranks)},
         "launches_per_rank": [r["launches"] for r in ranks], "nccl": nccl, "card": card,
+    }
+
+
+def probe_mesh(device):
+    """A ``DataMesh`` of one rank (``ProbeMesh``) whose every collective goes
+    through ``torch.distributed`` even at size 1, so that a step's real
+    collective sequence is made, and captured, on a one-rank NCCL group."""
+    from hmd_ego_pose_tpu_torch.parallel.mesh import DataMesh
+
+    class ProbeMesh(DataMesh):
+        def _live(self, size: int) -> bool:
+            return True
+
+    return ProbeMesh(rank=0, world=1, device=device, backend="nccl")
+
+
+MESH_GRAPH_STEPS = 4  # fixed steps of each path from one state
+MESH_GRAPH_TURNS = 4  # graphed steps of the probe mesh and of one process, each, in turns
+MESH_GRAPH_TIMEOUT_S = 240
+STEP_KINDS = ("bn", "bn_backward", "grads", "metrics")  # a train step's collectives
+
+
+def mesh_graph_rank(data: str, work: str, go: str) -> dict:
+    """The mesh_graph phase's process (``chip_smoke.py --mesh-graph-rank WORK
+    DATA GO`` under torchrun's environment, world 1): one NCCL rank on card
+    0.  ``cli train``'s trainer is built on ``probe_mesh`` (it makes every
+    collective at one rank); once ``GO`` exists, with deterministic cuDNN,
+    ``MESH_GRAPH_STEPS`` fixed steps from one state (augmentation and
+    drop-connect off) eagerly on the probe mesh, through the trainer's step
+    graph (its collectives inside) and through a single-process step's
+    graph: losses and state bit-equal, the graph's collectives by kind those
+    of the eager step, the losses within the JAX reference's tolerance; the
+    two graphs' replays in turns; one replay profiled (launch calls, graph
+    launches, ``target_assign``, collectives); then engines at batch 1 and
+    2 on the probe mesh and in one process (``engine_graphs``) answering the
+    six golden frames, bit-equal to each other."""
+    import collections
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from hmd_ego_pose_tpu_torch import cli
+    from hmd_ego_pose_tpu_torch.config import ModelConfig, ServingConfig
+    from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
+    from hmd_ego_pose_tpu_torch.models.hmd_ego_pose import HMDEgoPose
+    from hmd_ego_pose_tpu_torch.models.weights import from_jax_params
+    from hmd_ego_pose_tpu_torch.parallel import distributed
+    from hmd_ego_pose_tpu_torch.parallel import mesh as mesh_mod
+    from hmd_ego_pose_tpu_torch.serving.engine import InferenceEngine
+    from hmd_ego_pose_tpu_torch.train.checkpoint import meta_hand_relative, restore_checkpoint
+    from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES, ResidentGraph, TrainStep
+    from hmd_ego_pose_tpu_torch.utils.logging import MetricLogger
+
+    t0 = time.perf_counter()
+    distributed.initialize("cuda:0", timeout=120.0)
+    dev = torch.device("cuda", 0)
+    probe = probe_mesh(dev)
+    mesh_mod.make_mesh = lambda *a, **kw: probe  # cli.build_trainer's mesh
+    args = cli.build_parser().parse_args(["train", "--dataset-path", data, "--ckpt", ARTIFACT, "--epo", "1",
+                                          "--device", "cuda:0"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer = cli.build_trainer(args, logger=MetricLogger(os.path.join(work, "runs"), stdout=False),
+                                    checkpoint_dir=os.path.join(work, "ckpt"))
+    params, bn_state, meta = restore_checkpoint(ARTIFACT, dev)
+    golden, frames, cameras = read_golden()
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    if trainer.mesh is not probe or not trainer.graphed or out["backend"] != "nccl":
+        raise AssertionError(f"the probe trainer must be graphed on a one-rank NCCL mesh: {out}")
+    step, batch = trainer.step_fn, trainer.config.train.batch_size
+    single = TrainStep(trainer.model, trainer.config, step.model_points.cpu().numpy(), dev,
+                       symmetric=step.symmetric, mesh=mesh_mod.LOCAL)
+    fixed = [torch.arange(batch * s, batch * (s + 1)) for s in range(MESH_GRAPH_STEPS)]
+    start = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+
+    def restore(optimizer):
+        restore_state(SimpleNamespace(model=trainer.model, optimizer=optimizer), start)
+
+    def state():
+        torch.cuda.synchronize()
+        return {k: v.clone() for k, v in trainer.model.state_dict().items()}
+
+    # one eager step, undone: the process's first step (its kernels' loading,
+    # deterministic cuDNN's plans) belongs to its start-up, not to the phase
+    torch.backends.cudnn.deterministic = True
+    try:
+        step(trainer.data, fixed[0].to(dev), None, None)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    restore(step.optimizer)
+    torch.cuda.synchronize()
+    out["startup_s"] = time.perf_counter() - t0
+    t0, cpu0 = time.perf_counter(), time.process_time()
+    while not os.path.exists(go):
+        if time.perf_counter() - t0 > MESH_GRAPH_TIMEOUT_S:
+            raise TimeoutError(f"no {go} after {MESH_GRAPH_TIMEOUT_S} s")
+        time.sleep(0.05)
+    # the host CPU seconds this idle process (its NCCL group's threads among them) took while the others ran
+    out.update(waited_s=time.perf_counter() - t0, waited_cpu_s=time.process_time() - cpu0)
+    t_phase = time.perf_counter()
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        # 1. eager on the probe mesh: the step's collectives, made one by one
+        restore(step.optimizer)
+        probe.stats.reset()
+        eager_rows, eager_ms = [], []
+        for idx in fixed:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            metrics = step(trainer.data, idx.to(dev), None, None)
+            eager_rows.append(torch.stack([metrics[k] for k in METRIC_NAMES]))
+            torch.cuda.synchronize()
+            eager_ms.append((time.perf_counter() - t) * 1e3)
+        eager_state, eager_calls = state(), dict(probe.stats.calls)
+        # 2. the trainer's step graph on the probe mesh: a warm-up step, then replays
+        restore(step.optimizer)
+        graph = ResidentGraph(step, trainer.data, MESH_GRAPH_STEPS + MESH_GRAPH_TURNS + 1)
+        LAUNCHES.reset()
+        probe.stats.reset()
+        for idx in fixed:
+            graph(idx, None, None)
+        graph_state, graph_calls = state(), dict(probe.stats.calls)
+        graph_launches = LAUNCHES.get("target_assign")
+        tally = dict(collections.Counter(kind for _, kind in graph.graph.collectives))
+        # 3. the single-process step's graph from the same state (the BNs on no mesh)
+        mesh_mod.attach(mesh_mod.LOCAL, trainer.model)
+        restore(single.optimizer)
+        local = ResidentGraph(single, trainer.data, MESH_GRAPH_STEPS + MESH_GRAPH_TURNS)
+        for idx in fixed:
+            local(idx, None, None)
+        local_state = state()
+        mesh_mod.attach(probe, trainer.model)
+        if local.graph.collectives:
+            raise AssertionError(f"the single-process graph holds collectives: {local.graph.collectives[:3]}")
+        # 4. the two graphs' replays in turns: probe, one process, one process, probe, ...
+        turns = {"probe_mesh": [], "single_process": []}
+        order = [("probe_mesh", "single_process"), ("single_process", "probe_mesh")] * (MESH_GRAPH_TURNS // 2)
+        for i, path in enumerate(p for pair in order for p in pair):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            (graph if path == "probe_mesh" else local)(fixed[i % MESH_GRAPH_STEPS], None, None)
+            torch.cuda.synchronize()
+            turns[path].append((time.perf_counter() - t) * 1e3)
+        # 5. one replay profiled, its collectives counted by the tally
+        probe.stats.reset()
+        counted = LAUNCHES.get("target_assign")
+        calls = profiled_calls(lambda: graph(fixed[0], None, None))
+        calls["target_assign"] = LAUNCHES.get("target_assign") - counted
+        calls["collectives"] = dict(probe.stats.calls)
+        calls["collective_seconds"] = dict(probe.stats.seconds)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    want = torch.stack(eager_rows)
+    bits = {"eager_vs_graph_losses": torch.equal(graph.metrics[:MESH_GRAPH_STEPS], want),
+            "eager_vs_graph_state": state_gap(eager_state, graph_state),
+            "graph_vs_single_losses": torch.equal(graph.metrics[:MESH_GRAPH_STEPS],
+                                                  local.metrics[:MESH_GRAPH_STEPS]),
+            "graph_vs_single_state": state_gap(graph_state, local_state)}
+    if not (bits["eager_vs_graph_losses"] and bits["graph_vs_single_losses"]
+            and not bits["eager_vs_graph_state"]["tensors_differing"]
+            and not bits["graph_vs_single_state"]["tensors_differing"]):
+        raise AssertionError(f"with deterministic cuDNN the probe mesh's graph must be its eager step and the "
+                             f"single-process graph bit for bit: {bits}")
+    per_step = {k: v / MESH_GRAPH_STEPS for k, v in eager_calls.items()}
+    if (tally != per_step or graph_calls != eager_calls or graph_launches != MESH_GRAPH_STEPS
+            or sorted(tally) != sorted(STEP_KINDS)):
+        raise AssertionError(f"the graph's collectives {tally} (over its steps {graph_calls}) must be the eager "
+                             f"step's {per_step} ({eager_calls}); target_assign {graph_launches}")
+    if (calls["launch_calls_per_step"] != 0 or calls["graph_launches_per_step"] != 1 or calls["target_assign"] != 1
+            or calls["collectives"] != tally or any(calls["collective_seconds"].values())):
+        raise AssertionError(f"a replay must make no kernel launch call, one graph launch, count target_assign "
+                             f"once and its collectives {tally} without host seconds: {calls}")
+    with open(TRAIN_REFERENCE) as f:
+        reference = json.load(f)
+    rows = iter(graph.metrics[:MESH_GRAPH_STEPS].tolist())
+    ref_gaps = hold_to_reference(reference, lambda s: dict(zip(METRIC_NAMES, next(rows))), "probe-mesh graphed")
+    out.update(
+        steps=MESH_GRAPH_STEPS, deterministic_bit_equal=True, reference_max_rel_gap=ref_gaps,
+        collectives_per_replay=tally, collectives_eager_per_step=per_step,
+        eager_probe_step_ms=eager_ms, eager_probe_step_ms_p50=float(np.median(eager_ms[1:])),
+        turns_step_ms=turns, turns_step_ms_p50={k: float(np.median(v)) for k, v in turns.items()},
+        probe_over_single_graph=float(np.median(turns["probe_mesh"]) / np.median(turns["single_process"])),
+        profiled_replay=calls, graph_pool_mb=graph_pool_mb(graph, dev))
+    del graph, local, single
+    torch.cuda.empty_cache()
+
+    # 6. the engine's graphs on the probe mesh (broadcasts, predict, gather) and in one process
+    cfg = ModelConfig(phi=0, image_size=256, compute_dtype="bfloat16", hand_relative=bool(meta_hand_relative(meta)))
+    serving = ServingConfig(max_batch_size=2, score_threshold=0.1)
+    engines, held, poses = {}, {}, {}
+    for name, mesh in (("probe_mesh", probe), ("single_process", mesh_mod.LOCAL)):
+        model = HMDEgoPose(cfg).to(dev).eval()
+        model.load_state_dict(from_jax_params(params, bn_state, cfg), strict=True)
+        engine = engines[name] = InferenceEngine(model, cfg, serving, frame_shape=frames.shape[1:3], device=dev,
+                                                 mesh=mesh)
+        engine.warmup()
+        if engine.capture_mode != "batch" or sorted(engine.graphs) != [1, 2]:
+            raise AssertionError(f"{name}: the engine must hold whole-batch graphs at 1 and 2, "
+                                 f"got {engine.capture_mode} {sorted(engine.graphs)}")
+        held[name] = engine_graphs(engine, frames)
+        mesh.stats.reset()
+        answers = [engine._to_host(engine._dispatch_device(frames[i:i + 1], cameras[i:i + 1]))
+                   for i in range(len(frames))]
+        answers += [engine._to_host(engine._dispatch_device(frames[i:i + 2], cameras[i:i + 2]))
+                    for i in range(0, len(frames), 2)]
+        held[name]["collectives_six_frames_and_three_pairs"] = dict(mesh.stats.calls)
+        poses[name] = answers
+    same = all(np.array_equal(a, b) for p, q in zip(poses["probe_mesh"], poses["single_process"])
+               for a, b in zip(p, q))
+    found = sum(int(p[0][0]) > 0 for p in poses["probe_mesh"][:len(frames)])
+    if not same or found != len(frames) or engines["probe_mesh"].eager_batches:
+        raise AssertionError(f"the probe mesh's engine graphs must answer every golden frame as the "
+                             f"single-process engine's: equal {same}, detections {found} of {len(frames)}")
+    if held["probe_mesh"]["collectives_six_frames_and_three_pairs"] != {"engine": 3 * (len(frames) + 3)}:
+        raise AssertionError(f"each replay must count its two broadcasts and its gather: {held['probe_mesh']}")
+    out.update(engine=held, engine_poses_bit_equal=True, engine_frames=len(frames),
+               launches=LAUNCHES.snapshot(), phase_s=time.perf_counter() - t_phase)
+    dist.destroy_process_group()
+    return out
+
+
+def phase_mesh_graph(card: str, proc: subprocess.Popen, go: str, dp: dict) -> dict:
+    """The mesh_graph phase: ``mesh_graph_rank``'s process, started before
+    the train phase; ``go`` lets it step.  Its graph's collectives by kind
+    equal a two-rank gloo mesh's eager step's (``train_dp``)."""
+    t0 = time.perf_counter()
+    with open(go, "w"):
+        pass
+    (rank,) = join_dp_ranks("mesh_graph", [proc], MESH_GRAPH_TIMEOUT_S)
+    gloo = dp["collective_calls_per_step"]
+    if rank["collectives_per_replay"] != gloo:
+        raise AssertionError(f"the graph's collectives {rank['collectives_per_replay']} a replay must be the "
+                             f"two-rank gloo mesh's eager step's {gloo}")
+    return {
+        "nccl_world_1": "NCCL moves no data at world 1: the collectives' kernels run and are captured, but no "
+                        "byte crosses between cards; NCCL's transport is not measured here",
+        **rank, "gloo_two_rank_collectives_per_step": gloo, "wall_s": time.perf_counter() - t0, "card": card,
     }
 
 
@@ -2779,7 +3072,7 @@ def serve_yuv(endpoint: dict, frames) -> dict:
     }
 
 
-SERVE_TURNS = 10  # round trips of each path, graph against eager, in turns
+SERVE_TURNS = 4  # round trips of each path, graph against eager, in turns, cut to keep the script's time
 
 
 def engine_graphs(engine, frames) -> dict:
@@ -2976,6 +3269,9 @@ def finish_generation(proc: subprocess.Popen) -> dict:
     return {**json.loads(out.strip().splitlines()[-1]), "generate_wait_s": time.perf_counter() - t}
 
 
+EVAL_TURN_BATCHES = 6  # evaluation batches replayed and eager in turns (of 25), cut to keep the script's time
+
+
 def phase_evaluate(card: str, data: str, generation: subprocess.Popen) -> dict:
     """Wait for the v3 set's generation into ``data`` (kept for the train phases) and evaluate on it."""
     from hmd_ego_pose_tpu_torch import cli
@@ -3005,8 +3301,8 @@ def phase_evaluate(card: str, data: str, generation: subprocess.Popen) -> dict:
     print(report.getvalue().split("\n{")[0], flush=True)  # the 17-line report
     if len(made) != 1:
         raise AssertionError(f"cli evaluate made {len(made)} predict callables, not one")
-    # every batch of the evaluation again, replayed and eager in turns, bit for bit
-    eval_graph = eval_graph_against_eager(made[0].forward, made[0].calls)
+    # the evaluation's first batches again, replayed and eager in turns, bit for bit
+    eval_graph = eval_graph_against_eager(made[0].forward, made[0].calls[:EVAL_TURN_BATCHES])
 
     got = result.scalars()
     worst = {kind: 0.0 for kind in EVAL_TOLERANCES}
@@ -3363,6 +3659,11 @@ def main() -> int:
         print(json.dumps(train_dp_rank(*sys.argv[2:6])), flush=True)
         faulthandler.cancel_dump_traceback_later()
         return 0
+    if sys.argv[1:2] == ["--mesh-graph-rank"]:  # the mesh_graph phase's one NCCL rank
+        work, data, go = sys.argv[2:5]
+        print(json.dumps(mesh_graph_rank(data, work, go)), flush=True)
+        faulthandler.cancel_dump_traceback_later()
+        return 0
     if sys.argv[1:2] == ["--spatial-rank"]:  # one rank of the spatial phase
         print(json.dumps(spatial_rank(*sys.argv[2:4])), flush=True)
         faulthandler.cancel_dump_traceback_later()
@@ -3432,13 +3733,17 @@ def run_phases(dev, card: str, work: str, children: dict, t_all: float) -> int:
     evaluate = phase_evaluate(card, data, children["v3"])
     emit("evaluate", **evaluate)
     # train_dp's and spatial's ranks start up (import, restore, data upload) while the train phase runs
-    go, spatial_go = os.path.join(work, "dp_go"), os.path.join(work, "spatial_go")
+    go, spatial_go, mesh_go = (os.path.join(work, name) for name in ("dp_go", "spatial_go", "mesh_go"))
     children.update(zip(("dp0", "dp1"), start_dp_ranks("gloo", data, os.path.join(work, "dp"), go)))
     children.update(zip(("sp0", "sp1"), start_spatial_ranks(os.path.join(work, "spatial"), spatial_go)))
+    (children["mesh"],) = start_ranks(["--mesh-graph-rank"], os.path.join(work, "mesh"), "mesh_graph",
+                                      [data, mesh_go], world=1)
     train = phase_train(card, data, work)
     emit("train", **train)
     dp = phase_train_dp(card, data, work, train, [children["dp0"], children["dp1"]], go)
     emit("train_dp", **dp)
+    mesh_graph = phase_mesh_graph(card, children["mesh"], mesh_go, dp)
+    emit("mesh_graph", **mesh_graph)
     spatial = phase_spatial(card, [children["sp0"], children["sp1"]], spatial_go)
     emit("spatial", **spatial)
     multi = phase_train_multi(card, work, children["multi"])
@@ -3462,11 +3767,11 @@ def run_phases(dev, card: str, work: str, children: dict, t_all: float) -> int:
          total_s=time.perf_counter() - t_all)
 
     # every count is read from a main path's run: target_assign summed over the
-    # training runs (the data-parallel one's over its two ranks and cli_rest's
-    # iter-1 steps), min_distances over the evaluation, the two-class
+    # training runs (the data-parallel one's over its two ranks, the probe
+    # mesh's graphed steps and cli_rest's iter-1 steps), min_distances over the evaluation, the two-class
     # validation and the iter-1 evaluation, dequantize over serve and cli_rest,
     # quantize over export and cli_rest's int8 save
-    trainings = (train, multi, windowed, host, remat, dp, rest, spatial)
+    trainings = (train, multi, windowed, host, remat, dp, rest, spatial, mesh_graph)
     launches = {"dequantize": sum(p["launches"].get("dequantize", 0) for p in (serve, rest, spatial)),
                 "min_distances": sum(p["launches"].get("min_distances", 0) for p in (evaluate, multi, rest)),
                 "quantize": sum(p["launches"].get("quantize", 0) for p in (export, rest)),

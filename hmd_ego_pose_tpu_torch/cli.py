@@ -18,7 +18,10 @@ Launched by ``torchrun --nproc-per-node N -m hmd_ego_pose_tpu_torch.cli
 train ...`` it trains data-parallel (``parallel/``): one rank per card over
 NCCL, or with ``--device cpu`` gloo ranks on the CPU; the global
 ``--batch-size`` is split over the ranks, and only rank 0 validates, logs
-and writes checkpoints.  ``--ckpt`` restores on the device (int8 leaves
+and writes checkpoints.  On cards, in one process or over NCCL, each step
+replays one CUDA graph (its collectives inside) and validation another; a
+gloo mesh steps eagerly (its collectives go through the host) and still
+validates through a graph on a card; no flag chooses.  ``--ckpt`` restores on the device (int8 leaves
 through the dequantize kernel) and resumes the optimizer moments and step
 count a ``last`` checkpoint carries; the hand convention comes from the
 checkpoint's metadata unless ``--hand-relative`` asks for it.
@@ -26,8 +29,12 @@ checkpoint's metadata unless ``--hand-relative`` asks for it.
 and defaults are the JAX package's.
 
 ``serve`` restores the checkpoint on the device (int8 leaves dequantized by the
-CUDA kernel), folds the BNs, warms the engine up and answers pose requests
-over TCP until interrupted, printing the engine's latency stats every 30 s.
+CUDA kernel), folds the BNs, warms the engine up (on a card: one CUDA graph
+per batch size) and answers pose requests over TCP until interrupted,
+printing the engine's latency stats every 30 s.  It serves from one
+process, as the JAX CLI's ``serve`` makes no mesh, under torchrun too; the
+mesh engine is ``serving/engine.py::InferenceEngine(mesh=...)``, graphed as
+its docstring says.
 ``make-synthetic`` writes the synthetic colibri dataset (the JAX package's
 generator, same seed, same files).  ``evaluate`` restores the checkpoint,
 runs the unfolded model (float32 unless the config says otherwise, with
@@ -441,7 +448,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="hmd_ego_pose_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
-    p = sub.add_parser("train", help="train or fine-tune a model", allow_abbrev=False)
+    p = sub.add_parser("train", help="train or fine-tune a model (under torchrun: data-parallel; on cards, "
+                       "in one process or over NCCL, one CUDA graph a step)", allow_abbrev=False)
     p.add_argument("--dataset", default="syn_colibri", choices=["syn_colibri", "real_colibri"])
     p.add_argument("--dataset-path", required=True, help="root with data/ and models/")
     p.add_argument("--fold", type=int, default=0, help="cross-validation fold [0..4]")
@@ -501,7 +509,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="integer scale s: with --frame-size 256*s renders the same seed "
                         "scenes at s-x resolution")
     p.set_defaults(func=cmd_make_synthetic)
-    p = sub.add_parser("serve", help="pose-streaming server over TCP")
+    p = sub.add_parser("serve", help="pose-streaming server over TCP (one process; on a card, one CUDA graph "
+                       "per batch size)")
     p.add_argument("--signaling-url", default=None,
                    help="node-dss signaling service to register with (e.g. http://host:3000/)")
     p.add_argument("--local-peer-id", default="workstation")

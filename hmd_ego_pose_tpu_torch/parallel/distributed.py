@@ -14,6 +14,18 @@ refuses two ranks on one card, and gloo all-reduces CUDA tensors through the
 host).  The card is selected with ``torch.cuda.set_device`` before anything
 touches it.
 
+Collectives under CUDA graph capture (``utils/graphs.py``): an NCCL group is
+bound to the rank's card (``device_id``), which makes its communicator when
+the group is made, and every subgroup's with it (``dist.new_group``), so no
+communicator is first needed inside a capture, where it cannot be made.
+The card's torch (2.11, NCCL 2.27) needs nothing more: its
+``ProcessGroupNCCL`` hands a collective made under capture to no watchdog,
+and a collective made with ``async_op=False`` makes the capturing stream
+wait on its NCCL stream rather than the host, unless
+``TORCH_NCCL_BLOCKING_WAIT`` is set, which a capture refuses.  (The CUDA
+graph notes of older releases asked for ``TORCH_NCCL_ASYNC_ERROR_HANDLING=0``
+before ``init_process_group``; that release's watchdog polled every work.)
+
 Data loading: each rank feeds only its rows of the global batch
 (``process_local_batch_slice``, ``parallel/mesh.py::batch_sharding``); nothing
 is gathered, where the JAX package assembles a global array
@@ -62,9 +74,10 @@ def initialize(device: DeviceLike = None, shared_device: bool = False,
 
     No-op (returns False) in a single process, as the JAX package's
     ``initialize``.  Otherwise selects this rank's card, then calls
-    ``init_process_group`` with the backend of ``backend_for`` and a
-    ``timeout`` of seconds after which a collective that waits fails; returns
-    True (also when the group already exists)."""
+    ``init_process_group`` with the backend of ``backend_for``, an NCCL
+    group bound to the card (module docstring), and a ``timeout`` of seconds
+    after which a collective that waits fails; returns True (also when the
+    group already exists).  A rank that cannot make its group raises."""
     if not launched():
         return False
     if dist.is_initialized():
@@ -75,11 +88,13 @@ def initialize(device: DeviceLike = None, shared_device: bool = False,
     dev = local_device(device, shared_device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+    backend = backend_for(dev, shared_device)
     dist.init_process_group(
-        backend=backend_for(dev, shared_device),
+        backend=backend,
         init_method=f"tcp://{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
         world_size=int(os.environ["WORLD_SIZE"]), rank=int(os.environ["RANK"]),
         timeout=datetime.timedelta(seconds=timeout),
+        device_id=dev if backend == "nccl" else None,
     )
     return True
 

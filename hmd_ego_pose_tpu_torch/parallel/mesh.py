@@ -38,7 +38,19 @@ data-only mesh makes none: its collectives run on the default group, as they
 did before the other axes existed.
 
 ``DataMesh.stats`` counts the collective calls by kind, with their host
-seconds (a call returns when its result is usable on the device).
+seconds (a call returns when its result is usable on the device).  A
+collective made while this thread's stream captures a CUDA graph runs
+nothing: it is recorded into the graph, and every replay runs it.  So it is
+not counted; it goes into the tally of the capture in progress
+(``recording``, which ``utils/graphs.py::capture`` opens, as
+``kernels.recording`` for the kernels; BN's backward collective is made on
+autograd's thread), and each replay adds that tally to the calls, with no
+host seconds (a replayed call has none of its own).
+
+``DataMesh.capturable`` says whether a CUDA graph can hold the mesh's
+collectives: NCCL's go on the CUDA stream and are captured; gloo's go
+through the host and are not; the space axis's halo exchanges stay eager
+until they have a hold of their own.
 
 A single process is a mesh of one (``LOCAL``, the default of every module
 that takes a mesh): each collective is then a no-op, and a mesh of more than
@@ -48,11 +60,13 @@ one rank is tested here only.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import hashlib
 import itertools
+import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,7 +77,9 @@ from hmd_ego_pose_tpu_torch.parallel import distributed
 
 
 class CollectiveStats:
-    """Collective calls and their host seconds, by kind."""
+    """Collective calls and their host seconds, by kind: an eager call adds
+    both (``add``), a call replayed in a CUDA graph only the call
+    (``replayed``)."""
 
     def __init__(self):
         self.calls: Dict[str, int] = collections.Counter()
@@ -77,8 +93,39 @@ class CollectiveStats:
         self.calls[kind] += 1
         self.seconds[kind] += seconds
 
+    def replayed(self, kind: str) -> None:
+        self.calls[kind] += 1
+
     def snapshot(self) -> Dict[str, Any]:
         return {"calls": dict(self.calls), "seconds": dict(self.seconds)}
+
+
+# the tally of the capture in progress: the process's, not a thread's, since
+# autograd runs a captured backward (BN's all-reduce) on a thread of its own
+_capture_lock = threading.Lock()
+_capture_tally: Optional[List[Tuple[CollectiveStats, str]]] = None
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[List[Tuple[CollectiveStats, str]]]:
+    """Open the tally of the collectives a CUDA graph capture records (one at
+    a time in a process); yields the list, which holds one (the mesh's stats,
+    kind) per recorded call."""
+    global _capture_tally
+    with _capture_lock:
+        if _capture_tally is not None:
+            raise RuntimeError("a collective tally is already open")
+        _capture_tally = tally = []
+    try:
+        yield tally
+    finally:
+        with _capture_lock:
+            _capture_tally = None
+
+
+def capturing(device: torch.device) -> bool:
+    """Whether this thread's current stream on ``device`` captures a CUDA graph."""
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,7 +145,8 @@ class DataMesh:
     """This process on the mesh: ``rank`` / ``world`` are its index along and
     the size of the data axis, ``space_rank`` / ``space`` and ``model_rank`` /
     ``model`` those of the other two axes, ``process_rank`` its rank in the
-    process group; its tensors live on ``device``."""
+    process group, ``backend`` the group's ("" without one); its tensors
+    live on ``device``."""
 
     rank: int
     world: int
@@ -110,6 +158,7 @@ class DataMesh:
     model_rank: int = 0
     process_rank: int = 0
     groups: MeshGroups = dataclasses.field(default_factory=MeshGroups)
+    backend: str = ""
 
     def __deepcopy__(self, memo):  # a handle on the process group: copies of a module share it
         return self
@@ -117,6 +166,17 @@ class DataMesh:
     @property
     def processes(self) -> int:
         return self.world * self.model * self.space
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can hold this mesh's collectives: a single
+        process (it makes none), or NCCL ranks, each on a card of its own
+        (NCCL refuses two ranks on one card), with no space axis.  The model
+        axis makes no collective.  Not gloo, whose collectives go through the
+        host, and not the space axis, whose halo exchanges stay eager."""
+        if self.processes == 1:
+            return True
+        return self.backend == "nccl" and self.device.type == "cuda" and self.space == 1
 
     def rows(self, global_batch: int) -> slice:
         """This rank's rows of a global batch (the JAX package's ``batch_sharding``:
@@ -146,7 +206,27 @@ class DataMesh:
             return self.groups.space, self.space
         raise ValueError(over)
 
+    def _live(self, size: int) -> bool:
+        """Whether a collective over ``size`` ranks is made: over one rank it is
+        a no-op and is not made (a subclass may make it anyway: the probe of
+        ``chip_smoke.py`` captures a step's collectives on one NCCL rank)."""
+        return size > 1
+
     def _timed(self, kind: str, fn, *args, **kwargs):
+        """Make the collective ``fn(*args, **kwargs)``: counted with its host
+        seconds, or, while this thread's stream captures a CUDA graph (the
+        capturing thread's, or autograd's in a captured backward), recorded
+        into the capture's tally (``recording``); a capture without an open
+        tally raises, so a replay never makes a call it does not count."""
+        if capturing(self.device):
+            tally = _capture_tally
+            if tally is None:
+                raise RuntimeError(f"a {kind} collective inside a CUDA graph capture without a collective tally "
+                                   "(capture through utils/graphs.py::capture)")
+            out = fn(*args, **kwargs)
+            with _capture_lock:
+                tally.append((self.stats, kind))
+            return out
         t = time.perf_counter()
         out = fn(*args, **kwargs)
         self.stats.add(kind, time.perf_counter() - t)
@@ -156,14 +236,14 @@ class DataMesh:
         """In place: the sum over the ranks of axis ``over`` ("data", "space" or
         "batch", the last data x space)."""
         group, size = self._axis(over)
-        if size > 1:
+        if self._live(size):
             self._timed(kind, dist.all_reduce, tensor, group=group)
         return tensor
 
     def all_gather(self, tensor: torch.Tensor, kind: str, over: str = "space") -> List[torch.Tensor]:
         """Every rank's ``tensor`` along axis ``over``, in axis order."""
         group, size = self._axis(over)
-        if size == 1:
+        if not self._live(size):
             return [tensor]
         tensor = tensor.contiguous()
         parts = [torch.empty_like(tensor) for _ in range(size)]
@@ -174,7 +254,7 @@ class DataMesh:
         """The mean over the ranks of axis ``over`` of each tensor, as new
         tensors, in one call of the tensors packed together; differentiable:
         the backward all-reduces the incoming gradient (kind ``<kind>_backward``)."""
-        if self._axis(over)[1] == 1:
+        if not self._live(self._axis(over)[1]):
             return list(tensors)
         flat = _AllReduceMean.apply(torch.cat([t.reshape(-1) for t in tensors]), self, kind, over)
         return [piece.view_as(t) for t, piece in zip(tensors, flat.split([t.numel() for t in tensors]))]
@@ -183,7 +263,7 @@ class DataMesh:
         """In place: each tensor becomes its mean over the ranks of axis
         ``over``, in one all-reduce of the tensors packed into one buffer."""
         size = self._axis(over)[1]
-        if size == 1 or not tensors:
+        if not self._live(size) or not tensors:
             return
         flat = torch.cat([t.reshape(-1) for t in tensors])
         self.all_reduce_sum_(flat, kind, over)
@@ -193,12 +273,12 @@ class DataMesh:
 
     def broadcast_(self, tensor: torch.Tensor, kind: str, src: int = 0) -> torch.Tensor:
         """In place: process ``src``'s tensor on every process of the mesh."""
-        if self.processes > 1:
+        if self._live(self.processes):
             self._timed(kind, dist.broadcast, tensor, src)
         return tensor
 
     def barrier(self) -> None:
-        if self.processes > 1:
+        if self._live(self.processes):
             self._timed("barrier", dist.barrier)
 
 
@@ -259,11 +339,14 @@ def make_mesh(config: ParallelConfig = ParallelConfig(), world: Optional[int] = 
     shape = (data, model, space)
     r = distributed.rank() if rank is None else int(rank)
     d, m, s = (int(c) for c in np.unravel_index(r, shape))
-    groups = MeshGroups()
-    if (shape[1] > 1 or shape[2] > 1) and dist.is_available() and dist.is_initialized():
-        groups = _new_groups(shape, (d, m, s))
+    groups, backend = MeshGroups(), ""
+    if dist.is_available() and dist.is_initialized():
+        backend = str(dist.get_backend())
+        if shape[1] > 1 or shape[2] > 1:
+            groups = _new_groups(shape, (d, m, s))
     return DataMesh(rank=d, world=shape[0], device=torch.device("cpu") if device is None else torch.device(device),
-                    space=shape[2], space_rank=s, model=shape[1], model_rank=m, process_rank=r, groups=groups)
+                    space=shape[2], space_rank=s, model=shape[1], model_rank=m, process_rank=r, groups=groups,
+                    backend=backend)
 
 
 # a single process: every collective a no-op

@@ -28,20 +28,28 @@ the graph replayed; its outputs are copied on the stream into tensors the
 batch owns before the next batch can replay the same graph, since two
 batches are in flight at once.  A batch size without a graph runs eagerly,
 as the JAX engine's ``jit`` does, and counts in ``eager_batches`` (an
-engine that holds no graph counts none).  Where it stays eager: on the CPU,
-and on a mesh of several processes, whose gloo collectives cannot be
-captured.  The JAX engine keeps one fixed batch size; this one keeps the
-powers of two up to ``max_batch_size`` (five graphs at 16), as it has
-batched since its first version.
+engine that holds no graph counts none).  On a mesh (``capture_mode``):
+where a graph can hold its collectives (``DataMesh.capturable``: NCCL, a
+card per rank, no space axis) each graph holds the whole batch, the frame
+broadcasts -> preprocess -> ``predict`` -> the pose gather, captured by
+every process's ``warmup`` in the same order ("batch"); on a gloo mesh
+without a space axis the broadcasts and the gather stay eager around a
+graph of the preprocess and ``predict`` of the process's rows ("rows").  It
+stays eager on the CPU and on a space axis.  The JAX engine keeps one fixed
+batch size; this one keeps the powers of two up to ``max_batch_size`` (five
+graphs at 16), as it has batched since its first version.
 
 ``mesh`` (a ``parallel/mesh.py::DataMesh``; the JAX engine's ``mesh``):
 frames over ``data``, the image height over ``space``, the model replicated
 (broadcast from process 0 and its digest checked), every batch size a
 multiple of the data-axis size.  Every process builds the engine.  Process 0
 owns the queue, the threads and whatever serves it (``start``, ``submit``,
-``warmup``, ``stop``); every other process calls ``follow()``, which serves
-until process 0 stops.  Each batch is broadcast from process 0 (a command,
-then the frames and cameras); every process preprocesses its data rows,
+``stop``); every process calls ``warmup`` (on a space axis the followers'
+is a no-op: process 0's warm-up batches reach them through ``follow``),
+then every other process calls ``follow()``, which serves until process 0
+stops.  Each batch is broadcast from process 0 (a command, which the
+followers read on the host and so stays eager, then the frames and
+cameras); every process preprocesses its data rows,
 takes its slab of their rows and runs ``predict`` on the mesh; the poses of
 the data rows are all-gathered over ``data``, and process 0 returns them.
 An idle process 0 broadcasts a heartbeat every ``HEARTBEAT_S``, so a
@@ -171,6 +179,7 @@ class InferenceEngine:
         self.total_stats = LatencyStats()
         # batch size -> (static frames, static cameras, its CUDA graph), filled by warmup
         self.graphs: Dict[int, Tuple[torch.Tensor, torch.Tensor, graphs.Graph]] = {}
+        self.capture_mode = self._capture_mode()
         self.eager_batches = 0  # batches of a size without a graph, while the engine holds graphs
         self.capture_s: Optional[float] = None
         self.graph_pool_bytes: Optional[int] = None
@@ -209,20 +218,34 @@ class InferenceEngine:
             if command == _STOP:
                 return served
             if command == _BATCH:
-                frames = torch.empty((b, h, w, 3), dtype=torch.uint8, device=self.device)
-                cams = torch.empty((b, 6), dtype=torch.float32, device=self.device)
-                self.mesh.broadcast_(frames, "engine")
-                self.mesh.broadcast_(cams, "engine")
-                self._predict(frames, cams)
+                if b in self.graphs:
+                    self._replay(b)
+                else:
+                    frames = torch.empty((b, h, w, 3), dtype=torch.uint8, device=self.device)
+                    cams = torch.empty((b, 6), dtype=torch.float32, device=self.device)
+                    self._batch(frames, cams)
                 served += 1
 
+    def _capture_mode(self) -> Optional[str]:
+        """What ``warmup`` captures (module docstring): "batch" (a graph holds
+        the whole batch, the mesh's collectives included), "rows" (a graph of
+        this process's preprocess and predict, its collectives eager) or None
+        (no graph: the CPU, a space axis)."""
+        if self.device.type != "cuda" or self.mesh.space > 1:
+            return None
+        return "batch" if self.mesh.capturable else "rows"
+
     def warmup(self):
-        """Before traffic: on a CUDA card in a single process, capture one CUDA
-        graph per batch size (module docstring); elsewhere run every batch
-        size once (cuDNN plans, lazy CUDA init)."""
+        """Before traffic, on every process of the mesh: capture one CUDA graph
+        per batch size where ``capture_mode`` says so (module docstring), the
+        processes in the same order; elsewhere process 0 runs every batch size
+        once (cuDNN plans, lazy CUDA init), which reaches the followers
+        through ``follow``."""
         h, w = self.frame_shape
-        if self.device.type == "cuda" and self.mesh.processes == 1:
+        if self.capture_mode is not None:
             self._capture()
+            return
+        if not self.leader:
             return
         for b in self.batch_sizes:
             frames = np.zeros((b, h, w, 3), np.uint8)
@@ -233,10 +256,11 @@ class InferenceEngine:
         h, w = self.frame_shape
         t0 = time.perf_counter()
         pool = torch.cuda.graph_pool_handle()
+        body = self._batch if self.capture_mode == "batch" else self._local
         for b in self.batch_sizes:
             frames = torch.zeros((b, h, w, 3), dtype=torch.uint8, device=self.device)
             cams = torch.from_numpy(np.tile(self._default_camera()[None], (b, 1))).to(self.device)
-            graph = graphs.capture(lambda f=frames, c=cams: self._predict(f, c), self.device, pool=pool)
+            graph = graphs.capture(lambda f=frames, c=cams: body(f, c), self.device, pool=pool)
             self.graphs[b] = (frames, cams, graph)
         torch.cuda.synchronize(self.device)
         self.capture_s = time.perf_counter() - t0
@@ -285,9 +309,21 @@ class InferenceEngine:
             self._followers = False
             self._command(_STOP)
 
+    def _batch(self, frames: torch.Tensor, cams: torch.Tensor):
+        """Every process: process 0's frames and cameras broadcast in place
+        into ``frames`` and ``cams``, then ``_predict``."""
+        self.mesh.broadcast_(frames, "engine")
+        self.mesh.broadcast_(cams, "engine")
+        return self._predict(frames, cams)
+
     def _predict(self, frames: torch.Tensor, cams: torch.Tensor):
+        """Every process: ``_local``, then the poses of every data row,
+        all-gathered over ``data``: (num_valid, rotation, translation)."""
+        return self._gathered(self._local(frames, cams))
+
+    def _local(self, frames: torch.Tensor, cams: torch.Tensor) -> torch.Tensor:
         """Every process: its data rows, its slab of their rows, ``predict`` on
-        the mesh; the poses of every data row, all-gathered over ``data``."""
+        the mesh; its rows' (num_valid, rotation, translation) packed (rows, 7)."""
         mesh, size = self.mesh, self.model_config.image_size
         rows = mesh.rows(frames.shape[0])
         with torch.inference_mode():
@@ -297,32 +333,50 @@ class InferenceEngine:
                 score_threshold=self.cfg.score_threshold, iou_threshold=0.5,
                 max_detections=1,  # streaming contract: best pose only
             )
-            packed = torch.cat([det.num_valid[:, None].to(torch.float32), det.rotation[:, 0],
-                                det.translation[:, 0]], dim=1)
-            packed = torch.cat(mesh.all_gather(packed, "engine", "data"))
+            return torch.cat([det.num_valid[:, None].to(torch.float32), det.rotation[:, 0],
+                              det.translation[:, 0]], dim=1)
+
+    def _gathered(self, packed: torch.Tensor):
+        """Every data row's packed poses, all-gathered over ``data`` into a new
+        tensor, split into (num_valid, rotation, translation)."""
+        with torch.inference_mode():
+            packed = torch.cat(self.mesh.all_gather(packed, "engine", "data"))
         return packed[:, 0].to(torch.int64), packed[:, 1:4], packed[:, 4:7]
+
+    def _replay(self, b: int):
+        """Every process: batch size ``b``'s graph over its static buffers
+        (process 0 filled them), with the broadcasts and the gather in it
+        ("batch") or eager around it ("rows"); returns tensors the batch
+        owns, since the next replay overwrites the graph's outputs."""
+        frames, cams, graph = self.graphs[b]
+        if self.capture_mode == "batch":
+            graph.replay()
+            return tuple(t.clone() for t in graph.outputs)
+        self.mesh.broadcast_(frames, "engine")
+        self.mesh.broadcast_(cams, "engine")
+        graph.replay()
+        return self._gathered(graph.outputs)
 
     def _dispatch_device(self, frames_u8: np.ndarray, cameras: np.ndarray):
         """Upload and enqueue the batch (broadcast to the followers); returns
         device tensors without waiting: the batch's own, also when its size's
         graph ran."""
-        held = self.graphs.get(frames_u8.shape[0])
+        b = frames_u8.shape[0]
+        held = self.graphs.get(b)
         if held is not None:
-            frames, cams, graph = held
+            frames, cams, _ = held
             frames.copy_(torch.from_numpy(frames_u8))
             cams.copy_(torch.from_numpy(np.ascontiguousarray(cameras, np.float32)))
-            graph.replay()
-            # the next replay of this graph overwrites its outputs: copy them first
-            return tuple(t.clone() for t in graph.outputs)
+            if self._followers:
+                self._command(_BATCH, b)
+            return self._replay(b)
         if self.graphs:
             self.eager_batches += 1
         if self._followers:
-            self._command(_BATCH, frames_u8.shape[0])
+            self._command(_BATCH, b)
         frames = torch.from_numpy(frames_u8).to(self.device)
         cams = torch.from_numpy(np.ascontiguousarray(cameras, np.float32)).to(self.device)
-        self.mesh.broadcast_(frames, "engine")
-        self.mesh.broadcast_(cams, "engine")
-        return self._predict(frames, cams)
+        return self._batch(frames, cams)
 
     @staticmethod
     def _to_host(det):

@@ -9,7 +9,7 @@ captured CUDA graph: the kernels of one call of a function, with their
 arguments and memory, recorded once and replayed with one launch
 (``cudaGraphLaunch``).  ``capture`` is the helper its three users share: the
 serving engine (``serving/engine.py``, a graph per batch size), the
-train step of every single-process path, the frame gather and colour ops
+train step of every path, the frame gather and colour ops
 included (``train/step.py::ResidentGraph`` for the resident split and the
 window buffer, ``HostGraph`` for the host pipeline), and evaluation's predict, for
 ``cli evaluate`` and the trainer's validation
@@ -20,21 +20,38 @@ again when a parameter has moved):
   before each replay, and its outputs live in the graph's memory, so a replay
   overwrites them: a caller that keeps an output past the next replay copies
   it first;
-* it runs ``warmup`` times on a side stream before the capture, for real
-  (its effects stand): cuDNN's plans, the constants built on first use
-  (``ops/anchors.py::device_anchors``, ``ops/preprocess.py``) and an
-  optimizer's state exist before the capture starts;
+* it runs ``warmup`` (at least 1) times on a side stream before the
+  capture, for real (its effects stand): cuDNN's plans, the constants built
+  on first use (``ops/anchors.py::device_anchors``, ``ops/preprocess.py``),
+  an optimizer's state and the NCCL communicator of every group a
+  collective of the function uses (a communicator first used inside a
+  capture cannot be made there) exist before the capture starts;
 * the capture allocates from ``pool`` (``torch.cuda.graph_pool_handle()``),
-  which graphs that are never replayed at the same time may share;
+  which graphs that are never replayed at the same time may share; the
+  buffers a collective packs or gathers into are the graph's, as every other
+  temporary of the captured call;
 * the hand-written kernels the capture records are tallied
   (``kernels.recording``) and each replay adds them to ``kernels.LAUNCHES``;
+  so are the mesh's collectives (``parallel/mesh.py::recording``), which
+  each replay adds to their mesh's ``CollectiveStats``;
 * a capture that fails raises (``torch.cuda.graph`` reports the first
   illegal call); nothing falls back to running eagerly.
 
 A graph cannot hold a read of device data by the host, an upload from host
-memory, a shape that depends on the data, or a gloo collective.  The paths
-that need one stay eager: the CPU and meshes of several processes; the
-engine's and the trainer's docstrings say which.
+memory, a shape that depends on the data, or a gloo collective (gloo's go
+through the host).  Meshes: a graph holds the NCCL collectives of a mesh
+that ``DataMesh.capturable`` allows (NCCL, a card per rank, no space axis),
+so there the train step (BN's statistics and their backward, the
+gradients' and the losses' means) and the engine's whole batch (the frame
+broadcasts and the pose gather) are captured on every rank, in the same
+order: two ranks replaying their graphs in different orders would wait on
+each other on the card, where no timeout reaches them.  A predict that makes
+no collective (eval mode, no space axis) is captured on any mesh, gloo
+included: evaluation's, and the engine's preprocess and predict of a gloo
+rank's rows between its eager broadcasts and gather.  What stays eager: the
+CPU, a gloo mesh's train step and collectives, and the space axis (its halo
+exchanges await a hold of their own); the engine's and the trainer's
+docstrings say which.
 """
 
 from __future__ import annotations
@@ -44,30 +61,40 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from hmd_ego_pose_tpu_torch import kernels
+from hmd_ego_pose_tpu_torch.parallel import mesh
 
 
 class Graph:
     """One captured call: ``replay()`` runs it again; ``outputs`` is what the
-    captured call returned (tensors in the graph's memory)."""
+    captured call returned (tensors in the graph's memory); ``launches`` and
+    ``collectives`` what it records (a kernel's name; a mesh's stats and a
+    collective's kind)."""
 
-    def __init__(self, graph: torch.cuda.CUDAGraph, outputs: Any, launches: Tuple[str, ...]):
-        self.graph, self.outputs, self.launches = graph, outputs, launches
+    def __init__(self, graph: torch.cuda.CUDAGraph, outputs: Any, launches: Tuple[str, ...],
+                 collectives: Tuple[Tuple[mesh.CollectiveStats, str], ...] = ()):
+        self.graph, self.outputs, self.launches, self.collectives = graph, outputs, launches, collectives
 
     def replay(self) -> None:
-        """Run the graph on the current stream; counts its kernels' launches."""
+        """Run the graph on the current stream; counts its kernels' launches
+        and its collectives."""
         self.graph.replay()
         for name in self.launches:
             kernels.LAUNCHES.add(name)
+        for stats, kind in self.collectives:
+            stats.replayed(kind)
 
 
 def capture(fn: Callable[[], Any], device: torch.device, pool: Optional[Tuple[int, int]] = None,
             warmup: int = 1) -> Graph:
     """Run ``fn()`` ``warmup`` times on a side stream of ``device``, then
     capture one call of it into a CUDA graph whose memory comes from
-    ``pool`` (a private pool when None).  Raises if the capture fails."""
+    ``pool`` (a private pool when None), its kernels and collectives tallied.
+    Raises if the capture fails."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
+    if warmup < 1:
+        raise ValueError(f"the capture needs a warm-up call, got warmup={warmup}")
     with torch.cuda.device(device):
         # the side stream starts after the current stream's work, and the
         # current stream goes on after the side stream's (events: only
@@ -83,12 +110,12 @@ def capture(fn: Callable[[], Any], device: torch.device, pool: Optional[Tuple[in
         warmed.record(side)
         warmed.wait()
         graph = torch.cuda.CUDAGraph()
-        with kernels.recording() as tally:
-            # thread_local: another thread's CUDA calls neither break this
-            # capture nor are broken by it
+        with kernels.recording() as launches, mesh.recording() as collectives:
+            # thread_local: another thread's CUDA calls (a process group's
+            # watchdog among them) neither break this capture nor are broken by it
             with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
                 outputs = fn()
-    return Graph(graph, outputs, tuple(tally))
+    return Graph(graph, outputs, tuple(launches), tuple(collectives))
 
 
 def pool_bytes(pool: Tuple[int, int], device: torch.device) -> int:

@@ -502,3 +502,58 @@ def test_a_failed_capture_raises(cuda_device):
         graphs.capture(lambda: (x * 2).sum().item(), cuda_device)
     torch.cuda.synchronize()
     assert float((x * 2).sum()) == 8.0  # the card still works
+
+
+def test_nccl_collectives_captured_on_one_rank_and_counted_per_replay(cuda_device, monkeypatch):
+    """A one-rank NCCL group (``parallel/distributed.py::initialize``) and the
+    probe mesh of ``chip_smoke.py``, which makes every collective at one
+    rank: BN's packed all-reduce mean and its backward, the gradients' packed
+    mean, an all-gather and a broadcast captured through
+    ``utils/graphs.capture`` and replayed.  NCCL moves no data at one rank,
+    so a replay equals the eager call bit for bit; each replay counts its
+    collectives by kind, with no host seconds."""
+    import socket
+
+    import torch.distributed as dist
+
+    from hmd_ego_pose_tpu_torch.parallel import distributed
+    from hmd_ego_pose_tpu_torch.utils import graphs
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for key, value in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="1", RANK="0",
+                           LOCAL_RANK="0").items():
+        monkeypatch.setenv(key, value)
+    assert distributed.initialize(cuda_device)
+    try:
+        mesh = chip_smoke.probe_mesh(torch.device("cuda", torch.cuda.current_device()))
+        assert dist.get_backend() == "nccl" and mesh.capturable
+        gen = torch.Generator().manual_seed(0)
+        x = torch.randn(4, 3, generator=gen).to(mesh.device).requires_grad_(True)
+        grad = torch.randn(5, generator=gen).to(mesh.device)
+        row = torch.randn(2, 7, generator=gen).to(mesh.device)
+        frames = torch.randint(0, 255, (2, 8, 8, 3), generator=gen, dtype=torch.uint8).to(mesh.device)
+
+        def body():
+            mean, mean_sq = mesh.all_reduce_mean([x.mean(dim=0), (x * x).mean(dim=0)], "bn")
+            (dx,) = torch.autograd.grad((mean * mean_sq).sum(), x)
+            g = grad * 3
+            mesh.mean_([g], "grads", "batch")
+            f = frames + 1
+            mesh.broadcast_(f, "engine")
+            return mean, mean_sq, dx, g, torch.cat(mesh.all_gather(row * 2, "engine", "data")), f
+
+        want = [t.clone() for t in body()]
+        graph = graphs.capture(body, mesh.device)
+        assert sorted(kind for _, kind in graph.collectives) == ["bn", "bn_backward", "engine", "engine", "grads"]
+        mesh.stats.reset()
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+        for got, w in zip(graph.outputs, want):
+            assert torch.equal(got, w)
+        assert mesh.stats.calls == {"bn": 3, "bn_backward": 3, "grads": 3, "engine": 6}
+        assert dict(mesh.stats.seconds) == {}
+    finally:
+        dist.destroy_process_group()

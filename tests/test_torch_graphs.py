@@ -55,6 +55,7 @@ from hmd_ego_pose_tpu_torch.models.efficientnet import drop_connect_uniforms
 from hmd_ego_pose_tpu_torch.models.hmd_ego_pose import HMDEgoPose, init_weights
 from hmd_ego_pose_tpu_torch.ops import preprocess
 from hmd_ego_pose_tpu_torch.ops.augment_device import draw_augment
+from hmd_ego_pose_tpu_torch.parallel.mesh import DataMesh
 from hmd_ego_pose_tpu_torch.serving.engine import InferenceEngine
 from hmd_ego_pose_tpu_torch.train import trainer as trainer_module
 from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES, EvalForward, ResidentGraph, TrainStep, make_eval_forward
@@ -207,14 +208,17 @@ def test_graphable_only_on_a_card(dataset):
     assert not sgd.graphed and lr is sgd.optimizer.opt.param_groups[0]["lr"] and lr.dtype == torch.float32
     assert float(lr) == np.float32(5e-4)
     # on a card (no card is touched to decide) one process captures whatever the
-    # optimizer, objects and remat; a mesh of several processes does not
+    # optimizer, objects and remat; a gloo mesh of several processes does not
+    # (tests/test_torch_mesh_graphs.py has every mesh)
+    cuda = torch.device("cuda")
     for model, train, symmetric in ((dict(remat_backbone=True), {}, False), ({}, dict(fine_tune=True), True),
                                     (dict(num_classes=2), {}, True)):
         config = Config(model=ModelConfig(image_size=SIZE, **model), train=TrainConfig(**train))
-        card = SimpleNamespace(device=torch.device("cuda"), mesh=SimpleNamespace(processes=1), config=config,
+        card = SimpleNamespace(device=cuda, mesh=DataMesh(rank=0, world=1, device=cuda), config=config,
                                optimizer=SimpleNamespace(capturable=True), symmetric=symmetric)
         assert TrainStep.graphable.fget(card)
-        assert not TrainStep.graphable.fget(SimpleNamespace(**{**vars(card), "mesh": SimpleNamespace(processes=2)}))
+        gloo = DataMesh(rank=0, world=2, device=cuda, backend="gloo")
+        assert not TrainStep.graphable.fget(SimpleNamespace(**{**vars(card), "mesh": gloo}))
 
 
 def test_epoch_through_the_graph_equals_the_eager_epoch(dataset, monkeypatch):
@@ -338,11 +342,14 @@ def test_make_eval_forward_on_the_cpu_captures_nothing(monkeypatch):
 
 
 def test_make_eval_forward_follows_the_models_mesh():
-    """On a card, the model's own mesh decides: one process captures, a mesh
-    of several processes predicts eagerly (no card is touched to decide)."""
+    """On a card, the model's own mesh decides: one process and a gloo data
+    mesh of several processes capture (the predict makes no collective), a
+    space axis predicts eagerly (no card is touched to decide)."""
     model, cfg = _eval_model()
     assert isinstance(make_eval_forward(model, cfg, "cuda"), EvalForward)
-    model.mesh = SimpleNamespace(processes=2)
+    model.mesh = DataMesh(rank=0, world=2, device=torch.device("cuda"), backend="gloo")
+    assert isinstance(make_eval_forward(model, cfg, "cuda"), EvalForward)
+    model.mesh = DataMesh(rank=0, world=1, device=torch.device("cuda"), space=2, backend="gloo")
     predict = make_eval_forward(model, cfg, "cuda")
     assert not isinstance(predict, EvalForward) and predict.__name__ == "eager"
 
@@ -370,6 +377,7 @@ def test_engine_replays_equal_eager_and_two_batches_in_flight_keep_their_answers
     monkeypatch.setattr(graphs, "pool_bytes", lambda pool, device: 0)
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 1))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    engine.capture_mode = "batch"  # what a card in one process captures
     engine._capture()
     assert sorted(engine.graphs) == engine.batch_sizes == [1, 2]
     rng = np.random.default_rng(4)

@@ -19,6 +19,16 @@ each rank holds B / W rows (``tests/torch_dp_ranks.py`` runs the ranks).
   summation orders); every parameter within 1e-5 of its leaf's largest
   value.
 
+The data-parallel step through its graph (``train/step.py::ResidentGraph``
+on a mesh; the stand-in capture of ``tests/torch_dp_ranks.py``: a replay
+runs the step again, its collectives made but counted from the capture's
+tally): at W = 2 the graphed augmented epoch (two steps, the second a
+replay) equals the eager one bit for bit (means, losses, every parameter
+and BN statistic, the optimizer's count), each replay's collective tally is
+an eager step's by kind, and two fixed steps through the graph stay within
+the JAX mesh step's tolerances above (the BN statistics after the second
+within 1e-4 of the leaf's largest value).
+
 Parameters whose first-step gradient is below rounding noise (|g| <= 1e-6 G:
 the conv biases that feed a
 training-mode BN and the like, whose exact gradient is zero) are held to
@@ -84,15 +94,24 @@ def jobs(dataset):
     }
 
 
+def graph_jobs(named):
+    """The W = 2 jobs through the step's graph: two fixed steps (held to JAX)
+    and the augmented steps (held to the eager ones)."""
+    return {"fixed_graph": {**named["fixed"], "steps": 2, "graph": True},
+            "augmented_graph": {**named["augmented"], "graph": True}}
+
+
 @pytest.fixture(scope="module")
 def runs(dataset, tmp_path_factory):
-    """name -> (single-process result, [rank results]) at W = 2, and the augmented run at W = 4."""
+    """name -> (single-process result, [rank results]) at W = 2 (the graphed
+    jobs without a single-process run), and the augmented run at W = 4."""
     named = jobs(dataset)
-    two = ranks_mod.run_ranks(2, list(named.values()), tmp_path_factory.mktemp("w2"))
+    graphed = graph_jobs(named)
+    two = ranks_mod.run_ranks(2, list(named.values()) + list(graphed.values()), tmp_path_factory.mktemp("w2"))
     four = ranks_mod.run_ranks(4, [named["augmented"]], tmp_path_factory.mktemp("w4"))
     work = str(tmp_path_factory.mktemp("single"))
     single = {name: ranks_mod.steps_job(job, os.path.join(work, name)) for name, job in named.items()}
-    out = {name: (single[name], [r[i] for r in two]) for i, name in enumerate(named)}
+    out = {name: (single.get(name), [r[i] for r in two]) for i, name in enumerate([*named, *graphed])}
     out["augmented_w4"] = (single["augmented"], [r[0] for r in four])
     return out
 
@@ -147,9 +166,17 @@ def test_collectives_per_step(runs):
 
 
 @pytest.fixture(scope="module")
-def jax_mesh_step(dataset, runs, monkeypatch_module):
+def jax_mesh_step(jax_mesh_steps):
     """One step of the JAX package's mesh train step over 2 CPU devices, on the
     rows of the port's first step, without drop-connect."""
+    return jax_mesh_steps[0]
+
+
+@pytest.fixture(scope="module")
+def jax_mesh_steps(dataset, runs, monkeypatch_module):
+    """Two steps of the JAX package's mesh train step over 2 CPU devices, on
+    the rows of the port's first two steps, without drop-connect: (losses,
+    params, bn_state) after each."""
     original = jax_step._compute_losses
     monkeypatch_module.setattr(jax_step, "_compute_losses",
                                lambda params, bn, batch, rng, *a: original(params, bn, batch, None, *a))
@@ -161,17 +188,20 @@ def jax_mesh_step(dataset, runs, monkeypatch_module):
     ds = JaxColibriDataset(dataset, 0, 1, "train")
     mesh = jax_make_mesh(JaxParallelConfig(), devices=jax.devices()[:2])
     data = upload_window(build_host_cache(ds, 1), None, mesh)
-    idx = JaxInputPipeline(ds, cfg.data, cfg.model, BATCH, seed=cfg.train.seed).epoch_indices(
-        cfg.train.oversample)[0]
+    idxs = JaxInputPipeline(ds, cfg.data, cfg.model, BATCH, seed=cfg.train.seed).epoch_indices(
+        cfg.train.oversample)[:2]
     step = jax_step.make_train_step(cfg, ds.model_points_for_loss(cfg.train.loss.num_model_points),
                                     device_data=True, mesh=mesh)
     repl = jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec())
     state = jax.device_put(step.init_state(params, bn_state), repl)
-    idx = jax.device_put(jnp.asarray(idx.astype(np.int32)),
-                         jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec("data")))
-    state, metrics = step.jitted(state, (data, idx), jax.device_put(jax.random.PRNGKey(0), repl))
-    return ({k: float(v) for k, v in metrics.items()}, jax.tree.map(np.asarray, state.params),
-            jax.tree.map(np.asarray, state.bn_state))
+    out = []
+    for idx in idxs:
+        idx = jax.device_put(jnp.asarray(idx.astype(np.int32)),
+                             jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec("data")))
+        state, metrics = step.jitted(state, (data, idx), jax.device_put(jax.random.PRNGKey(0), repl))
+        out.append(({k: float(v) for k, v in metrics.items()}, jax.tree.map(np.asarray, state.params),
+                    jax.tree.map(np.asarray, state.bn_state)))
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -185,18 +215,77 @@ def flat(tree) -> dict:
     return {jax.tree_util.keystr(p): np.asarray(v) for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-def test_two_ranks_match_the_jax_mesh_step(runs, jax_mesh_step):
-    metrics, params, bn_state = jax_mesh_step
-    _, ranks = runs["fixed"]
-    for name, term in TERMS.items():
-        assert ranks[0]["steps"][0][term] == pytest.approx(metrics[name], rel=1e-4), name
+def hold_to_jax(rank: dict, jax_steps, bn_leaf_rel: float = 0.0) -> None:
+    """``rank``'s losses of every step within 1e-4 relative of the JAX mesh
+    step's, its parameters (``rank["state"]``) after the last within 1e-4 of
+    the leaf's largest value (Adam's bound below the gradient noise), its BN
+    statistics within rtol 1e-4, atol 1e-6 (the one-step tolerances), or with
+    ``bn_leaf_rel`` within that much of the leaf's largest value."""
+    for s, (metrics, _, _) in enumerate(jax_steps):
+        for name, term in TERMS.items():
+            assert rank["steps"][s][term] == pytest.approx(metrics[name], rel=1e-4), (s, name)
+    _, params, bn_state = jax_steps[-1]
     model_cfg = ModelConfig(phi=0, image_size=SIZE, hand_relative=True)
-    state = {k: torch.from_numpy(v) for k, v in ranks[0]["state"].items()}
+    state = {k: torch.from_numpy(v) for k, v in rank["state"].items()}
     got_params, got_bn = to_jax_params(state, model_cfg)
     # the gradients in the JAX layout; NaN for the frozen leaves (never below the noise)
-    grads = {k: torch.from_numpy(ranks[0]["grads"][k]) if k in ranks[0]["grads"] else torch.full_like(v, np.nan)
+    grads = {k: torch.from_numpy(rank["grads"][k]) if k in rank["grads"] else torch.full_like(v, np.nan)
              for k, v in state.items()}
     hold_params(flat(got_params), flat(params), flat(to_jax_params(grads, model_cfg)[0]),
-                global_norm(ranks[0]["grads"]), rel=1e-4, noise=1e-6, steps=1)
+                global_norm(rank["grads"]), rel=1e-4, noise=1e-6, steps=len(jax_steps))
     for g, w in zip(jax.tree.leaves(got_bn), jax.tree.leaves(bn_state)):
-        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-6)
+        if bn_leaf_rel:
+            assert np.abs(g - w).max() <= bn_leaf_rel * np.abs(w).max()
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-6)
+
+
+def test_two_ranks_match_the_jax_mesh_step(runs, jax_mesh_step):
+    _, ranks = runs["fixed"]
+    hold_to_jax(ranks[0], [jax_mesh_step])
+
+
+def test_graphed_mesh_steps_match_the_jax_mesh_steps(runs, jax_mesh_steps):
+    """Two fixed steps through the step's graph (the first the capture's
+    warm-up, the second a replay): after the first, each rank within the
+    one-step tolerances of JAX's first mesh step; after the second, its losses within
+    1e-4 relative and its parameters within 1e-4 of the leaf's largest value
+    of JAX's second step, as after one, and its BN statistics within 1e-4 of
+    the leaf's largest value: the first step's parameter noise moves a
+    statistic near zero by ~2e-6 in the second, past the one-step atol of
+    1e-6."""
+    _, ranks = runs["fixed_graph"]
+    assert all(r["graphed"] for r in ranks) and ranks[0]["digests"] == ranks[1]["digests"]
+    assert [r["count"] for r in ranks] == [2, 2]
+    for rank in ranks:
+        hold_to_jax({**rank, "state": rank["first_state"]}, jax_mesh_steps[:1])
+        hold_to_jax(rank, jax_mesh_steps, bn_leaf_rel=1e-4)
+
+
+def test_graphed_mesh_epoch_equals_the_eager_mesh_epoch(runs):
+    """The augmented steps with drop-connect (the trainer's epoch code, one
+    step an epoch) through the graph and eagerly, on each rank: the six
+    means and losses of every step, every parameter and BN statistic after
+    each step and at the end, and the optimizer's count, bit for bit."""
+    (_, eager), (_, graphed) = runs["augmented"], runs["augmented_graph"]
+    for e, g in zip(eager, graphed):
+        assert g["graphed"] and not e["graphed"]
+        assert len(g["means"]) == len(e["means"]) == 2
+        assert g["means"] == e["means"] and g["steps"] == e["steps"]
+        assert g["digests"] == e["digests"]
+        assert [k for k in e["state"] if not np.array_equal(g["state"][k], e["state"][k])] == []
+        assert g["count"] == e["count"] == 2
+
+
+def test_graph_collectives_per_replay_are_the_eager_steps(runs):
+    """A replay's tally is one eager step's collectives by kind (BN, its
+    backward, the gradients, the losses), and a graphed epoch counts what the
+    eager epoch counts."""
+    _, fixed = runs["fixed"]
+    one_step = fixed[0]["collectives"]
+    assert sorted(one_step) == ["bn", "bn_backward", "grads", "metrics"]
+    for name in ("fixed_graph", "augmented_graph"):
+        for rank in runs[name][1]:
+            assert rank["tally"] == one_step, name
+    (_, eager), (_, graphed) = runs["augmented"], runs["augmented_graph"]
+    assert [r["collectives"] for r in graphed] == [r["collectives"] for r in eager]

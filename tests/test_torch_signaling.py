@@ -4,6 +4,8 @@ bootstrap on the CPU.
 * ``Message.to_json`` byte-equal to JAX's, string ``MessageType``s read alike.
 * The port's signaler client against the JAX ``SignalingServer`` and the
   JAX client against the port's: FIFO order, peer isolation, the 404 cases.
+* A poll that returns past ``wait_for``'s deadline: the JAX client's sleep
+  raises (Queue C-1 of the roadmap), the port's returns None.
 * The port's server: HTTP/1.1, ``stop`` joins its thread.
 * ``cli serve``'s four signaling flags (the JAX defaults) and
   ``cli.start_signaling``: a whole offer/answer bootstrap, then I420 and NV12
@@ -14,6 +16,7 @@ bootstrap on the CPU.
 import json
 import os
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -118,6 +121,30 @@ def test_clients_and_servers_across_packages(pair):
     assert bob.wait_for(client_mod.ANSWER, timeout=10.0).data == "the answer"
     assert others == ["skipped"]
     assert bob.wait_for(client_mod.ANSWER, timeout=0.05) is None
+
+
+@pytest.mark.parametrize("package", ["jax", "port"])
+def test_a_poll_that_ends_past_the_deadline(package, monkeypatch):
+    """The C-1 flake of ``test_clients_and_servers_across_packages[jax-on-port]``,
+    pinned: a ``wait_for`` whose poll returns past its deadline.  The JAX
+    client then sleeps ``deadline - time.time()``, which is negative, and
+    ``time.sleep`` raises ``ValueError``
+    (``hmd_ego_pose_tpu/serving/signaling_client.py:171``); the port's client
+    clamps the sleep at zero and returns None.  No request is made."""
+    client_mod = PACKAGES[package][1]
+    client = client_mod.NodeDssSignalerClient("http://127.0.0.1:9/", "bob", "alice", poll_interval=0.01,
+                                              timeout=1.0)
+
+    def late_poll():
+        time.sleep(0.06)  # past the 0.05 s deadline
+        return None
+
+    monkeypatch.setattr(client, "poll_once", late_poll)
+    if package == "jax":
+        with pytest.raises(ValueError):
+            client.wait_for(client_mod.ANSWER, timeout=0.05)
+    else:
+        assert client.wait_for(client_mod.ANSWER, timeout=0.05) is None
 
 
 def test_port_server_speaks_http_1_1_and_stop_joins():

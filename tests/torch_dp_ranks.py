@@ -17,6 +17,9 @@ Jobs (dicts with a ``kind``):
   from the overrides), then its own epoch code for a few steps: per step the
   losses and the state digest, at the end the state and the collective
   counts; for the host pipeline and windows also each rank's batch rows;
+  with ``graph``, the resident steps through the trainer's step graph under
+  the stand-in capture (``standin_capture``) and the graph's collective
+  tally;
 * ``cli``: ``cli.main(["train", ...])`` in a working directory;
 * ``spatial``: on a mesh of ``job["layout"]`` (data, model, space) of its
   own, from a state file the test saved: the raw forward (``forward``), the
@@ -27,6 +30,8 @@ Jobs (dicts with a ``kind``):
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import os
 import socket
@@ -168,18 +173,101 @@ def build(job, workdir: str, device: str = "cpu"):
                              checkpoint_dir=os.path.join(workdir, "ckpt"), oversample=job.get("oversample", 10))
 
 
+@contextlib.contextmanager
+def capturing():
+    """The mesh's collectives see a CUDA graph capture in progress
+    (``parallel/mesh.py::capturing``): they go into the open tally."""
+    from hmd_ego_pose_tpu_torch.parallel import mesh as mesh_mod
+
+    real = mesh_mod.capturing
+    mesh_mod.capturing = lambda device: True
+    try:
+        yield
+    finally:
+        mesh_mod.capturing = real
+
+
+def _step_tensors(graph):
+    """Every tensor a step of ``graph`` (a ``ResidentGraph``) writes: the
+    model's state, the optimizer's, the loss rows and the row counter."""
+    opt = graph.step.optimizer.opt
+    return (list(graph.step.model.state_dict().values()) + [t for s in opt.state.values() for t in s.values()]
+            + [graph.metrics, graph.row])
+
+
+class StandinGraph:
+    """The stand-in capture's "graph" of a step: a replay runs the step again
+    with its collectives made but not counted, then counts the capture's
+    launches and collectives, as a graph's replay does; the host's side of
+    the step (the optimizer's count) is not replayed."""
+
+    def __init__(self, fn, launches, collectives):
+        self.fn, self.launches, self.collectives, self.outputs = fn, launches, collectives, None
+
+    def replay(self):
+        from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
+        from hmd_ego_pose_tpu_torch.parallel import mesh as mesh_mod
+
+        optimizer = self.fn.__self__.step.optimizer
+        count = optimizer.count
+        with capturing(), mesh_mod.recording():
+            self.fn()
+        optimizer.count = count
+        for name in self.launches:
+            LAUNCHES.add(name)
+        for stats, kind in self.collectives:
+            stats.replayed(kind)
+
+
+def standin_capture(fn, device, pool=None, warmup=1):
+    """``utils/graphs.py::capture`` of a step on the CPU: the warm-up calls run
+    for real; the captured call runs with the collectives recorded into the
+    tallies and takes no effect (every tensor it writes is put back, as a
+    capture runs nothing)."""
+    import torch
+
+    from hmd_ego_pose_tpu_torch import kernels
+    from hmd_ego_pose_tpu_torch.parallel import mesh as mesh_mod
+
+    for _ in range(warmup):
+        fn()
+    tensors = _step_tensors(fn.__self__)
+    saved = [t.detach().clone() for t in tensors]
+    with capturing(), kernels.recording() as launches, mesh_mod.recording() as collectives:
+        fn()
+    with torch.no_grad():
+        for t, v in zip(tensors, saved):
+            t.copy_(v)
+    return StandinGraph(fn, tuple(launches), tuple(collectives))
+
+
 def steps_job(job, workdir: str, device: str = "cpu"):
     """A few steps of the trainer's own epoch code on its path (resident:
-    ``job["steps"]`` steps; windowed and host: one epoch)."""
+    ``job["steps"]`` steps; windowed and host: one epoch); with ``graph``
+    through the step's graph (the stand-in capture: the CPU has no graphs)."""
+    from hmd_ego_pose_tpu_torch.train.step import TrainStep
+    from hmd_ego_pose_tpu_torch.utils import graphs
+
+    graphed = job.get("graph", False)
+    graphable, capture = TrainStep.graphable, graphs.capture
+    if graphed:
+        TrainStep.graphable = property(lambda self: True)
+        graphs.capture = standin_capture
+    try:
+        return _steps(job, build(job, workdir, device), graphed)
+    finally:
+        TrainStep.graphable, graphs.capture = graphable, capture
+
+
+def _steps(job, trainer, graphed: bool):
     import torch
 
     from hmd_ego_pose_tpu_torch.data.device_dataset import gather_raw_batch
     from hmd_ego_pose_tpu_torch.parallel.mesh import batch_sharding, state_digest
     from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES
 
-    trainer = build(job, workdir, device)
     step, mesh = trainer.step_fn, trainer.mesh
-    out = {"path": trainer.path, "steps": [], "digests": [], "rows": []}
+    out = {"path": trainer.path, "steps": [], "digests": [], "rows": [], "means": [], "graphed": trainer.graphed}
     prepare, prepare_host, update = step.prepare, step.prepare_host, step.update
 
     def record(raw):
@@ -200,23 +288,37 @@ def steps_job(job, workdir: str, device: str = "cpu"):
         out["digests"].append(state_digest(trainer.model))
         return metrics
 
-    step.prepare, step.prepare_host, step.update = recorded_prepare, recorded_prepare_host, recorded_update
+    if not graphed:  # a graph's capture runs the step once more, its effects undone
+        step.prepare, step.prepare_host, step.update = recorded_prepare, recorded_prepare_host, recorded_update
     record_first_grads(trainer.optimizer, trainer.model, out)
     mesh.stats.reset()
     if trainer.path == "resident":
         idxs = trainer.pipeline.epoch_indices(trainer.config.train.oversample)[:job["steps"]]
         for s in range(idxs.shape[0]):
             if job.get("drop_connect", False):
-                trainer._resident_steps(idxs[s:s + 1])
+                means = trainer._resident_steps(idxs[s:s + 1])
+                out["means"].append({k: float(v) for k, v in means.items()})
+            elif graphed:  # the reference steps through the graph
+                trainer.graph.reset()
+                trainer.graph(torch.from_numpy(batch_sharding(mesh)(idxs[s]).astype("int64")), trainer.draws(), None)
             else:  # the reference steps: augmentation draws as configured, no drop-connect
                 idx = torch.from_numpy(batch_sharding(mesh)(idxs[s])).to(trainer.device)
                 step(trainer.data, idx, trainer.draws(), None)
+            if graphed:
+                out["steps"].append(dict(zip(METRIC_NAMES, trainer.graph.metrics[0].tolist())))
+                out["digests"].append(state_digest(trainer.model))
+                if s == 0:
+                    out["first_state"] = {k: v.detach().cpu().numpy().copy()
+                                          for k, v in trainer.model.state_dict().items()}
+        if graphed:
+            out["tally"] = dict(collections.Counter(kind for _, kind in trainer.graph.graph.collectives))
     elif trainer.path == "windowed":
         trainer._windowed_epoch()
     else:
         trainer._host_epoch()
     out["state"] = {k: v.detach().cpu().numpy().copy() for k, v in trainer.model.state_dict().items()}
     out["collectives"] = dict(mesh.stats.calls)
+    out["count"] = trainer.optimizer.count
     return out
 
 
