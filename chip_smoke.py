@@ -179,8 +179,22 @@ Phases, each printing one JSON line of its own:
                at batch 1 and 2 on the probe mesh (frame broadcasts and pose
                gather inside) and in one process, each replay bit-equal to
                its eager predict, answering the six golden frames bit-equal
-               to each other.  NCCL moves no data at world 1: the phase
-               shows the capture, not NCCL's transport.
+               to each other.  Then, once the train_remat phase has ended,
+               beside the export phase's host work (this phase's line
+               follows export's), the space axis under capture on
+               ``probe_space_mesh`` (the same rank acting as space rank 0 of
+               2, rank 1 mirrored; ``space_probe``): four fixed fp32 steps
+               on the trainer's model, eager and through the step graph
+               (halos, gathered heads, space sums, BN over data x space
+               inside), bit-equal, a replay's collectives by kind the eager
+               step's, graph and eager steps in turns, one replay profiled
+               (0 kernel launch calls, one graph launch, ``target_assign``
+               once); the bf16 engine's batch-1 graph on the probe, every
+               replay bit-equal to its eager batch, two batches in flight,
+               the six frames graphed and eager in turns; the fp32 eval
+               forward of the six frames, one capture, bit-equal to eager.
+               NCCL moves no data at world 1: the phase shows the capture,
+               not NCCL's transport.
 13. spatial -- the space axis: two ranks of a data 1 x space 2 mesh share the
                card over gloo (``--spatial-rank``, started beside train_dp's,
                run once it has ended), each restoring the artifact (phi-0,
@@ -198,6 +212,13 @@ Phases, each printing one JSON line of its own:
                parameter gap under 5e-3, both ranks' state digests equal; ``dequantize`` once and
                ``target_assign`` once on each rank.  The collective counts and
                ms by kind, the ms of a frame and the phase's wall seconds.
+               With two or more cards the same mesh runs again on NCCL, one
+               card per rank (``--spatial-nccl-rank``): the engine's batch-1
+               graph on both ranks answering the six frames within the
+               goldens' bounds and those of the gloo ranks' eager answers,
+               and the fp32 step's graph bit-equal to its eager step
+               (deterministic cuDNN); with one card the line says
+               ``"nccl": "not run: 1 card"``.
 14. train_multi -- ``cli make-synthetic --num-objects 2`` writes the 400-frame,
                256 px two-object set (fold 0: 240 train, 80 val; in a
                process of its own started beside the v3 set's), whose
@@ -291,11 +312,14 @@ Phases, each printing one JSON line of its own:
                the card, every statistic and head value within 1e-4 of the
                JAX package's at its layer's scale.  ``dequantize`` 3,
                ``quantize`` 1, ``min_distances`` 1, ``target_assign`` 4.
-20. shutdown -- server and engine stopped, every thread joined with a timeout.
+20. shutdown -- server and engine stopped, every thread joined with a timeout;
+               ``total_s`` from the first phase, ``process_s`` from the
+               process's start (the interpreter and ``import torch``
+               included; the exit's teardown is not).
 
 Then the ``kernels`` JSON line (``target_assign``'s launches summed over the
 nine training runs, both data-parallel ranks, the probe mesh's steps, the
-iter-1 steps and both spatial ranks included, ``min_distances``' over the three evaluations,
+iter-1 steps, the space probe's and both spatial ranks included, ``min_distances``' over the three evaluations,
 ``dequantize``'s over serve, cli_rest and the spatial ranks, ``quantize``'s
 over export and cli_rest), the nvidia-smi line,
 and as the last line
@@ -356,6 +380,16 @@ T0 = time.perf_counter()
 def emit(phase: str, **fields) -> None:
     """One phase's JSON line; ``t_s``: the script's seconds when it ended."""
     print(json.dumps({"phase": phase, **fields, "t_s": time.perf_counter() - T0}), flush=True)
+
+
+def process_seconds() -> float:
+    """Seconds since this process started (Linux: its start tick in
+    ``/proc/self/stat`` against ``/proc/uptime``)."""
+    with open("/proc/self/stat") as f:
+        start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        uptime = float(f.read().split()[0])
+    return uptime - start_ticks / os.sysconf("SC_CLK_TCK")
 
 
 def nvidia_smi() -> str:
@@ -1859,13 +1893,45 @@ def probe_mesh(device):
     return ProbeMesh(rank=0, world=1, device=device, backend="nccl")
 
 
+def probe_space_mesh(device):
+    """A ``DataMesh`` of one rank (``ProbeSpaceMesh``) that acts as data 1 x
+    space 2 at space rank 0: each collective over the space group or over
+    (data x space) is made as a real call of this process's one-rank group,
+    so a spatial step's or predict's collectives are made, and captured, on
+    a one-rank NCCL group, and the absent rank 1 is stood in for by a mirror
+    of this one: an all-gather returns this rank's part twice, a sum over
+    the group twice this rank's value, so the mean over (data x space) the
+    value.  The data axis (one rank) makes none, as a real rank's does not.
+    What it computes is well defined (the slab below this one is its
+    mirror), but it is not the two-rank function: it holds the capture of
+    the spatial code (halos, gathered heads, space sums, BN over the
+    (data x space) group), not its numbers."""
+    import torch.distributed as dist
+
+    from hmd_ego_pose_tpu_torch.parallel.mesh import DataMesh
+
+    class ProbeSpaceMesh(DataMesh):
+        def _all_gather(self, tensor, kind, group, size):
+            (part,) = super()._all_gather(tensor, kind, group, 1)
+            return [part] * size
+
+        def all_reduce_sum_(self, tensor, kind, over="data"):
+            super().all_reduce_sum_(tensor, kind, over)
+            size = self._axis(over)[1]
+            if size > 1:
+                tensor.mul_(size)
+            return tensor
+
+    return ProbeSpaceMesh(rank=0, world=1, device=device, space=2, space_rank=0, backend=dist.get_backend())
+
+
 MESH_GRAPH_STEPS = 4  # fixed steps of each path from one state
 MESH_GRAPH_TURNS = 4  # graphed steps of the probe mesh and of one process, each, in turns
 MESH_GRAPH_TIMEOUT_S = 240
 STEP_KINDS = ("bn", "bn_backward", "grads", "metrics")  # a train step's collectives
 
 
-def mesh_graph_rank(data: str, work: str, go: str) -> dict:
+def mesh_graph_rank(data: str, work: str, go: str, space_go: str) -> dict:
     """The mesh_graph phase's process (``chip_smoke.py --mesh-graph-rank WORK
     DATA GO`` under torchrun's environment, world 1): one NCCL rank on card
     0.  ``cli train``'s trainer is built on ``probe_mesh`` (it makes every
@@ -1878,7 +1944,9 @@ def mesh_graph_rank(data: str, work: str, go: str) -> dict:
     two graphs' replays in turns; one replay profiled (launch calls, graph
     launches, ``target_assign``, collectives); then engines at batch 1 and
     2 on the probe mesh and in one process (``engine_graphs``) answering the
-    six golden frames, bit-equal to each other."""
+    six golden frames, bit-equal to each other; it writes ``GO.data_done``;
+    then, once ``SPACE_GO`` exists, the space probe (``space_probe``) on the
+    same group."""
     import collections
     from types import SimpleNamespace
 
@@ -2060,19 +2128,240 @@ def mesh_graph_rank(data: str, work: str, go: str) -> dict:
                              f"single-process engine's: equal {same}, detections {found} of {len(frames)}")
     if held["probe_mesh"]["collectives_six_frames_and_three_pairs"] != {"engine": 3 * (len(frames) + 3)}:
         raise AssertionError(f"each replay must count its two broadcasts and its gather: {held['probe_mesh']}")
-    out.update(engine=held, engine_poses_bit_equal=True, engine_frames=len(frames),
-               launches=LAUNCHES.snapshot(), phase_s=time.perf_counter() - t_phase)
+    out.update(engine=held, engine_poses_bit_equal=True, engine_frames=len(frames))
+    del engines
+    torch.cuda.empty_cache()
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    with open(go + ".data_done", "w"):
+        pass
+
+    # 7. the space axis under capture: the space probe (data 1 x space 2, rank 1 mirrored)
+    t0 = time.perf_counter()
+    while not os.path.exists(space_go):
+        if time.perf_counter() - t0 > SPACE_PROBE_WAIT_S:
+            raise TimeoutError(f"no {space_go} after {SPACE_PROBE_WAIT_S} s")
+        time.sleep(0.05)
+    out["space_probe_waited_s"] = time.perf_counter() - t0
+    out["space_probe"] = space_probe(trainer, fixed, params, bn_state, meta, frames, cameras, dev)
+    out["launches"] = LAUNCHES.snapshot()
     dist.destroy_process_group()
     return out
 
 
-def phase_mesh_graph(card: str, proc: subprocess.Popen, go: str, dp: dict) -> dict:
-    """The mesh_graph phase: ``mesh_graph_rank``'s process, started before
-    the train phase; ``go`` lets it step.  Its graph's collectives by kind
-    equal a two-rank gloo mesh's eager step's (``train_dp``)."""
+SPACE_PROBE_STEPS = 4  # fixed fp32 steps of the space probe from one state, eager and graphed
+SPACE_PROBE_WAIT_S = 600  # the space probe's wait for its go (it runs beside the export phase)
+SPACE_PROBE_TURNS = 2  # graphed and eager space-probe steps, each, in turns
+
+
+def space_probe(trainer, fixed: list, params, bn_state, meta, frames, cameras, dev) -> dict:
+    """The space axis under capture on one card, in the mesh_graph process
+    (its one-rank NCCL group), on ``probe_space_mesh`` (data 1 x space 2 at
+    space rank 0, the absent rank mirrored), with ``cudnn.deterministic``:
+
+    (a) ``SPACE_PROBE_STEPS`` fixed fp32 steps of ``cli train``'s trainer's
+        model (batch 16, the rank's slab of 128 rows) from one state,
+        eagerly and through the step's graph (``ResidentGraph``: halos,
+        gathered heads, space sums and BN over (data x space) inside):
+        losses and every parameter and BN buffer bit-equal, the graph's
+        collectives by kind those of the eager step, ``target_assign`` once
+        a step; graphed and eager steps in turns; one replay profiled (0
+        kernel launch calls, one graph launch, ``target_assign`` once, the
+        collectives counted with no host seconds);
+    (b) the mesh engine at batch 1 (bf16): its replay of the golden frames
+        bit-equal to its eager ``_predict``, two batches in flight keeping
+        their answers (``engine_graphs``); the six frames through the graph
+        and eagerly (the graphs set aside) in turns, bit-equal, ms of each;
+    (c) the fp32 eval forward of the six frames (``make_eval_forward``):
+        one capture, two replays, bit-equal to its eager predict."""
+    import collections
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from hmd_ego_pose_tpu_torch.config import Config, ModelConfig, ServingConfig
+    from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
+    from hmd_ego_pose_tpu_torch.models.hmd_ego_pose import HMDEgoPose
+    from hmd_ego_pose_tpu_torch.models.weights import from_jax_params
+    from hmd_ego_pose_tpu_torch.ops.preprocess import preprocess_uint8_batch
+    from hmd_ego_pose_tpu_torch.parallel import mesh as mesh_mod
+    from hmd_ego_pose_tpu_torch.serving.engine import InferenceEngine
+    from hmd_ego_pose_tpu_torch.train.checkpoint import meta_hand_relative
+    from hmd_ego_pose_tpu_torch.train.step import (METRIC_NAMES, EvalForward, ResidentGraph, TrainStep,
+                                                   make_eval_forward)
+    from hmd_ego_pose_tpu_torch.utils import graphs
+
+    t0 = time.perf_counter()
+    space = probe_space_mesh(dev)
+    model = trainer.model
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    mesh_mod.attach(space, model)
+    step = TrainStep(model, trainer.config, trainer.step_fn.model_points.cpu().numpy(), dev,
+                     symmetric=trainer.step_fn.symmetric, mesh=space)
+    if not (space.capturable and step.graphable):
+        raise AssertionError("the space probe's step must be graphable on a one-rank NCCL group")
+
+    def restore():
+        restore_state(SimpleNamespace(model=model, optimizer=step.optimizer), start)
+
+    def state():
+        torch.cuda.synchronize()
+        return {k: v.clone() for k, v in model.state_dict().items()}
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        # (a) eager, then through the graph, from one state
+        restore()
+        space.stats.reset()
+        eager_rows, eager_ms = [], []
+        for idx in fixed:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            metrics = step(trainer.data, idx.to(dev), None, None)
+            eager_rows.append(torch.stack([metrics[k] for k in METRIC_NAMES]))
+            torch.cuda.synchronize()
+            eager_ms.append((time.perf_counter() - t) * 1e3)
+        eager_state, eager_calls = state(), dict(space.stats.calls)
+        restore()
+        graph = ResidentGraph(step, trainer.data, SPACE_PROBE_STEPS + SPACE_PROBE_TURNS + 1)
+        counted = LAUNCHES.get("target_assign")
+        space.stats.reset()
+        for idx in fixed:
+            graph(idx, None, None)
+        graph_state, graph_calls = state(), dict(space.stats.calls)
+        graph_launches = LAUNCHES.get("target_assign") - counted
+        tally = dict(collections.Counter(kind for _, kind in graph.graph.collectives))
+        turns = {"graph": [], "eager": []}
+        for i, path in enumerate(["graph", "eager", "eager", "graph"] * (SPACE_PROBE_TURNS // 2)):
+            idx = fixed[i % len(fixed)]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            graph(idx, None, None) if path == "graph" else step(trainer.data, idx.to(dev), None, None)
+            torch.cuda.synchronize()
+            turns[path].append((time.perf_counter() - t) * 1e3)
+        space.stats.reset()
+        counted = LAUNCHES.get("target_assign")
+        calls = profiled_calls(lambda: graph(fixed[0], None, None))
+        calls["target_assign"] = LAUNCHES.get("target_assign") - counted
+        calls["collectives"] = dict(space.stats.calls)
+        calls["collective_seconds"] = dict(space.stats.seconds)
+        pool_mb = graph_pool_mb(graph, dev)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    want = torch.stack(eager_rows)
+    bits = {"losses": torch.equal(graph.metrics[:SPACE_PROBE_STEPS], want),
+            "state": state_gap(eager_state, graph_state)}
+    if not (bits["losses"] and not bits["state"]["tensors_differing"] and bool(torch.isfinite(want).all())):
+        raise AssertionError(f"with deterministic cuDNN the space probe's step graph must be its eager step bit for "
+                             f"bit, its losses finite: {bits}")
+    per_step = {k: v / SPACE_PROBE_STEPS for k, v in eager_calls.items()}
+    if (tally != per_step or graph_calls != eager_calls or graph_launches != SPACE_PROBE_STEPS
+            or not {"halo", "halo_backward", "gather", "gather_backward", "space_sum", "bn"} <= set(tally)):
+        raise AssertionError(f"the space probe graph's collectives {tally} (over its steps {graph_calls}) must be "
+                             f"the eager step's {per_step} ({eager_calls}); target_assign {graph_launches}")
+    if (calls["launch_calls_per_step"] != 0 or calls["graph_launches_per_step"] != 1 or calls["target_assign"] != 1
+            or calls["collectives"] != tally or any(calls["collective_seconds"].values())):
+        raise AssertionError(f"a space probe replay must make no kernel launch call, one graph launch, count "
+                             f"target_assign once and its collectives {tally} without host seconds: {calls}")
+    out = {"layout": {"data": 1, "space": 2, "space_rank": 0, "mirrored": True}, "steps": SPACE_PROBE_STEPS,
+           "timed_beside": "the export phase's host work (torch.export, saves) in the main process",
+           "batch": int(fixed[0].numel()), "deterministic_bit_equal": True,
+           "collectives_per_replay": tally, "collectives_per_replay_total": sum(tally.values()),
+           "eager_step_ms": eager_ms, "turns_step_ms": turns,
+           "turns_step_ms_p50": {k: float(np.median(v)) for k, v in turns.items()},
+           "graph_over_eager": float(np.median(turns["graph"]) / np.median(turns["eager"])),
+           "profiled_replay": calls, "graph_pool_mb": pool_mb}
+    del graph, step
+    mesh_mod.attach(mesh_mod.LOCAL, model)
+    torch.cuda.empty_cache()
+
+    # (b) the mesh engine's batch-1 graph (frame broadcasts, slab, predict with its halos and gathers)
+    hand_relative = bool(meta_hand_relative(meta))
+    cfgs = {dt: ModelConfig(phi=0, image_size=256, compute_dtype=dt, hand_relative=hand_relative)
+            for dt in ("bfloat16", "float32")}
+
+    def model_of(dt):
+        m = HMDEgoPose(cfgs[dt]).to(dev).eval()
+        m.load_state_dict(from_jax_params(params, bn_state, cfgs[dt]), strict=True)
+        return m
+
+    serving = ServingConfig(max_batch_size=1, score_threshold=0.1)
+    engine = InferenceEngine(model_of("bfloat16"), cfgs["bfloat16"], serving, frame_shape=frames.shape[1:3],
+                             device=dev, mesh=space)
+    engine.warmup()
+    if engine.capture_mode != "batch" or sorted(engine.graphs) != [1]:
+        raise AssertionError(f"the space probe's engine must hold a whole-batch graph at 1, "
+                             f"got {engine.capture_mode} {sorted(engine.graphs)}")
+    held = engine_graphs(engine, frames)
+    graphs_held, ms, answers = engine.graphs, {"graph": [], "eager": []}, {"graph": [], "eager": []}
+    space.stats.reset()
+    for i in range(len(frames)):
+        for path in (("graph", "eager") if i % 2 == 0 else ("eager", "graph")):
+            engine.graphs = graphs_held if path == "graph" else {}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            answers[path].append(engine._to_host(engine._dispatch_device(frames[i:i + 1], cameras[i:i + 1])))
+            ms[path].append((time.perf_counter() - t) * 1e3)
+    engine.graphs = graphs_held
+    same = all(np.array_equal(a, b) for p, q in zip(answers["graph"], answers["eager"]) for a, b in zip(p, q))
+    finite = all(np.all(np.isfinite(a)) for p in answers["graph"] for a in p)
+    if not same or not finite or engine.eager_batches:
+        raise AssertionError(f"the space probe engine's graph must answer each frame as its eager batch, bit for "
+                             f"bit and finite: equal {same}, finite {finite}, eager batches {engine.eager_batches}")
+    held.update(frames=len(frames), bit_equal_to_eager=True, frame_ms=ms,
+                frame_ms_p50={k: float(np.median(v)) for k, v in ms.items()},
+                graph_over_eager=float(np.median(ms["graph"]) / np.median(ms["eager"])),
+                collectives_graphed_and_eager_six_frames=dict(space.stats.calls),
+                graph_pool_mb=engine.graph_pool_bytes / 1e6)
+    out["engine"] = held
+    del engine
+    torch.cuda.empty_cache()
+
+    # (c) evaluation's predict on the space probe: one graph, bit-equal to eager
+    fp32 = model_of("float32")
+    mesh_mod.attach(space, fp32)
+    forward = make_eval_forward(fp32, Config(model=cfgs["float32"]), dev)
+    images = preprocess_uint8_batch(torch.from_numpy(frames).to(dev), 256).cpu().numpy()
+    if not isinstance(forward, EvalForward):
+        raise AssertionError("on the space probe make_eval_forward must return an EvalForward")
+    got = [forward(images, cameras) for _ in range(2)]
+    want = forward.eager(images, cameras)
+    differing = [f for g in got for f in want._fields if getattr(g, f).tobytes() != getattr(want, f).tobytes()]
+    if differing or forward.captures != 1:
+        raise AssertionError(f"the space probe's eval graph differs from its eager predict in {differing}; "
+                             f"captures {forward.captures}")
+    out["eval_forward"] = {"frames": len(frames), "replays": len(got), "captures": forward.captures,
+                           "bit_equal": True,
+                           "graph_pool_mb": graphs.pool_bytes(forward.graph.graph.pool(), dev) / 1e6}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def start_mesh_graph(proc: subprocess.Popen, go: str) -> float:
+    """The mesh_graph phase's first part: ``go`` lets ``mesh_graph_rank``'s
+    process (started before the train phase) run its data-axis probe alone
+    on the card; returns the seconds until it has written ``GO.data_done``.
+    The process then waits for its space go (``phase_mesh_graph``)."""
     t0 = time.perf_counter()
     with open(go, "w"):
         pass
+    while not os.path.exists(go + ".data_done"):
+        if proc.poll() is not None:
+            join_dp_ranks("mesh_graph", [proc], 1.0)  # raises with the process's errors
+            raise AssertionError("the mesh_graph process ended before its data probe was done")
+        if time.perf_counter() - t0 > MESH_GRAPH_TIMEOUT_S:
+            raise TimeoutError(f"the mesh_graph data probe took over {MESH_GRAPH_TIMEOUT_S} s")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def phase_mesh_graph(card: str, proc: subprocess.Popen, dp: dict, data_wall_s: float) -> dict:
+    """The mesh_graph phase's end: joins ``mesh_graph_rank``'s process,
+    whose space probe the caller let run (its space go) beside the export
+    phase's host work.  The data probe graph's collectives by kind equal a
+    two-rank gloo mesh's eager step's (``train_dp``)."""
+    t0 = time.perf_counter()
     (rank,) = join_dp_ranks("mesh_graph", [proc], MESH_GRAPH_TIMEOUT_S)
     gloo = dp["collective_calls_per_step"]
     if rank["collectives_per_replay"] != gloo:
@@ -2081,7 +2370,8 @@ def phase_mesh_graph(card: str, proc: subprocess.Popen, go: str, dp: dict) -> di
     return {
         "nccl_world_1": "NCCL moves no data at world 1: the collectives' kernels run and are captured, but no "
                         "byte crosses between cards; NCCL's transport is not measured here",
-        **rank, "gloo_two_rank_collectives_per_step": gloo, "wall_s": time.perf_counter() - t0, "card": card,
+        **rank, "gloo_two_rank_collectives_per_step": gloo, "wall_s": data_wall_s,
+        "space_probe_join_wait_s": time.perf_counter() - t0, "card": card,
     }
 
 
@@ -2254,6 +2544,7 @@ def spatial_rank(work: str, go: str) -> dict:
                                      f"single-process engine's (bounds {bound})")
             worst = {"rotation": max(worst["rotation"], rot), "translation_mm": max(worst["translation_mm"], mm)}
         out["engine_vs_single_worst"] = worst
+        out["engine_poses"] = [[np.asarray(v, np.float32).tolist() for v in p] for p in poses]
     else:
         out["engine_served"] = engine.follow()
 
@@ -2299,15 +2590,150 @@ def spatial_rank(work: str, go: str) -> dict:
     return out
 
 
+def spatial_nccl_rank(work: str) -> dict:
+    """One rank of the spatial phase's NCCL block (``chip_smoke.py
+    --spatial-nccl-rank WORK`` under torchrun's environment), run where the
+    host has two cards: a data 1 x space 2 NCCL mesh, rank r on card r.  The
+    bf16 engine at batch 1 captured by both ranks' warm-up (frame
+    broadcasts, slab, predict with its halos and gathers, pose gather):
+    process 0 serves the six golden frames by replay, held to the goldens
+    (with the single-process forward's tied candidates), process 1 follows
+    by replay; then, with ``cudnn.deterministic``, the fp32 spatial step at
+    batch 2 (``spatial_batch``) eagerly from the artifact, and from the same
+    state through the step's graph (``HostGraph``: its first call the
+    warm-up step and the capture, then back at the start and one replay):
+    losses and state bit-equal to the eager step, the replay's collectives
+    by kind the eager step's, ``target_assign`` once a step."""
+    import collections
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from hmd_ego_pose_tpu_torch.config import Config, ModelConfig, ParallelConfig, ServingConfig, TrainConfig
+    from hmd_ego_pose_tpu_torch.eval import golden as hold
+    from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
+    from hmd_ego_pose_tpu_torch.models import hmd_ego_pose
+    from hmd_ego_pose_tpu_torch.models.weights import from_jax_params
+    from hmd_ego_pose_tpu_torch.ops.augment_device import Batch
+    from hmd_ego_pose_tpu_torch.ops.preprocess import preprocess_uint8_batch
+    from hmd_ego_pose_tpu_torch.parallel import distributed
+    from hmd_ego_pose_tpu_torch.parallel.mesh import make_mesh, replicate, state_digest
+    from hmd_ego_pose_tpu_torch.serving.engine import InferenceEngine
+    from hmd_ego_pose_tpu_torch.train.checkpoint import meta_hand_relative, restore_checkpoint
+    from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES, HostGraph, TrainStep
+
+    distributed.initialize(None, timeout=120.0)
+    dev = distributed.local_device(None)
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    mesh = make_mesh(ParallelConfig(spatial_parallel=2), device=dev)
+    if mesh.backend != "nccl" or not mesh.capturable:
+        raise AssertionError(f"the NCCL block needs a capturable NCCL mesh: {mesh.backend}, {mesh.device}")
+    params, bn_state, meta = restore_checkpoint(ARTIFACT, dev)
+    hand_relative = bool(meta_hand_relative(meta))
+    cfgs = {dt: ModelConfig(phi=0, image_size=SPATIAL_SIZE, compute_dtype=dt, hand_relative=hand_relative)
+            for dt in ("bfloat16", "float32")}
+
+    def model_of(dt):
+        model = hmd_ego_pose.HMDEgoPose(cfgs[dt]).to(dev).eval()
+        model.load_state_dict(from_jax_params(params, bn_state, cfgs[dt]), strict=True)
+        return model
+
+    golden, frames, cameras = read_golden()
+    out = {"rank": dist.get_rank(), "device": str(dev), "backend": mesh.backend}
+
+    # the engine's batch-1 graph on both ranks
+    cfg = cfgs["bfloat16"]
+    engine = InferenceEngine(model_of("bfloat16"), cfg, ServingConfig(max_batch_size=1, score_threshold=0.1),
+                             frame_shape=frames.shape[1:3], device=dev, mesh=mesh)
+    engine.warmup()
+    if engine.capture_mode != "batch" or sorted(engine.graphs) != [1]:
+        raise AssertionError(f"the NCCL space mesh's engine must hold a whole-batch graph at 1: "
+                             f"{engine.capture_mode} {sorted(engine.graphs)}")
+    if engine.leader:
+        engine.start()
+        try:
+            t = time.perf_counter()
+            poses = [engine.infer_blocking(f, c, timeout=60.0) for f, c in zip(frames, cameras)]
+            out["engine_ms_per_frame"] = (time.perf_counter() - t) * 1e3 / len(frames)
+        finally:
+            engine.stop()
+        if engine.eager_batches or any(p is None for p in poses):
+            raise AssertionError(f"the graphed NCCL engine answered {poses} ({engine.eager_batches} eager batches)")
+        cams = torch.from_numpy(cameras).to(dev)
+        outputs = hmd_ego_pose.apply(model_of("bfloat16"), preprocess_uint8_batch(
+            torch.from_numpy(frames).to(dev), SPATIAL_SIZE), cfg)
+        reports = [hold.hold_frame({"rotation": p[0], "translation": p[1] * 1000.0},
+                                   hold.tied_candidates(outputs, cams, i, cfg), golden, i, hand_relative,
+                                   quantities=("rotation", "translation")) for i, p in enumerate(poses)]
+        if not all(r["ok"] for r in reports):
+            raise AssertionError(f"the graphed NCCL engine's poses off the goldens: {reports}")
+        out.update(engine_worst=hold.worst(reports),
+                   engine_poses=[[np.asarray(v, np.float32).tolist() for v in p] for p in poses])
+    else:
+        out["engine_served"] = engine.follow()
+    del engine
+
+    # the fp32 step at batch 2: eager, then a replay of its graph from the same state
+    batch, model_points = spatial_batch(dev)
+    config = Config(model=cfgs["float32"], train=TrainConfig(batch_size=SPATIAL_BATCH, learning_rate=1e-3))
+    model = model_of("float32")
+    replicate(mesh, model)
+    step = TrainStep(model, config, model_points, dev, mesh=mesh)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    host = Batch(*(t.cpu().numpy() for t in batch))
+    torch.backends.cudnn.deterministic = True
+    try:
+        mesh.stats.reset()
+        eager = step.update(step.losses(batch))
+        eager_losses = torch.stack([eager[k] for k in METRIC_NAMES]).clone()
+        torch.cuda.synchronize()
+        eager_state, eager_calls = {k: v.clone() for k, v in model.state_dict().items()}, dict(mesh.stats.calls)
+        restore_state(SimpleNamespace(model=model, optimizer=step.optimizer), start)
+        graph = HostGraph(step, 2)
+        graph(host, None, None)  # the warm-up step and the capture
+        restore_state(SimpleNamespace(model=model, optimizer=step.optimizer), start)
+        graph.reset()
+        mesh.stats.reset()
+        graph(host, None, None)  # one replay
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    tally = dict(collections.Counter(kind for _, kind in graph.graph.collectives))
+    gap = state_gap(eager_state, model.state_dict())
+    if not torch.equal(graph.metrics[0], eager_losses) or gap["tensors_differing"]:
+        raise AssertionError(f"with deterministic cuDNN the NCCL spatial step's replay must be its eager step bit "
+                             f"for bit: losses {graph.metrics[0].tolist()} against {eager_losses.tolist()}, {gap}")
+    if tally != eager_calls or dict(mesh.stats.calls) != eager_calls:
+        raise AssertionError(f"the replay's collectives {dict(mesh.stats.calls)} (tally {tally}) must be the eager "
+                             f"step's {eager_calls}")
+    out.update(step_bit_equal=True, losses=dict(zip(METRIC_NAMES, eager_losses.tolist())),
+               collectives_per_replay=tally, digest=state_digest(model), launches=LAUNCHES.snapshot(),
+               seconds=time.perf_counter() - t0)
+    dist.destroy_process_group()
+    return out
+
+
 def start_spatial_ranks(work: str, go: str) -> list:
     """The two ranks of ``spatial_rank``, subprocesses of this script."""
     return start_ranks(["--spatial-rank"], work, "spatial", [go])
 
 
-def phase_spatial(card: str, procs: list, go: str) -> dict:
+def phase_spatial(card: str, procs: list, go: str, work: str) -> dict:
     """The space axis: two ranks of a data 1 x space 2 mesh sharing the card
     over gloo (``spatial_rank``), started before the train phase; ``go`` lets
-    them run.  Both ranks' state digests equal after the step."""
+    them run.  Both ranks' state digests equal after the step.  Where the
+    host has two cards, the same mesh on NCCL, one card per rank
+    (``spatial_nccl_rank``, working in ``work``): the engine's graph answering
+    as the gloo ranks' eager engine within the goldens' bounds, the step's
+    graph bit-equal to its eager step; with one card the line says so."""
+    import numpy as np
+    import torch
+
+    from hmd_ego_pose_tpu_torch.eval import golden as hold
+
     t0 = time.perf_counter()
     with open(go, "w"):
         pass
@@ -2323,6 +2749,33 @@ def phase_spatial(card: str, procs: list, go: str) -> dict:
         if r["launches"].get("dequantize", 0) != 1 or r["launches"].get("target_assign", 0) != 1:
             raise AssertionError(f"rank {r['rank']}: dequantize must launch once (the restore) and "
                                  f"target_assign once (the step): {r['launches']}")
+    launches = {k: sum(r["launches"].get(k, 0) for r in ranks) for k in ("dequantize", "target_assign")}
+    nccl = "not run: 1 card"
+    if torch.cuda.device_count() >= 2:
+        # the same mesh on NCCL, one card per rank: the engine's and the step's graphs, collectives inside
+        nccl_ranks = join_dp_ranks("spatial_nccl", start_ranks(["--spatial-nccl-rank"], work, "spatial_nccl", []),
+                                   SPATIAL_TIMEOUT_S)
+        lead, follower = nccl_ranks
+        if [r["device"] for r in nccl_ranks] != ["cuda:0", "cuda:1"] or follower.get("engine_served") != len(
+                zero["frame_ms"]) or lead["digest"] != follower["digest"] or lead["losses"] != follower["losses"]:
+            raise AssertionError(f"the NCCL ranks: devices {[r['device'] for r in nccl_ranks]}, follower served "
+                                 f"{follower.get('engine_served')}, digests or losses differing")
+        vs_gloo = {"rotation": 0.0, "translation_mm": 0.0}
+        for i, (p, q) in enumerate(zip(lead["engine_poses"], zero["engine_poses"])):
+            bound = hold.bounds(read_golden()[0], i, False)  # rotation and translation: no hand bound read
+            rot = float(np.abs(np.subtract(p[0], q[0])).max())
+            mm = float(np.abs(np.subtract(p[1], q[1])).max()) * 1e3
+            if rot > bound["rotation"] or mm > bound["translation"]:
+                raise AssertionError(f"frame {i}: the graphed NCCL engine's pose is {rot} rad, {mm} mm off the "
+                                     f"gloo ranks' eager one (bounds {bound})")
+            vs_gloo = {"rotation": max(vs_gloo["rotation"], rot), "translation_mm": max(vs_gloo["translation_mm"], mm)}
+        nccl = {"ranks": 2, "cards": 2, "engine_graphed": True, "engine_worst": lead["engine_worst"],
+                "engine_vs_gloo_eager_worst": vs_gloo,
+                "engine_vs_gloo_eager_bit_equal": lead["engine_poses"] == zero["engine_poses"],
+                "engine_ms_per_frame": lead["engine_ms_per_frame"], "step_bit_equal": True,
+                "collectives_per_replay": lead["collectives_per_replay"], "seconds": [r["seconds"] for r in nccl_ranks]}
+        for k in launches:
+            launches[k] += sum(r["launches"].get(k, 0) for r in nccl_ranks)
     return {
         "ranks": 2, "layout": {"data": 1, "model": 1, "space": 2}, "backend": "gloo", "shared_card": True,
         "frames": len(zero["frame_ms"]), "frame_ms_p50": [r["frame_ms_p50"] for r in ranks],
@@ -2337,9 +2790,7 @@ def phase_spatial(card: str, procs: list, go: str) -> dict:
         "collective_ms_per_forward": zero["collective_ms_per_forward"],
         "collectives": zero["collectives"], "startup_s": [r["startup_s"] for r in ranks],
         "waited_s": [r["waited_s"] for r in ranks], "phase_s": [r["phase_s"] for r in ranks],
-        "wall_s": time.perf_counter() - t0,
-        "launches": {k: sum(r["launches"].get(k, 0) for r in ranks) for k in ("dequantize", "target_assign")},
-        "card": card,
+        "wall_s": time.perf_counter() - t0, "nccl": nccl, "launches": launches, "card": card,
     }
 
 
@@ -3100,11 +3551,12 @@ def engine_graphs(engine, frames) -> dict:
         f = frames[np.arange(b) % len(frames)]
         if not all(torch.equal(g, w) for g, w in zip(host(engine._dispatch_device(f, cameras(b))), eager(f, cameras(b)))):
             raise AssertionError(f"batch size {b}: the graph's replay differs from the eager predict")
-    a, b = frames[[0, 1]], frames[[4, 5]]
-    first = engine._dispatch_device(a, cameras(2))
-    second = engine._dispatch_device(b, cameras(2))  # the same graph replays before the first batch is read
+    n = max(b for b in engine.batch_sizes if b <= 2)  # two batches of 2 frames (of 1 on an engine of batch 1)
+    a, b = frames[:n], frames[4:4 + n]
+    first = engine._dispatch_device(a, cameras(n))
+    second = engine._dispatch_device(b, cameras(n))  # the same graph replays before the first batch is read
     for got, f in ((first, a), (second, b)):
-        if not all(torch.equal(g, w) for g, w in zip(host(got), eager(f, cameras(2)))):
+        if not all(torch.equal(g, w) for g, w in zip(host(got), eager(f, cameras(n)))):
             raise AssertionError("a batch in flight did not keep its own answer")
     return {"batch_sizes": engine.batch_sizes, "replays_bit_equal_to_eager": len(engine.batch_sizes),
             "in_flight_own_answers": 2, "capture_s": engine.capture_s, "graph_pool_bytes": engine.graph_pool_bytes}
@@ -3660,8 +4112,12 @@ def main() -> int:
         faulthandler.cancel_dump_traceback_later()
         return 0
     if sys.argv[1:2] == ["--mesh-graph-rank"]:  # the mesh_graph phase's one NCCL rank
-        work, data, go = sys.argv[2:5]
-        print(json.dumps(mesh_graph_rank(data, work, go)), flush=True)
+        work, data, go, space_go = sys.argv[2:6]
+        print(json.dumps(mesh_graph_rank(data, work, go, space_go)), flush=True)
+        faulthandler.cancel_dump_traceback_later()
+        return 0
+    if sys.argv[1:2] == ["--spatial-nccl-rank"]:  # one rank of the spatial phase's NCCL block (two cards)
+        print(json.dumps(spatial_nccl_rank(sys.argv[2])), flush=True)
         faulthandler.cancel_dump_traceback_later()
         return 0
     if sys.argv[1:2] == ["--spatial-rank"]:  # one rank of the spatial phase
@@ -3733,18 +4189,18 @@ def run_phases(dev, card: str, work: str, children: dict, t_all: float) -> int:
     evaluate = phase_evaluate(card, data, children["v3"])
     emit("evaluate", **evaluate)
     # train_dp's and spatial's ranks start up (import, restore, data upload) while the train phase runs
-    go, spatial_go, mesh_go = (os.path.join(work, name) for name in ("dp_go", "spatial_go", "mesh_go"))
+    go, spatial_go, mesh_go, space_go = (os.path.join(work, name)
+                                         for name in ("dp_go", "spatial_go", "mesh_go", "space_go"))
     children.update(zip(("dp0", "dp1"), start_dp_ranks("gloo", data, os.path.join(work, "dp"), go)))
     children.update(zip(("sp0", "sp1"), start_spatial_ranks(os.path.join(work, "spatial"), spatial_go)))
     (children["mesh"],) = start_ranks(["--mesh-graph-rank"], os.path.join(work, "mesh"), "mesh_graph",
-                                      [data, mesh_go], world=1)
+                                      [data, mesh_go, space_go], world=1)
     train = phase_train(card, data, work)
     emit("train", **train)
     dp = phase_train_dp(card, data, work, train, [children["dp0"], children["dp1"]], go)
     emit("train_dp", **dp)
-    mesh_graph = phase_mesh_graph(card, children["mesh"], mesh_go, dp)
-    emit("mesh_graph", **mesh_graph)
-    spatial = phase_spatial(card, [children["sp0"], children["sp1"]], spatial_go)
+    mesh_data_s = start_mesh_graph(children["mesh"], mesh_go)  # the data probe, alone on the card
+    spatial = phase_spatial(card, [children["sp0"], children["sp1"]], spatial_go, os.path.join(work, "spatial"))
     emit("spatial", **spatial)
     multi = phase_train_multi(card, work, children["multi"])
     emit("train_multi", **multi)
@@ -3754,8 +4210,13 @@ def run_phases(dev, card: str, work: str, children: dict, t_all: float) -> int:
     emit("train_host", **host)
     remat = phase_train_remat(card, data, work)
     emit("train_remat", **remat)
+    # the space probe runs beside the export phase, whose work is the host's (torch.export, saves)
+    with open(space_go, "w"):
+        pass
     export = phase_export(card, work)
     emit("export", **export)
+    mesh_graph = phase_mesh_graph(card, children["mesh"], dp, mesh_data_s)
+    emit("mesh_graph", **mesh_graph)
     rest = phase_cli_rest(card, data, work)
     emit("cli_rest", **rest)
 
@@ -3764,11 +4225,11 @@ def run_phases(dev, card: str, work: str, children: dict, t_all: float) -> int:
     if leftover:
         raise RuntimeError(f"threads still alive after shutdown: {leftover}")
     emit("shutdown", threads_alive=[t.name for t in threading.enumerate() if t.is_alive()],
-         total_s=time.perf_counter() - t_all)
+         total_s=time.perf_counter() - t_all, process_s=process_seconds())
 
     # every count is read from a main path's run: target_assign summed over the
     # training runs (the data-parallel one's over its two ranks, the probe
-    # mesh's graphed steps and cli_rest's iter-1 steps), min_distances over the evaluation, the two-class
+    # meshes' steps, the spatial ranks' and cli_rest's iter-1 steps), min_distances over the evaluation, the two-class
     # validation and the iter-1 evaluation, dequantize over serve and cli_rest,
     # quantize over export and cli_rest's int8 save
     trainings = (train, multi, windowed, host, remat, dp, rest, spatial, mesh_graph)

@@ -24,7 +24,9 @@ the whole height and its halo rows from the neighbouring slabs; when its
 output level is not split it gathers its input first, and an output of a
 split level made from a whole input is cut to the slab.  Training-mode BN
 reduces a split level's statistics over (data x space).  With no space axis,
-or no ``full_h``, every op runs the single-device code.
+or no ``full_h``, every op runs the single-device code.  Each choice is made
+on shapes and the mesh's ranks, never on device data, so a CUDA graph
+captures these ops with their collectives on a capturable mesh.
 
 Compute dtype.  Parameters stay float32.  With ``dtype=torch.bfloat16`` the
 modules round to bfloat16 where the JAX reference, compiled by XLA for the

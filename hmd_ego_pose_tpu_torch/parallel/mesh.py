@@ -48,9 +48,9 @@ autograd's thread), and each replay adds that tally to the calls, with no
 host seconds (a replayed call has none of its own).
 
 ``DataMesh.capturable`` says whether a CUDA graph can hold the mesh's
-collectives: NCCL's go on the CUDA stream and are captured; gloo's go
-through the host and are not; the space axis's halo exchanges stay eager
-until they have a hold of their own.
+collectives: NCCL's go on the CUDA stream and are captured, those of every
+axis (the space axis's halo exchanges, gathers and sums too); gloo's go
+through the host and are not.
 
 A single process is a mesh of one (``LOCAL``, the default of every module
 that takes a mesh): each collective is then a no-op, and a mesh of more than
@@ -171,12 +171,13 @@ class DataMesh:
     def capturable(self) -> bool:
         """Whether a CUDA graph can hold this mesh's collectives: a single
         process (it makes none), or NCCL ranks, each on a card of its own
-        (NCCL refuses two ranks on one card), with no space axis.  The model
-        axis makes no collective.  Not gloo, whose collectives go through the
-        host, and not the space axis, whose halo exchanges stay eager."""
+        (NCCL refuses two ranks on one card), along any axes: the data
+        axis's, and the space axis's halo exchanges, gathers and sums (the
+        model axis makes none).  Not gloo, whose collectives go through the
+        host."""
         if self.processes == 1:
             return True
-        return self.backend == "nccl" and self.device.type == "cuda" and self.space == 1
+        return self.backend == "nccl" and self.device.type == "cuda"
 
     def rows(self, global_batch: int) -> slice:
         """This rank's rows of a global batch (the JAX package's ``batch_sharding``:
@@ -245,7 +246,12 @@ class DataMesh:
         group, size = self._axis(over)
         if not self._live(size):
             return [tensor]
-        tensor = tensor.contiguous()
+        return self._all_gather(tensor.contiguous(), kind, group, size)
+
+    def _all_gather(self, tensor: torch.Tensor, kind: str, group: Any, size: int) -> List[torch.Tensor]:
+        """The all-gather over ``group`` of ``size`` ranks, into a list (the
+        space probe of ``chip_smoke.py`` gathers over one rank and stands in
+        for the absent one)."""
         parts = [torch.empty_like(tensor) for _ in range(size)]
         self._timed(kind, dist.all_gather, parts, tensor, group=group)
         return parts
@@ -304,7 +310,16 @@ class _AllReduceMean(torch.autograd.Function):
 def _new_groups(shape: Tuple[int, int, int], coords: Tuple[int, int, int]) -> MeshGroups:
     """Every subgroup of the mesh, made by every rank in the same order
     (``dist.new_group`` is collective); keeps this rank's.  Axes of one rank
-    get none."""
+    get none.
+
+    A communicator first used inside a CUDA graph capture cannot be made
+    there.  An NCCL group that ``parallel/distributed.py::initialize`` made
+    is bound to the rank's card (``device_id``), and ``dist.new_group``
+    under a bound group connects each subgroup's communicator on that card
+    at once (split from the group's), so the ``space`` and ``batch``
+    communicators exist when ``make_mesh`` returns, before any capture; the
+    capture's warm-up (``utils/graphs.py::capture``) then makes every
+    collective of the captured function once more, eagerly."""
     data, model, space = shape
     ranks = np.arange(data * model * space).reshape(shape)
     mine = {}

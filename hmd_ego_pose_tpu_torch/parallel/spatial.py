@@ -25,7 +25,15 @@ Training-mode BN's statistics follow the same rule (``nn/core.py``).
 Collectives are counted in the mesh's ``CollectiveStats`` under ``halo``,
 ``gather``, ``space_sum`` and ``<kind>_backward``.  gloo's point-to-point
 calls take no CUDA tensors, so the halo rows travel by an all-gather of
-every rank's edge rows; a halo deeper than a slab gathers the whole level.
+every rank's edge rows (on NCCL too: one collective a halo on every
+backend); a halo deeper than a slab gathers the whole level.
+
+CUDA graphs.  Every branch below is taken on shapes and ranks, which a
+capture fixes, and nothing reads the device from the host, so on a
+capturable mesh (``DataMesh.capturable``: NCCL, a card per rank) a
+captured forward or backward records these collectives with the rest of
+the step or predict (``utils/graphs.py``), each counted per replay; the
+buffers they gather into and the zeros they pad with are the graph's.
 """
 
 from __future__ import annotations

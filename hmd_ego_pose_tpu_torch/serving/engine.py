@@ -30,12 +30,15 @@ batches are in flight at once.  A batch size without a graph runs eagerly,
 as the JAX engine's ``jit`` does, and counts in ``eager_batches`` (an
 engine that holds no graph counts none).  On a mesh (``capture_mode``):
 where a graph can hold its collectives (``DataMesh.capturable``: NCCL, a
-card per rank, no space axis) each graph holds the whole batch, the frame
-broadcasts -> preprocess -> ``predict`` -> the pose gather, captured by
-every process's ``warmup`` in the same order ("batch"); on a gloo mesh
-without a space axis the broadcasts and the gather stay eager around a
-graph of the preprocess and ``predict`` of the process's rows ("rows").  It
-stays eager on the CPU and on a space axis.  The JAX engine keeps one fixed
+card per rank, any axes) each graph holds the whole batch, the frame
+broadcasts -> preprocess -> the cut of the process's data rows and slab
+-> ``predict`` (on a space axis its halo exchanges and gathers) -> the
+pose gather, captured by every process's ``warmup`` in the same order
+("batch"); on a gloo mesh without a space axis the broadcasts and the
+gather stay eager around a graph of the preprocess and ``predict`` of the
+process's rows ("rows").  It stays eager on the CPU and on a gloo mesh
+with a space axis (whose halo exchanges go through the host).  The JAX
+engine keeps one fixed
 batch size; this one keeps the powers of two up to ``max_batch_size`` (five
 graphs at 16), as it has batched since its first version.
 
@@ -44,14 +47,15 @@ frames over ``data``, the image height over ``space``, the model replicated
 (broadcast from process 0 and its digest checked), every batch size a
 multiple of the data-axis size.  Every process builds the engine.  Process 0
 owns the queue, the threads and whatever serves it (``start``, ``submit``,
-``stop``); every process calls ``warmup`` (on a space axis the followers'
-is a no-op: process 0's warm-up batches reach them through ``follow``),
-then every other process calls ``follow()``, which serves until process 0
-stops.  Each batch is broadcast from process 0 (a command, which the
-followers read on the host and so stays eager, then the frames and
-cameras); every process preprocesses its data rows,
-takes its slab of their rows and runs ``predict`` on the mesh; the poses of
-the data rows are all-gathered over ``data``, and process 0 returns them.
+``stop``); every process calls ``warmup`` (which captures on every
+process; where nothing is captured, the followers' is a no-op: process 0's
+warm-up batches reach them through ``follow``), then every other process
+calls ``follow()``, which serves until process 0 stops, replaying the
+graphs its warm-up captured.  Each batch is broadcast from process 0 (a
+command, which the followers read on the host and so stays eager, then
+the frames and cameras); every process preprocesses its data rows, takes
+its slab of their rows and runs ``predict`` on the mesh; the poses of the
+data rows are all-gathered over ``data``, and process 0 returns them.
 An idle process 0 broadcasts a heartbeat every ``HEARTBEAT_S``, so a
 follower's wait is bounded by the process group's timeout, and a follower
 whose process 0 is gone raises instead of hanging; a broadcast that fails on
@@ -230,10 +234,13 @@ class InferenceEngine:
         """What ``warmup`` captures (module docstring): "batch" (a graph holds
         the whole batch, the mesh's collectives included), "rows" (a graph of
         this process's preprocess and predict, its collectives eager) or None
-        (no graph: the CPU, a space axis)."""
-        if self.device.type != "cuda" or self.mesh.space > 1:
+        (no graph: the CPU, and a gloo mesh with a space axis, whose predict
+        makes collectives a graph cannot hold)."""
+        if self.device.type != "cuda":
             return None
-        return "batch" if self.mesh.capturable else "rows"
+        if self.mesh.capturable:
+            return "batch"
+        return None if self.mesh.space > 1 else "rows"
 
     def warmup(self):
         """Before traffic, on every process of the mesh: capture one CUDA graph

@@ -40,18 +40,27 @@ again when a parameter has moved):
 A graph cannot hold a read of device data by the host, an upload from host
 memory, a shape that depends on the data, or a gloo collective (gloo's go
 through the host).  Meshes: a graph holds the NCCL collectives of a mesh
-that ``DataMesh.capturable`` allows (NCCL, a card per rank, no space axis),
-so there the train step (BN's statistics and their backward, the
-gradients' and the losses' means) and the engine's whole batch (the frame
-broadcasts and the pose gather) are captured on every rank, in the same
-order: two ranks replaying their graphs in different orders would wait on
-each other on the card, where no timeout reaches them.  A predict that makes
-no collective (eval mode, no space axis) is captured on any mesh, gloo
-included: evaluation's, and the engine's preprocess and predict of a gloo
-rank's rows between its eager broadcasts and gather.  What stays eager: the
-CPU, a gloo mesh's train step and collectives, and the space axis (its halo
-exchanges await a hold of their own); the engine's and the trainer's
-docstrings say which.
+that ``DataMesh.capturable`` allows (NCCL, a card per rank, any axes), so
+there these are captured on every rank, in the same order (two ranks
+replaying their graphs in different orders would wait on each other on
+the card, where no timeout reaches them):
+
+* the train step: BN's statistics and their backward, the gradients' and
+  the losses' means, and on a space axis the halo exchanges, gathers and
+  space sums of ``parallel/spatial.py`` with their backward and BN over
+  (data x space);
+* the engine's whole batch: the frame broadcasts, the rank's slab of its
+  rows, the predict (on a space axis its halos and gathered heads) and the
+  pose gather;
+* evaluation's predict (``EvalForward``), on a space axis with its halos
+  and gathers.
+
+A predict that makes no collective (eval mode, no space axis) is captured
+on any mesh, gloo included: evaluation's, and the engine's preprocess and
+predict of a gloo rank's rows between its eager broadcasts and gather.
+What stays eager: the CPU, a gloo mesh's train step and collectives, and a
+gloo mesh's space axis (train step, predict and engine); the engine's and
+the trainer's docstrings say which.
 """
 
 from __future__ import annotations

@@ -544,7 +544,9 @@ def test_nccl_collectives_captured_on_one_rank_and_counted_per_replay(cuda_devic
             mesh.broadcast_(f, "engine")
             return mean, mean_sq, dx, g, torch.cat(mesh.all_gather(row * 2, "engine", "data")), f
 
-        want = [t.clone() for t in body()]
+        # detached: an eager autograd graph kept alive would keep x's gradient
+        # accumulator on the default stream, which a captured backward must not wait on
+        want = [t.detach().clone() for t in body()]
         graph = graphs.capture(body, mesh.device)
         assert sorted(kind for _, kind in graph.collectives) == ["bn", "bn_backward", "engine", "engine", "grads"]
         mesh.stats.reset()
@@ -554,6 +556,59 @@ def test_nccl_collectives_captured_on_one_rank_and_counted_per_replay(cuda_devic
         for got, w in zip(graph.outputs, want):
             assert torch.equal(got, w)
         assert mesh.stats.calls == {"bn": 3, "bn_backward": 3, "grads": 3, "engine": 6}
+        assert dict(mesh.stats.seconds) == {}
+    finally:
+        dist.destroy_process_group()
+
+
+def test_space_probe_halos_and_gathers_captured_and_counted_per_replay(cuda_device, monkeypatch):
+    """The space probe of ``chip_smoke.py`` (``probe_space_mesh``: space rank 0
+    of two, the other mirrored) on a one-rank NCCL group:
+    ``parallel/spatial.py::halo`` within a slab and deeper than one, and
+    ``gather_rows``, forward and backward, captured through
+    ``utils/graphs.capture`` and replayed.  Each replay equals the eager call
+    bit for bit and counts its collectives once, with no host seconds."""
+    import socket
+
+    import torch.distributed as dist
+
+    from hmd_ego_pose_tpu_torch.parallel import distributed, spatial
+    from hmd_ego_pose_tpu_torch.utils import graphs
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for key, value in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="1", RANK="0",
+                           LOCAL_RANK="0").items():
+        monkeypatch.setenv(key, value)
+    assert distributed.initialize(cuda_device)
+    try:
+        mesh = chip_smoke.probe_space_mesh(torch.device("cuda", torch.cuda.current_device()))
+        assert dist.get_backend() == "nccl" and mesh.capturable and mesh.space == 2
+        gen = torch.Generator().manual_seed(0)
+        x = torch.randn(2, 3, 4, 5, generator=gen).to(mesh.device).requires_grad_(True)
+        weights = [torch.randn(shape, generator=gen).to(mesh.device)
+                   for shape in ((2, 3, 7, 5), (2, 3, 12, 5), (2, 3, 8, 5))]
+
+        def body():
+            shallow = spatial.halo(x, mesh, 1, 2)  # within the slab of 4 rows
+            deep = spatial.halo(x, mesh, 5, 3)  # deeper than the slab: the whole level gathered
+            whole = spatial.gather_rows(x, mesh)
+            loss = sum((t * w).sum() for t, w in zip((shallow, deep, whole), weights))
+            (dx,) = torch.autograd.grad(loss, x)
+            return shallow.detach(), deep.detach(), whole.detach(), dx
+
+        want = [t.clone() for t in body()]
+        graph = graphs.capture(body, mesh.device)
+        assert sorted(kind for _, kind in graph.collectives) == sorted(
+            ["halo", "halo", "gather", "halo_backward", "halo_backward", "gather_backward"])
+        mesh.stats.reset()
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+        for got, w in zip(graph.outputs, want):
+            assert torch.equal(got, w)
+        assert mesh.stats.calls == {"halo": 6, "gather": 3, "halo_backward": 6, "gather_backward": 3}
         assert dict(mesh.stats.seconds) == {}
     finally:
         dist.destroy_process_group()

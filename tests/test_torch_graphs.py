@@ -343,11 +343,14 @@ def test_make_eval_forward_on_the_cpu_captures_nothing(monkeypatch):
 
 def test_make_eval_forward_follows_the_models_mesh():
     """On a card, the model's own mesh decides: one process and a gloo data
-    mesh of several processes capture (the predict makes no collective), a
+    mesh of several processes capture (the predict makes no collective), so
+    does an NCCL space axis (the graph holds its halos and gathers); a gloo
     space axis predicts eagerly (no card is touched to decide)."""
     model, cfg = _eval_model()
     assert isinstance(make_eval_forward(model, cfg, "cuda"), EvalForward)
     model.mesh = DataMesh(rank=0, world=2, device=torch.device("cuda"), backend="gloo")
+    assert isinstance(make_eval_forward(model, cfg, "cuda"), EvalForward)
+    model.mesh = DataMesh(rank=0, world=1, device=torch.device("cuda"), space=2, backend="nccl")
     assert isinstance(make_eval_forward(model, cfg, "cuda"), EvalForward)
     model.mesh = DataMesh(rank=0, world=1, device=torch.device("cuda"), space=2, backend="gloo")
     predict = make_eval_forward(model, cfg, "cuda")

@@ -10,9 +10,10 @@ file already starts.  Here, without ranks:
 
 * the truth table of ``DataMesh.capturable``, ``TrainStep.graphable``,
   ``make_eval_forward`` and the engine's ``capture_mode``: one process, an
-  NCCL mesh with a card per rank (data, and data x model) graphed, gloo and
-  the space axis not; predicts graphed on every mesh without a space axis;
-  ``make_mesh`` over stand-in process groups records the backend;
+  NCCL mesh with a card per rank (data, data x model, space, data x space)
+  graphed, gloo not; predicts graphed on every mesh without a space axis
+  and on an NCCL one with it, eager on a gloo space axis; ``make_mesh``
+  over stand-in process groups records the backend;
 * the collective tally: a collective made while the stream captures goes
   into the open tally, also from another thread (autograd's backward),
   never into the stats; a capture without a tally raises; each replay adds
@@ -72,7 +73,9 @@ MESHES = {  # name -> (mesh, step graphed, predict graphed, engine capture_mode)
                                  backend="nccl"), True, True, "batch"),
     "gloo_data": (DataMesh(rank=1, world=2, device=CUDA, process_rank=1, backend="gloo"), False, True, "rows"),
     "nccl_space": (DataMesh(rank=0, world=1, device=CUDA, space=2, space_rank=1, process_rank=1,
-                            backend="nccl"), False, False, None),
+                            backend="nccl"), True, True, "batch"),
+    "nccl_data_space": (DataMesh(rank=1, world=2, device=CUDA, space=2, space_rank=1, process_rank=3,
+                                 backend="nccl"), True, True, "batch"),
     "gloo_space": (DataMesh(rank=0, world=2, device=CUDA, space=2, process_rank=2, backend="gloo"),
                    False, False, None),
 }
@@ -81,8 +84,9 @@ MESHES = {  # name -> (mesh, step graphed, predict graphed, engine capture_mode)
 @pytest.mark.parametrize("name", sorted(MESHES))
 def test_which_meshes_are_graphed(name):
     """No card is touched to decide: a graph holds the collectives of one
-    process or of NCCL ranks with a card each and no space axis; a predict,
-    which makes none, is graphed on a card on every mesh without a space axis."""
+    process or of NCCL ranks with a card each, along any axes (the space
+    axis's halos too); a predict is graphed on a card on every mesh without
+    a space axis (it makes no collective) and on a capturable one."""
     mesh, step_graphed, predict_graphed, mode = MESHES[name]
     assert mesh.capturable == step_graphed
     step = SimpleNamespace(device=CUDA, mesh=mesh, optimizer=SimpleNamespace(capturable=True))
@@ -95,7 +99,8 @@ def test_which_meshes_are_graphed(name):
 
 
 @pytest.mark.parametrize("backend, layout, capturable", [
-    ("nccl", (2, 1, 1), True), ("nccl", (1, 2, 1), True), ("nccl", (2, 1, 2), False), ("gloo", (2, 1, 1), False),
+    ("nccl", (2, 1, 1), True), ("nccl", (1, 2, 1), True), ("nccl", (2, 1, 2), True), ("nccl", (1, 1, 2), True),
+    ("gloo", (2, 1, 1), False), ("gloo", (1, 1, 2), False),
 ])
 def test_make_mesh_records_the_groups_backend(monkeypatch, backend, layout, capturable):
     """``make_mesh`` under a stand-in process group (no card, no group): the

@@ -23,7 +23,27 @@ of them), each job on a mesh of its own layout (data, model, space):
   model 2, the same against the single-process step (whose iter-1 step
   ``tests/test_torch_cli_rest.py`` holds to JAX's);
 * the engine on a space-4 mesh: batch floor 1, finite poses equal to the
-  single-process engine's.
+  single-process engine's;
+* the same jobs through the card's CUDA graphs, stood in for on the CPU
+  (``torch_dp_ranks.standin_graphs``: the warm-up runs, the capture
+  records the collectives, a replay runs the call again with them tallied):
+  the spatial step at data 2 x space 2 through ``HostGraph`` (a replay from
+  the start) bit-equal to the eager spatial step in losses, gradients and
+  state, its collectives by kind the eager step's, and within the bounds
+  above of JAX's step; evaluation's predict (``EvalForward``: whole frames
+  in, the slab cut in the graph) at data 2 x space 2 and space 4 equal to
+  the eager spatial predict; the engine's "batch" graphs on the space-4
+  mesh answering as the eager space engine; ``Trainer.fit`` at data 2 x
+  space 2 through the step's graph and ``EvalForward``, one validation:
+  process 0's space group validates (the same scalars on both its ranks),
+  every rank holds process 0's metric, and process 0 alone logs and writes
+  checkpoints;
+* the space probe of ``chip_smoke.py`` (``probe_space_mesh``: one rank that
+  acts as space rank 0 of two, the other mirrored) on a one-rank gloo
+  group of this process: its step makes the collectives of rank 0 of a
+  data 1 x space 2 step (the ranks' data 1 x model 2 x space 2 job; the
+  model axis makes none), and two of its steps from one state are
+  bit-equal and finite.
 
 The ops are held without ranks: ``ThreadMesh`` runs the ranks of a space
 group as threads of this process, with the mesh's collective interface;
@@ -51,6 +71,7 @@ from hmd_ego_pose_tpu.config import TrainConfig as JaxTrainConfig
 from hmd_ego_pose_tpu.models import hmd_ego_pose as jax_model
 from hmd_ego_pose_tpu.train import checkpoint as jax_checkpoint
 from hmd_ego_pose_tpu.train import step as jax_step
+from hmd_ego_pose_tpu_torch import cli
 from hmd_ego_pose_tpu_torch.config import ModelConfig
 from hmd_ego_pose_tpu_torch.models.weights import to_jax_params
 from hmd_ego_pose_tpu_torch.nn import core
@@ -248,10 +269,13 @@ def _job(what, layout, batch, seed, state, **extra):
 
 @pytest.fixture(scope="module")
 def states(tmp_path_factory):
-    """The artifact's and the iter-1 checkpoint's weights as the port's state files."""
+    """The artifact's and the iter-1 checkpoint's weights as the port's state
+    files, and a synthetic dataset of eight frames (the fit job's)."""
     work = tmp_path_factory.mktemp("spatial_states")
     iter1, _, _ = chip_smoke.write_iter1_checkpoint(str(work), "cpu")
-    out = {}
+    out = {"dataset": str(work / "syn")}
+    cli.main(["make-synthetic", "--out-dir", out["dataset"], "--num-frames", "8", "--frame-size", str(SIZE),
+              "--hand-render-version", "3"])
     for name, path, iters in (("artifact", ranks_mod.ARTIFACT, 0), ("iter1", iter1, 1)):
         cfg = ModelConfig(phi=0, image_size=SIZE, compute_dtype="float32", iter_steps=iters)
         model, _ = load_model(path, cfg, device="cpu")
@@ -270,7 +294,14 @@ def jobs(states):
         "step_iter1_drop_connect": _job("step", [2, 1, 2], 4, 2, it1, model={"iter_steps": 1},
                                         drop_connect_seed=5),
         "step_model2": _job("step", [2, 2, 1], 4, 2, art),
+        "step_model2_space2": _job("step", [1, 2, 2], 4, 2, art),
         "engine": _job("engine", [1, 1, 4], 3, 5, art),
+        "step_graph": _job("step", [2, 1, 2], 4, 2, art, graph=True),
+        "predict_graph": _job("predict", [2, 1, 2], 2, 1, art, graph=True),
+        "predict_graph_space4": _job("predict", [1, 1, 4], 1, 0, art, graph=True),
+        "engine_graph": _job("engine", [1, 1, 4], 3, 5, art, graph=True),
+        "fit_graph": {"kind": "spatial_fit", "layout": [2, 1, 2], "dataset": states["dataset"], "size": SIZE,
+                      "batch": 4, "oversample": 2, "eval_images": 2},
     }
 
 
@@ -286,10 +317,14 @@ def pending_ranks(states, tmp_path_factory):
 def runs(states, pending_ranks, jax_step_result, jax_forward, jax_predict):
     """name -> (the single-process job's result, [the four ranks' results]);
     the JAX functions compile and run while the ranks run.  Jobs that differ only in
-    their layout share one single-process run."""
+    their layout or in running through the graphs share one single-process run;
+    the fit job has none."""
     single, seen = {}, {}
     for name, job in jobs(states).items():
-        key = json.dumps({k: v for k, v in job.items() if k != "layout"}, sort_keys=True)
+        if job["kind"] != "spatial":
+            single[name] = None
+            continue
+        key = json.dumps({k: v for k, v in job.items() if k not in ("layout", "graph")}, sort_keys=True)
         if key not in seen:
             seen[key] = ranks_mod.spatial_job(job)
         single[name] = seen[key]
@@ -415,7 +450,7 @@ def test_spatial_train_step_matches_jax(runs, jax_step_result):
     assert gap < 5e-3, f"params diverged from JAX's: max abs diff {gap}"
 
 
-@pytest.mark.parametrize("name", ["step_iter1_drop_connect", "step_model2"])
+@pytest.mark.parametrize("name", ["step_iter1_drop_connect", "step_model2", "step_model2_space2"])
 def test_spatial_and_model_steps_match_the_single_process_step(runs, name):
     """The refinement subnets on the gradient path, with drop-connect drawn
     per sample of the global batch (every space rank of a data row the same
@@ -445,3 +480,148 @@ def test_engine_on_a_space_mesh(runs):
         for g, w in zip(got, want):
             assert np.all(np.isfinite(g))
             np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the same through the card's CUDA graphs, stood in for on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _without(calls: dict, *kinds) -> dict:
+    return {k: v for k, v in calls.items() if k not in kinds}
+
+
+def test_graphed_spatial_step_equals_the_eager_spatial_step(runs, jax_step_result):
+    """A replay of the step's graph from the start is the eager step: losses,
+    gradients after the (data x space) all-reduce and state, bit for bit."""
+    _, eager = runs["step"]
+    single, graphed = runs["step_graph"]
+    assert {r["graph_class"] for r in graphed} == {"StandinGraph"}
+    for g, e in zip(graphed, eager):
+        assert g["coords"] == e["coords"]
+        assert g["metrics"] == e["metrics"]
+        assert g["digest"] == e["digest"]
+        assert g["grads"].keys() == e["grads"].keys()
+        for key, want in e["grads"].items():
+            np.testing.assert_array_equal(g["grads"][key], want, err_msg=key)
+    _hold_to_single(single, graphed)
+    loss, params = jax_step_result
+    assert graphed[0]["metrics"]["loss"] == pytest.approx(loss, rel=1e-4)
+    assert _largest_param_gap(graphed[0]["state"], params) < 5e-3
+
+
+def test_a_spatial_step_replay_counts_the_eager_steps_collectives(runs):
+    """The capture's tally, and what a replay counts, by kind: the eager
+    spatial step's (halos, gathers, space sums, BN over data and over
+    (data x space), with their backward; the gradients; the losses)."""
+    _, eager = runs["step"]
+    _, graphed = runs["step_graph"]
+    for g, e in zip(graphed, eager):
+        want = _without(e["collectives"], "replicate")
+        assert {"halo", "halo_backward", "gather", "gather_backward", "space_sum", "bn", "grads"} <= set(want)
+        assert g["tally"] == want and g["replay_collectives"] == want
+
+
+@pytest.mark.parametrize("name", ["predict_graph", "predict_graph_space4"])
+def test_graphed_spatial_predict_equals_the_eager_spatial_predict(runs, name):
+    """``EvalForward`` on a space mesh: one capture; each replay's six fields
+    equal to its eager predict's, and at data 2 x space 2 to the eager
+    spatial predict of the slab; whole on every rank of a space group; a
+    replay counts the capture's halos and gathers."""
+    _, ranks = runs[name]
+    for r in ranks:
+        assert r["captures"] == 1
+        assert r["tally"] == r["replay_collectives"] and r["tally"]["halo"] > 0 and r["tally"]["gather"] > 0
+        for replay in r["replays"]:
+            for field, want in r["eager"].items():
+                np.testing.assert_array_equal(replay[field], want, err_msg=field)
+        peer = next(q for q in ranks if q["rows"] == r["rows"])  # the space group's first rank
+        for field, want in peer["eager"].items():
+            np.testing.assert_array_equal(r["eager"][field], want, err_msg=field)
+    if name == "predict_graph":
+        _, eager = runs["predict"]
+        for g, e in zip(ranks, eager):
+            assert g["coords"] == e["coords"]
+            for field, want in g["replays"][0].items():
+                np.testing.assert_array_equal(want, e["detections"][field], err_msg=field)
+
+
+def test_engine_graphs_on_a_space_mesh_answer_as_the_eager_space_engine(runs):
+    """Every process captures the batch-1 graph in its warm-up (frame
+    broadcasts, slab, predict with its halos and gathers, pose gather);
+    process 0 serves the three frames by replay, the others follow by
+    replay; the poses are the eager space engine's bit for bit, and the
+    predict's collectives by kind the same."""
+    _, eager = runs["engine"]
+    _, graphed = runs["engine_graph"]
+    leader = next(r for r in graphed if "poses" in r)
+    want = next(r for r in eager if "poses" in r)
+    assert [r["graphs"] for r in graphed] == [[1]] * 4 and leader["eager_batches"] == 0
+    assert sorted(r.get("served", 0) for r in graphed) == [0, 3, 3, 3]
+    for got, w in zip(leader["poses"], want["poses"]):
+        for a, b in zip(got, w):
+            np.testing.assert_array_equal(a, b)
+    for g, e in zip(graphed, eager):  # the heartbeats ("engine") depend on the host's timing
+        assert _without(g["collectives"], "engine") == _without(e["collectives"], "engine", "replicate")
+        assert g["collectives"]["halo"] > 0
+
+
+def test_a_graphed_fit_on_a_space_mesh_validates_on_process_0s_space_group(runs):
+    """``Trainer.fit`` at data 2 x space 2 through the stand-in graphs (the
+    step's graph and ``EvalForward``, as a card graphs them on an NCCL space
+    mesh), one validation: the two ranks of process 0's space group validate
+    (one capture each, the predict's halos and gathers, the same scalars),
+    every rank holds process 0's metric and names its best checkpoint, and
+    process 0 alone logs and writes checkpoints."""
+    _, ranks = runs["fit_graph"]
+    validators = [r for r in ranks if r["validated"] is not None]
+    assert sorted(r["coords"] for r in validators) == [[0, 0, 0], [0, 0, 1]]
+    assert [r["graphed"] for r in ranks] == [True] * 4
+    assert [r["captures"] for r in ranks] == [int(r["validated"] is not None) for r in ranks]
+    first, second = (r["validated"] for r in validators)
+    assert first == second and {"halo", "gather"} <= set(first["collectives"])
+    metric = first["scalars"]["mixed_point_distance_mean_mm"]
+    assert np.isfinite(metric) and [r["metric"] for r in ranks] == [metric] * 4
+    assert len({r["best"] for r in ranks}) == 1 and ranks[0]["best"]
+    (main,) = [r for r in ranks if r["process_rank"] == 0]
+    assert main["logged"] > 0 and any("last" in f for f in main["files"])
+    assert [(r["logged"], r["files"]) for r in ranks if r is not main] == [(0, [])] * 3
+
+
+# ---------------------------------------------------------------------------
+# the space probe of chip_smoke.py, on a one-rank gloo group
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def probe_steps(states):
+    """Two eager steps of ``chip_smoke.probe_space_mesh`` (data 1 x space 2 at
+    space rank 0, the other rank mirrored) from the artifact's state, on a
+    one-rank gloo group of this process."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{ranks_mod.free_port()}", world_size=1, rank=0)
+    try:
+        job = _job("step", [1, 1, 2], 4, 2, states["artifact"], probe=True)
+        return [ranks_mod.spatial_job(job) for _ in range(2)]
+    finally:
+        dist.destroy_process_group()
+
+
+def test_the_space_probe_makes_the_collectives_of_rank_0_of_a_space_two_step(runs, probe_steps):
+    _, ranks = runs["step_model2_space2"]
+    (zero,) = [r for r in ranks if r["coords"] == [0, 0, 0]]
+    want = _without(zero["collectives"], "replicate")
+    assert {"halo", "halo_backward", "gather", "gather_backward", "space_sum", "bn", "grads"} <= set(want)
+    assert "metrics" not in want  # a data axis of one makes none
+    assert _without(probe_steps[0]["collectives"], "replicate") == want
+
+
+def test_two_eager_space_probe_steps_from_one_state_are_bit_equal_and_finite(probe_steps):
+    a, b = probe_steps
+    assert a["metrics"] == b["metrics"] and all(np.isfinite(v) for v in a["metrics"].values())
+    assert a["digest"] == b["digest"]
+    for key, value in a["state"].items():
+        assert np.all(np.isfinite(value)), key
+    for key, value in a["grads"].items():
+        np.testing.assert_array_equal(b["grads"][key], value, err_msg=key)

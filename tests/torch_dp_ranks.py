@@ -21,11 +21,21 @@ Jobs (dicts with a ``kind``):
   the stand-in capture (``standin_capture``) and the graph's collective
   tally;
 * ``cli``: ``cli.main(["train", ...])`` in a working directory;
+* ``spatial_fit``: ``cli train``'s trainer on a mesh of
+  ``job["layout"]``, one epoch of ``fit`` through the stand-in graphs with
+  one validation: who validated, logged and wrote checkpoints;
 * ``spatial``: on a mesh of ``job["layout"]`` (data, model, space) of its
   own, from a state file the test saved: the raw forward (``forward``), the
   fused predict (``predict``), a train step (``step``) or the engine
   (``engine``: process 0 serves, the others follow) on seeded inputs
-  (``spatial_inputs``); whole-height outputs of the rank's data rows.
+  (``spatial_inputs``); whole-height outputs of the rank's data rows.  With
+  ``graph``, through the card's graphs under the stand-in capture
+  (``standin_graphs``): the step through ``train/step.py::HostGraph``
+  (a warm-up step and the capture, then back to the start and one
+  replay: the step the eager job takes), the predict through
+  ``EvalForward`` (two replays and its eager predict), the engine's
+  "batch" graphs captured by every process's ``warmup``.  With ``probe``,
+  run in one process of a one-rank group: on ``chip_smoke.probe_space_mesh``.
 """
 
 from __future__ import annotations
@@ -195,6 +205,39 @@ def _step_tensors(graph):
             + [graph.metrics, graph.row])
 
 
+def _tensors(outputs):
+    import torch
+
+    return (outputs,) if torch.is_tensor(outputs) else tuple(outputs)
+
+
+class StandinRerun:
+    """The stand-in capture's "graph" of an inference call (a predict, an
+    engine batch): a replay runs the call again with its collectives made but
+    not counted (the ranks meet as a graph's replays would), writes its
+    results into the captured outputs, as a replay overwrites a graph's
+    memory, then counts the capture's collectives."""
+
+    def __init__(self, fn, outputs, launches, collectives):
+        self.fn, self.outputs, self.launches, self.collectives = fn, outputs, launches, collectives
+
+    def replay(self):
+        import torch
+
+        from hmd_ego_pose_tpu_torch.kernels import LAUNCHES
+        from hmd_ego_pose_tpu_torch.parallel import mesh as mesh_mod
+
+        with capturing(), mesh_mod.recording():
+            new = self.fn()
+        with torch.inference_mode():
+            for old, value in zip(_tensors(self.outputs), _tensors(new)):
+                old.copy_(value)
+        for name in self.launches:
+            LAUNCHES.add(name)
+        for stats, kind in self.collectives:
+            stats.replayed(kind)
+
+
 class StandinGraph:
     """The stand-in capture's "graph" of a step: a replay runs the step again
     with its collectives made but not counted, then counts the capture's
@@ -220,17 +263,23 @@ class StandinGraph:
 
 
 def standin_capture(fn, device, pool=None, warmup=1):
-    """``utils/graphs.py::capture`` of a step on the CPU: the warm-up calls run
-    for real; the captured call runs with the collectives recorded into the
-    tallies and takes no effect (every tensor it writes is put back, as a
-    capture runs nothing)."""
+    """``utils/graphs.py::capture`` on the CPU: the warm-up calls run for real;
+    the captured call runs with the collectives recorded into the tallies.
+    A step's (``fn`` a method of a ``ResidentGraph``) takes no effect (every
+    tensor it writes is put back, as a capture runs nothing); an inference
+    call's outputs are kept (``StandinRerun``)."""
     import torch
 
     from hmd_ego_pose_tpu_torch import kernels
     from hmd_ego_pose_tpu_torch.parallel import mesh as mesh_mod
+    from hmd_ego_pose_tpu_torch.train.step import ResidentGraph
 
     for _ in range(warmup):
         fn()
+    if not isinstance(getattr(fn, "__self__", None), ResidentGraph):
+        with capturing(), kernels.recording() as launches, mesh_mod.recording() as collectives:
+            outputs = fn()
+        return StandinRerun(fn, outputs, tuple(launches), tuple(collectives))
     tensors = _step_tensors(fn.__self__)
     saved = [t.detach().clone() for t in tensors]
     with capturing(), kernels.recording() as launches, mesh_mod.recording() as collectives:
@@ -241,22 +290,39 @@ def standin_capture(fn, device, pool=None, warmup=1):
     return StandinGraph(fn, tuple(launches), tuple(collectives))
 
 
+@contextlib.contextmanager
+def standin_graphs(on: bool = True):
+    """While open (with ``on``), the CPU acts as a card for the graphs:
+    ``TrainStep.graphable`` is true, ``utils/graphs.py::capture`` is
+    ``standin_capture`` and the engine's graph pool, pool bytes and
+    synchronise are no-ops."""
+    import torch
+
+    from hmd_ego_pose_tpu_torch.train.step import TrainStep
+    from hmd_ego_pose_tpu_torch.utils import graphs
+
+    if not on:
+        yield
+        return
+    saved = (TrainStep.graphable, graphs.capture, graphs.pool_bytes, torch.cuda.graph_pool_handle,
+             torch.cuda.synchronize)
+    TrainStep.graphable = property(lambda self: True)
+    graphs.capture, graphs.pool_bytes = standin_capture, lambda pool, device: 0
+    torch.cuda.graph_pool_handle, torch.cuda.synchronize = lambda: (0, 1), lambda device=None: None
+    try:
+        yield
+    finally:
+        (TrainStep.graphable, graphs.capture, graphs.pool_bytes, torch.cuda.graph_pool_handle,
+         torch.cuda.synchronize) = saved
+
+
 def steps_job(job, workdir: str, device: str = "cpu"):
     """A few steps of the trainer's own epoch code on its path (resident:
     ``job["steps"]`` steps; windowed and host: one epoch); with ``graph``
     through the step's graph (the stand-in capture: the CPU has no graphs)."""
-    from hmd_ego_pose_tpu_torch.train.step import TrainStep
-    from hmd_ego_pose_tpu_torch.utils import graphs
-
     graphed = job.get("graph", False)
-    graphable, capture = TrainStep.graphable, graphs.capture
-    if graphed:
-        TrainStep.graphable = property(lambda self: True)
-        graphs.capture = standin_capture
-    try:
+    with standin_graphs(graphed):
         return _steps(job, build(job, workdir, device), graphed)
-    finally:
-        TrainStep.graphable, graphs.capture = graphable, capture
 
 
 def _steps(job, trainer, graphed: bool):
@@ -350,6 +416,64 @@ def cli_job(job, workdir: str):
                             for root, _, files in os.walk(workdir) for f in files)}
 
 
+def spatial_fit_job(job, workdir: str, device: str = "cpu"):
+    """One epoch of ``Trainer.fit`` (``cli train``'s config and restore of
+    the artifact) on a mesh of ``job["layout"]`` (data, model, space)
+    through the stand-in graphs, as a card graphs it on an NCCL space mesh:
+    the step's graph and evaluation's predict (``EvalForward``), one
+    validation of ``job["eval_images"]`` images.  Whether the rank
+    validated, its validation's scalars and collectives, the metric it
+    holds, the best checkpoint it names, the files it wrote and the lines
+    it logged."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    import torch
+
+    from hmd_ego_pose_tpu_torch import cli
+    from hmd_ego_pose_tpu_torch.config import ParallelConfig
+    from hmd_ego_pose_tpu_torch.data.colibri import ColibriDataset
+    from hmd_ego_pose_tpu_torch.parallel.mesh import make_mesh
+    from hmd_ego_pose_tpu_torch.train.checkpoint import meta_hand_relative, restore_checkpoint
+    from hmd_ego_pose_tpu_torch.train.step import EvalForward
+    from hmd_ego_pose_tpu_torch.train.trainer import Trainer
+
+    args = cli.build_parser().parse_args(["train", "--dataset-path", job["dataset"], "--img-size", str(job["size"]),
+                                          "--batch-size", str(job["batch"])])
+    cfg = cli.train_config(args, oversample=job["oversample"], checkpoint_dir=os.path.join(workdir, "ckpt"))
+    params, bn_state, meta = restore_checkpoint(ARTIFACT, device)
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, hand_relative=bool(meta_hand_relative(meta))),
+        data=dataclasses.replace(cfg.data, use_6dof_augmentation=False, use_colorspace_augmentation=False,
+                                 num_workers=1))
+    data, model_axis, space = job["layout"]
+    mesh = make_mesh(ParallelConfig(data_parallel=data, model_parallel=model_axis, spatial_parallel=space),
+                     device=torch.device(device))
+    datasets = [ColibriDataset(args.dataset_path, args.fold, args.object_id, split) for split in ("train", "val")]
+    logged = []
+    logger = SimpleNamespace(log_scalars=lambda step, scalars: logged.append(step))
+    with standin_graphs():
+        trainer = Trainer(cfg, *datasets, device=device, logger=logger, params=params, bn_state=bn_state, mesh=mesh)
+        trainer.predict_fn = EvalForward(trainer.model, cfg, trainer.device)  # what a card builds
+        out = {"graphed": trainer.graphed, "validated": None}
+        validate = trainer.validate
+
+        def recorded_validate(max_images=None):
+            mesh.stats.reset()
+            result = validate(max_images)
+            out["validated"] = {"scalars": result.scalars(), "collectives": dict(mesh.stats.calls)}
+            return result
+
+        trainer.validate = recorded_validate
+        best = trainer.fit(epochs=1, max_eval_images=job["eval_images"])
+    out.update(coords=[mesh.rank, mesh.model_rank, mesh.space_rank], process_rank=mesh.process_rank,
+               captures=trainer.predict_fn.captures, metric=trainer.best_metric,
+               best=best and os.path.basename(best), logged=len(logged),
+               files=sorted(os.path.relpath(os.path.join(root, f), workdir)
+                            for root, _, files in os.walk(workdir) for f in files))
+    return out
+
+
 SPATIAL_SIZE = 128
 CAMERA = [570.0, 570.0, 64.0, 64.0, 1000.0, 1.0]
 
@@ -391,31 +515,61 @@ def spatial_model(job, device: str = "cpu"):
 
 def spatial_job(job, device: str = "cpu"):
     """``job["what"]`` on a mesh of ``job["layout"]``; a mesh of one process
-    (``LOCAL``) when the job is run in the test's own process."""
+    (``LOCAL``) when the job is run in the test's own process, or the space
+    probe (``chip_smoke.probe_space_mesh``) with ``probe``; through the
+    stand-in graphs with ``graph``."""
     import torch
 
-    from hmd_ego_pose_tpu_torch.config import Config, ParallelConfig, ServingConfig, TrainConfig
-    from hmd_ego_pose_tpu_torch.models import hmd_ego_pose
-    from hmd_ego_pose_tpu_torch.ops.augment_device import Batch
+    from hmd_ego_pose_tpu_torch.config import ParallelConfig
     from hmd_ego_pose_tpu_torch.parallel import distributed
-    from hmd_ego_pose_tpu_torch.parallel.mesh import (
-        LOCAL, batch_sharding, image_sharding, make_mesh, replicate, state_digest)
-    from hmd_ego_pose_tpu_torch.serving.engine import InferenceEngine
-    from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES, TrainStep
+    from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL, make_mesh
 
-    if distributed.world_size() > 1:
+    if job.get("probe", False):
+        import chip_smoke
+
+        mesh = chip_smoke.probe_space_mesh(torch.device(device))
+    elif distributed.world_size() > 1:
         data, model_axis, space = job["layout"]
         mesh = make_mesh(ParallelConfig(data_parallel=data, model_parallel=model_axis, spatial_parallel=space),
                          device=torch.device(device))
     else:
         mesh = LOCAL
+    with standin_graphs(job.get("graph", False)):
+        return _spatial(job, mesh, device)
+
+
+def _spatial(job, mesh, device: str):
+    import torch
+
+    from hmd_ego_pose_tpu_torch.config import Config, EvalConfig, ServingConfig, TrainConfig
+    from hmd_ego_pose_tpu_torch.models import hmd_ego_pose
+    from hmd_ego_pose_tpu_torch.ops.augment_device import Batch
+    from hmd_ego_pose_tpu_torch.parallel.mesh import batch_sharding, image_sharding, replicate, state_digest
+    from hmd_ego_pose_tpu_torch.serving.engine import InferenceEngine
+    from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES, EvalForward, TrainStep
+
+    graphed = job.get("graph", False)
     model, cfg = spatial_model(job, device)
     what = job["what"]
     inp = spatial_inputs(what, job["batch"], job["seed"])
     out = {"coords": [mesh.rank, mesh.model_rank, mesh.space_rank], "rows": [mesh.rows(job["batch"]).start,
                                                                              mesh.rows(job["batch"]).stop]}
     mesh.stats.reset()
-    if what in ("forward", "predict"):
+    if what == "predict" and graphed:  # evaluation's predict: whole frames in, the slab cut inside
+        replicate(mesh, model)
+        rows = batch_sharding(mesh)
+        config = Config(model=cfg, eval=EvalConfig(nms_threshold=0.5, max_detections=10))
+        forward = EvalForward(model, config, torch.device(device), score_threshold=0.05)
+        images, cams = rows(inp["images"]), rows(inp["cams"])
+        replays = [forward(images, cams)]  # the capture (its warm-up eager), then a replay
+        mesh.stats.reset()
+        replays.append(forward(images, cams))  # a replay alone
+        out["replay_collectives"] = dict(mesh.stats.calls)
+        out["tally"] = dict(collections.Counter(kind for _, kind in forward.graph.collectives))
+        out["captures"] = forward.captures
+        out["replays"] = [r._asdict() for r in replays]
+        out["eager"] = forward.eager(images, cams)._asdict()
+    elif what in ("forward", "predict"):
         replicate(mesh, model)
         images = torch.from_numpy(image_sharding(mesh)(inp["images"])).to(device)
         if what == "forward":
@@ -432,12 +586,18 @@ def spatial_job(job, device: str = "cpu"):
         replicate(mesh, model)
         step = TrainStep(model, config, inp["model_points"], torch.device(device), mesh=mesh)
         rows = batch_sharding(mesh)
-        batch = Batch(*(torch.from_numpy(rows(inp[k])).to(device) for k in
-                        ("images", "cams", "gt_boxes", "gt_labels", "gt_transformation", "gt_coords_3d",
-                         "gt_valid")))
-        generator = torch.Generator().manual_seed(job["drop_connect_seed"]) if "drop_connect_seed" in job else None
+        fields = [rows(inp[k]) for k in ("images", "cams", "gt_boxes", "gt_labels", "gt_transformation",
+                                         "gt_coords_3d", "gt_valid")]
+
+        def generator():
+            return torch.Generator().manual_seed(job["drop_connect_seed"]) if "drop_connect_seed" in job else None
+
         record_first_grads(step.optimizer, model, out)
-        metrics = step.update(step.losses(batch, generator))
+        if graphed:
+            metrics = _graphed_spatial_step(step, Batch(*fields), generator, out)
+        else:
+            batch = Batch(*(torch.from_numpy(a).to(device) for a in fields))
+            metrics = step.update(step.losses(batch, generator()))
         out["metrics"] = {k: float(metrics[k]) for k in METRIC_NAMES}
         out["digest"] = state_digest(model)
         out["state"] = {k: v.detach().cpu().numpy().copy() for k, v in model.state_dict().items()}
@@ -446,6 +606,11 @@ def spatial_job(job, device: str = "cpu"):
                                  frame_shape=(SPATIAL_SIZE, SPATIAL_SIZE), device=device,
                                  mesh=mesh)
         out["batch_sizes"] = engine.batch_sizes
+        if graphed:  # what a card chooses on an NCCL space mesh: every process captures
+            engine.capture_mode = "batch"
+            engine.warmup()
+            out["graphs"] = sorted(engine.graphs)
+            mesh.stats.reset()
         if engine.leader:
             engine.start()
             try:
@@ -453,12 +618,40 @@ def spatial_job(job, device: str = "cpu"):
             finally:
                 engine.stop()
             out["poses"] = [None if p is None else [np.asarray(v, np.float32) for v in p] for p in poses]
+            out["eager_batches"] = engine.eager_batches
         else:
             out["served"] = engine.follow()
     else:
         raise ValueError(what)
     out["collectives"] = dict(mesh.stats.calls)
     return out
+
+
+def _graphed_spatial_step(step, batch, generator, out):
+    """The spatial step through ``HostGraph`` (a host pipeline's ``Batch``:
+    the graph starts at the forward): its first call (the warm-up step and
+    the stand-in capture), then the model and Adam back at the start and
+    one replay, with the same drop-connect draws; the replay's losses, its
+    gradients (``record_first_grads`` again), the collectives it counts and
+    the capture's tally."""
+    from types import SimpleNamespace
+
+    import chip_smoke
+    from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES, HostGraph
+
+    model = step.model
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    graph = HostGraph(step, 2)  # the stand-in capture runs its captured call: a second row
+    graph(batch, None, generator())
+    chip_smoke.restore_state(SimpleNamespace(model=model, optimizer=step.optimizer), start)
+    graph.reset()
+    out.pop("grads")
+    step.mesh.stats.reset()
+    graph(batch, None, generator())
+    out["replay_collectives"] = dict(step.mesh.stats.calls)
+    out["tally"] = dict(collections.Counter(kind for _, kind in graph.graph.collectives))
+    out["graph_class"] = type(graph.graph).__name__
+    return dict(zip(METRIC_NAMES, graph.metrics[0]))
 
 
 def run_job(job, mesh, workdir: str, device: str = "cpu"):
@@ -471,6 +664,8 @@ def run_job(job, mesh, workdir: str, device: str = "cpu"):
         return steps_job(job, workdir, device)
     if kind == "cli":
         return cli_job(job, workdir)
+    if kind == "spatial_fit":
+        return spatial_fit_job(job, workdir)
     raise ValueError(kind)
 
 
