@@ -12,6 +12,14 @@ copies the result to the host and resolves the futures.
 Per-stage latency (``stats()``, the JAX engine's keys): ``queue`` wait,
 ``execute`` (dispatch done -> device done), ``fetch`` (device -> host copy),
 ``device`` (batch start -> results on the host) and ``total`` per request.
+While ``utils/profiler.py::RECORDER`` is on, the engine records spans from
+the same clock reads: ``engine.queue`` per request (its frame's id and the
+submitting thread's open span, ``server.wait`` in the server, as its
+parent), and per batch ``engine.batch`` (``engine.pack``, ``engine.upload``,
+``engine.replay``) on the dispatcher and ``engine.device_wait``,
+``engine.fetch``, ``engine.resolve`` on the resolver, under one batch id
+whose attributes hold the batch size, the rows filled and the frames' ids
+(0 for a frame submitted before the recorder started).
 
 Pose packet contract: axis-angle radians (network output x pi) and
 translation in meters (network output mm / 1000).
@@ -83,6 +91,7 @@ from hmd_ego_pose_tpu_torch.ops.preprocess import preprocess_uint8_batch
 from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL, DataMesh, replicate
 from hmd_ego_pose_tpu_torch.utils import graphs
 from hmd_ego_pose_tpu_torch.utils.device import DeviceLike, resolve_device
+from hmd_ego_pose_tpu_torch.utils.profiler import RECORDER
 
 # commands process 0 broadcasts to the followers of a mesh engine
 _STOP, _BATCH, _IDLE = 0, 1, 2
@@ -90,13 +99,19 @@ HEARTBEAT_S = 1.0
 
 
 class _Request:
-    __slots__ = ("frame", "camera", "future", "t_enqueue")
+    __slots__ = ("frame", "camera", "future", "t_enqueue", "trace")
 
     def __init__(self, frame, camera):
         self.frame = frame
         self.camera = camera
         self.future: Future = Future()
-        self.t_enqueue = time.perf_counter()
+        self.trace = RECORDER.current()  # (frame id, parent span id) while spans are recorded
+        self.t_enqueue = time.perf_counter_ns()
+
+
+def _batch_attrs(reqs: List[_Request], b: int) -> Dict[str, object]:
+    """A batch span's attributes: its size, the rows filled, the frames' ids."""
+    return {"batch": b, "rows": len(reqs), "frames": tuple(r.trace[0] if r.trace else 0 for r in reqs)}
 
 
 class LatencyStats:
@@ -372,18 +387,22 @@ class InferenceEngine:
         held = self.graphs.get(b)
         if held is not None:
             frames, cams, _ = held
-            frames.copy_(torch.from_numpy(frames_u8))
-            cams.copy_(torch.from_numpy(np.ascontiguousarray(cameras, np.float32)))
+            with RECORDER.span("engine.upload"):
+                frames.copy_(torch.from_numpy(frames_u8))
+                cams.copy_(torch.from_numpy(np.ascontiguousarray(cameras, np.float32)))
             if self._followers:
                 self._command(_BATCH, b)
-            return self._replay(b)
+            with RECORDER.span("engine.replay"):
+                return self._replay(b)
         if self.graphs:
             self.eager_batches += 1
         if self._followers:
             self._command(_BATCH, b)
-        frames = torch.from_numpy(frames_u8).to(self.device)
-        cams = torch.from_numpy(np.ascontiguousarray(cameras, np.float32)).to(self.device)
-        return self._batch(frames, cams)
+        with RECORDER.span("engine.upload"):
+            frames = torch.from_numpy(frames_u8).to(self.device)
+            cams = torch.from_numpy(np.ascontiguousarray(cameras, np.float32)).to(self.device)
+        with RECORDER.span("engine.replay"):
+            return self._batch(frames, cams)
 
     @staticmethod
     def _to_host(det):
@@ -409,27 +428,32 @@ class InferenceEngine:
                     reqs.append(self._queue.get_nowait())
                 except queue.Empty:
                     break
-            t_start = time.perf_counter()
+            t_start = time.perf_counter_ns()
             for r in reqs:
-                self.queue_stats.record((t_start - r.t_enqueue) * 1000)
+                self.queue_stats.record((t_start - r.t_enqueue) / 1e6)
+                if r.trace is not None:
+                    RECORDER.add("engine.queue", r.t_enqueue, t_start, *r.trace, thread="queue")
             try:
                 b = next(s for s in self.batch_sizes if s >= len(reqs))
-                frames = np.zeros((b, h, w, 3), np.uint8)
-                cams = np.zeros((b, 6), np.float32)
-                for i, r in enumerate(reqs):
-                    frames[i] = r.frame
-                    cams[i] = r.camera
-                cams[len(reqs):] = reqs[0].camera  # pad rows with valid intrinsics
-                det = self._dispatch_device(frames, cams)
-                done = None
-                if self.device.type == "cuda":
-                    done = torch.cuda.Event()
-                    done.record()
+                bid, attrs = (RECORDER.next_id(), _batch_attrs(reqs, b)) if RECORDER.on else (0, None)
+                with RECORDER.span("engine.batch", bid, 0, attrs):
+                    with RECORDER.span("engine.pack"):
+                        frames = np.zeros((b, h, w, 3), np.uint8)
+                        cams = np.zeros((b, 6), np.float32)
+                        for i, r in enumerate(reqs):
+                            frames[i] = r.frame
+                            cams[i] = r.camera
+                        cams[len(reqs):] = reqs[0].camera  # pad rows with valid intrinsics
+                    det = self._dispatch_device(frames, cams)
+                    done = None
+                    if self.device.type == "cuda":
+                        done = torch.cuda.Event()
+                        done.record()
             except Exception as exc:  # a failed batch fails its requests; serving goes on
                 for r in reqs:
                     r.future.set_exception(exc)
                 continue
-            self._inflight.put((reqs, det, done, t_start, time.perf_counter()))
+            self._inflight.put((reqs, det, done, t_start, time.perf_counter_ns(), bid, attrs))
         while True:  # requests still queued at shutdown fail instead of hanging
             try:
                 r = self._queue.get_nowait()
@@ -454,23 +478,28 @@ class InferenceEngine:
                 continue
             if item is None:
                 return
-            reqs, det, done, t_start, t_dispatched = item
+            reqs, det, done, t_start, t_dispatched, bid, attrs = item
             try:
+                t0 = time.perf_counter_ns()
                 if done is not None:
                     done.synchronize()
-                t1 = time.perf_counter()
+                t1 = time.perf_counter_ns()
                 num_valid, rotation, translation = self._to_host(det)
-                self.execute_stats.record((t1 - t_dispatched) * 1000)
-                self.fetch_stats.record((time.perf_counter() - t1) * 1000)
+                t2 = time.perf_counter_ns()
+                self.execute_stats.record((t1 - t_dispatched) / 1e6)
+                self.fetch_stats.record((t2 - t1) / 1e6)
+                RECORDER.add("engine.device_wait", t0, t1, bid, 0, attrs)
+                RECORDER.add("engine.fetch", t1, t2, bid, 0, attrs)
             except Exception as exc:
                 for r in reqs:
                     r.future.set_exception(exc)
                 continue
-            t_done = time.perf_counter()
-            self.device_stats.record((t_done - t_start) * 1000)
+            t_done = time.perf_counter_ns()
+            self.device_stats.record((t_done - t_start) / 1e6)
             for i, r in enumerate(reqs):
                 if int(num_valid[i]) > 0:
                     r.future.set_result((rotation[i] * math.pi, translation[i] / 1000.0))
                 else:
                     r.future.set_result(None)
-                self.total_stats.record((t_done - r.t_enqueue) * 1000)
+                self.total_stats.record((t_done - r.t_enqueue) / 1e6)
+            RECORDER.add("engine.resolve", t_done, time.perf_counter_ns(), bid, 0, attrs)

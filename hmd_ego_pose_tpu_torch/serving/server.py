@@ -6,10 +6,19 @@ each with one 24-byte pose packet.  One receive thread per connection feeds
 the shared ``InferenceEngine``, whose dispatcher batches across clients.  Every wait is
 bounded: ``stop`` joins the acceptor thread with a timeout, and the client's
 socket has a timeout.
+
+While ``utils/profiler.py::RECORDER`` is on, each connection's thread
+(``pose-conn-<n>``, n counting the server's connections from 1) records
+four spans a frame under the frame's id: ``server.recv`` (from the
+header's arrival to the payload's last byte; the wait for the next header
+is none), ``server.decode``, ``server.wait`` (submit to the engine's answer,
+the parent of the engine's spans of the frame) and ``server.send`` (the
+packet's encoding and ``sendall``).
 """
 
 from __future__ import annotations
 
+import itertools
 import socket
 import socketserver
 import threading
@@ -19,6 +28,7 @@ import numpy as np
 
 from hmd_ego_pose_tpu_torch.serving import protocol
 from hmd_ego_pose_tpu_torch.serving.engine import InferenceEngine
+from hmd_ego_pose_tpu_torch.utils.profiler import RECORDER
 
 
 def _recv_exact(sock: socket.socket, n: int) -> Optional[bytes]:
@@ -37,20 +47,24 @@ class _Handler(socketserver.BaseRequestHandler):
         timeout = self.server.request_timeout  # type: ignore[attr-defined]
         sock = self.request
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        threading.current_thread().name = f"pose-conn-{next(self.server.connections)}"  # type: ignore[attr-defined]
         while True:
             header = _recv_exact(sock, protocol.HEADER_BYTES)
             if header is None:
                 return
-            kind, h, w = protocol.decode_frame_header(header)
-            payload = _recv_exact(sock, protocol.payload_size(kind, h, w))
+            rid = RECORDER.next_id()
+            with RECORDER.span("server.recv", rid):
+                kind, h, w = protocol.decode_frame_header(header)
+                payload = _recv_exact(sock, protocol.payload_size(kind, h, w))
             if payload is None:
                 return
-            frame = protocol.decode_frame_message(header + payload)
-            result = engine.infer_blocking(frame, timeout=timeout)
-            if result is None:
-                sock.sendall(protocol.no_detection_packet())
-            else:
-                sock.sendall(protocol.encode_pose_packet(*result))
+            with RECORDER.span("server.decode", rid):
+                frame = protocol.decode_frame_message(header + payload)
+            with RECORDER.span("server.wait", rid):
+                result = engine.infer_blocking(frame, timeout=timeout)
+            with RECORDER.span("server.send", rid):
+                sock.sendall(protocol.no_detection_packet() if result is None
+                             else protocol.encode_pose_packet(*result))
 
 
 class _ThreadingServer(socketserver.ThreadingTCPServer):
@@ -67,6 +81,7 @@ class PoseServer:
         self._server = _ThreadingServer((host, port), _Handler)
         self._server.engine = engine  # type: ignore[attr-defined]
         self._server.request_timeout = request_timeout  # type: ignore[attr-defined]
+        self._server.connections = itertools.count(1)  # type: ignore[attr-defined]
         self._thread: Optional[threading.Thread] = None
 
     @property

@@ -114,6 +114,7 @@ from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL, DataMesh
 from hmd_ego_pose_tpu_torch.train.state import Optimizer
 from hmd_ego_pose_tpu_torch.utils import graphs
 from hmd_ego_pose_tpu_torch.utils.device import PackedFields
+from hmd_ego_pose_tpu_torch.utils.profiler import RECORDER
 
 METRIC_NAMES = ("loss", "classification_loss", "regression_loss", "rotation_loss",
                 "translation_loss", "hand_loss")
@@ -318,7 +319,8 @@ class ResidentGraph:
     def _stage(self, source, draws: Optional[AugmentDraws], generator: Optional[torch.Generator]) -> None:
         """Write this step's inputs into the host buffers and queue their copies."""
         fields = self.fields
-        fields.wait()  # the last step's copies have left the host buffers
+        with RECORDER.span("train.stage_wait"):
+            fields.wait()  # the last step's copies have left the host buffers
         host = fields.host
         self._stage_source(source)
         if self.colour is not None:
@@ -347,14 +349,17 @@ class ResidentGraph:
         elif key != self._key:
             raise ValueError(f"the graph was captured for (source, colour, 6-DoF, drop-connect) "
                              f"{self._key}, this step is {key}")
-        self._stage(source, draws, generator)
+        with RECORDER.span("train.stage"):
+            self._stage(source, draws, generator)
         optimizer = self.step.optimizer
         if self.graph is None:
             count = optimizer.count
-            self.graph = graphs.capture(self._body, self.step.device, warmup=1)
+            with RECORDER.span("train.capture"):
+                self.graph = graphs.capture(self._body, self.step.device, warmup=1)
             optimizer.count = count + 1  # the warm-up was this step; the capture ran none
         else:
-            self.graph.replay()
+            with RECORDER.span("train.replay"):
+                self.graph.replay()
             optimizer.count += 1
         self.done += 1
 

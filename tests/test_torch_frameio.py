@@ -12,7 +12,9 @@
   served by the port and a port client served by JAX get the packets the
   other package's server gives.
 * ``utils/profiler.py``: ``latency_histogram`` and ``StageTimer`` as the JAX
-  package's, and ``profile_trace`` writing a Chrome trace on the CPU.
+  package's, and ``profile_trace`` writing a Chrome trace on the CPU; the
+  span recorder: off it records nothing, on it records nesting, parents,
+  threads and shared ids.
 """
 
 import glob
@@ -262,3 +264,74 @@ def test_profile_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
         trace = json.load(f)
     assert any("mm" in e.get("name", "") for e in trace["traceEvents"])
     assert any("mm" in e.key for e in prof.key_averages())
+
+
+@pytest.mark.parametrize("use", ["span", "stage", "add", "next_id", "current"])
+def test_span_recorder_off_records_nothing(use):
+    rec = profiler.StageTimer()
+    assert not rec.on
+    if use == "span":
+        with rec.span("a", 7, 3, {"batch": 1}) as opened:
+            assert opened is None
+            with rec.span("b") as inner:
+                assert inner is None
+        assert rec.span("a") is rec.span("b")  # one shared no-op context
+    elif use == "stage":
+        with rec.stage("decode"):
+            pass
+        assert rec.samples["decode"] and len(rec.samples["decode"]) == 1
+    elif use == "add":
+        rec.add("engine.queue", 1, 2, 3, 4, thread="queue")
+    elif use == "next_id":
+        assert rec.next_id() == 0
+    else:
+        with rec.span("a"):
+            assert rec.current() is None
+    assert rec.stop() == []
+    rec.start()
+    assert rec.stop() == []  # nothing recorded while off reaches a later recording
+
+
+def test_span_recorder_records_nesting_parents_threads_and_shared_ids():
+    rec = profiler.StageTimer()
+    rec.start()
+    rid = rec.next_id()
+    assert rid > 0
+    with rec.span("outer", rid, 0, {"batch": 2, "rows": 1}) as outer:
+        assert rec.current() == (rid, outer)
+        with rec.span("inner") as inner:
+            assert rec.current() == (rid, inner)
+            with rec.span("own", rec.next_id()) as own:
+                pass
+        with rec.stage("staged"):
+            pass
+    seen = {}
+
+    def worker(ctx):  # another thread's span under the handed-over one
+        with rec.span("remote", *ctx) as sid:
+            seen["sid"] = sid
+
+    t = threading.Thread(target=worker, args=((rid, outer),), name="worker-1")
+    t.start()
+    t.join()
+    rec.add("queued", 5, 9, rid, inner, thread="queue")
+    spans = rec.stop()
+    assert not rec.on
+    with rec.span("after"):
+        pass
+    assert rec.stop() == []
+    by = {s.name: s for s in spans}
+    assert set(by) == {"outer", "inner", "own", "staged", "remote", "queued"}
+    assert [s.name for s in spans][:3] == ["queued", "outer", "inner"]  # by start time
+    o, i = by["outer"], by["inner"]
+    assert (o.span_id, o.parent, o.rid, o.attrs, o.thread) == (outer, 0, rid, {"batch": 2, "rows": 1}, "MainThread")
+    assert (i.span_id, i.parent, i.rid, i.attrs) == (inner, outer, rid, o.attrs)  # inherits id and attributes
+    assert by["own"].parent == inner and by["own"].rid not in (0, rid) and by["own"].attrs is None
+    assert (by["staged"].parent, by["staged"].rid) == (outer, rid)
+    assert rec.samples["staged"] and len(rec.samples["staged"]) == 1
+    r = by["remote"]
+    assert (r.span_id, r.parent, r.rid, r.thread) == (seen["sid"], outer, rid, "worker-1")
+    q = by["queued"]
+    assert (q.start_ns, q.end_ns, q.rid, q.parent, q.thread) == (5, 9, rid, inner, "queue")
+    assert o.start_ns <= i.start_ns <= by["own"].start_ns <= by["own"].end_ns <= i.end_ns <= o.end_ns
+    assert len({s.span_id for s in spans}) == len(spans)

@@ -282,3 +282,47 @@ def test_nesterov_sgd_matches_optax_and_round_trips_its_leaves():
             p.grad = g.clone()
         o.step()
     assert all(torch.equal(x, y) for x, y in zip(oa.params, ob.params))
+
+
+# ---------------------------------------------------------------------------
+# spans
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("graphed", [True, False], ids=["graph", "eager"])
+def test_training_spans_name_each_step_and_the_epoch_edge(sets, monkeypatch, graphed):
+    """Two resident epochs, the recorder on: each epoch's indices and loss
+    read under the epoch's id, each step's draws (and through the graph its
+    staging, the wait inside it and the capture or replay) under the step's."""
+    from hmd_ego_pose_tpu_torch.utils.profiler import RECORDER
+
+    if graphed:
+        monkeypatch.setattr(TrainStep, "graphable", property(lambda self: True))
+        monkeypatch.setattr(graphs, "capture", _step_capture)
+    trainer = _trainer(sets[1])
+    assert trainer.path == "resident" and trainer.graphed == graphed
+    RECORDER.start()
+    try:
+        outs = [trainer.train_epoch(e) for e in range(2)]
+    finally:
+        spans = RECORDER.stop()
+    epochs = [s for s in spans if s.name == "train.epoch"]
+    steps = [s for s in spans if s.name == "train.step"]
+    assert len(epochs) == 2 and len(steps) == sum(o["steps"] for o in outs) > 0
+    for epoch in epochs:
+        inside = sorted(s.name for s in spans if s.rid == epoch.rid and s is not epoch)
+        assert inside == ["train.epoch_end", "train.indices"]
+        assert all(s.parent == epoch.span_id for s in spans if s.rid == epoch.rid and s is not epoch)
+        assert sum(epoch.start_ns <= s.start_ns <= epoch.end_ns for s in steps) == outs[0]["steps"]
+    assert len({s.rid for s in steps}) == len(steps)
+    want = ["train.draws", "train.replay", "train.stage", "train.stage_wait"] if graphed else ["train.draws"]
+    for k, step in enumerate(steps):
+        mine = {s.name: s for s in spans if s.rid == step.rid and s is not step}
+        names = sorted(mine)
+        if graphed and k == 0:  # the run's first step captures the graph
+            assert names == sorted(["train.capture", "train.draws", "train.stage", "train.stage_wait"])
+        else:
+            assert names == want
+        for name, s in mine.items():
+            assert s.parent == (mine["train.stage"].span_id if name == "train.stage_wait" else step.span_id)
+            assert step.start_ns <= s.start_ns <= s.end_ns <= step.end_ns and s.thread == "MainThread"

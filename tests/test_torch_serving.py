@@ -4,6 +4,9 @@
   ``predict`` in bf16 on the six committed frames each, held to the JAX
   package's goldens within the bounds of ``hmd_ego_pose_tpu_torch/eval/golden.py``.
 * A loopback ``PoseServer`` round trip on port 0, every wait bounded.
+* The server's and the engine's spans (``utils/profiler.py::RECORDER``):
+  every frame of two clients followed by its id from the handler through
+  the engine's queue to the batch that carried it.
 * No module of the port, and not ``chip_smoke.py``, imports jax, the JAX
   package, PIL or yaml (read from the sources' syntax trees).
 * The port's PNG reader against PIL.
@@ -28,6 +31,7 @@ from hmd_ego_pose_tpu_torch.serving import frameio, protocol
 from hmd_ego_pose_tpu_torch.serving.server import PoseClient, PoseServer
 from hmd_ego_pose_tpu_torch.train.checkpoint import load_model
 from hmd_ego_pose_tpu_torch.utils.device import resolve_device
+from hmd_ego_pose_tpu_torch.utils.profiler import RECORDER
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "goldens")
@@ -163,6 +167,68 @@ def test_concurrent_clients_get_their_own_poses():
     assert not errors, errors
     assert sorted(done) == sorted(list(range(6)) * 2)
     assert engine.stats()["total"]["count"] == 12
+
+
+def test_spans_follow_each_frame_from_the_handler_to_its_batch():
+    """Two clients, three frames each, the recorder on: every frame's four
+    handler spans and its queue wait under one id, the wait the parent of
+    the engine's spans of the frame; every batch span names its frames; the
+    queue spans are the samples of ``stats()["queue"]``."""
+    _, frames, _ = _golden("handrel")
+    engine = cli.build_engine(os.path.join(REPO, "trained", CASES["handrel"][0] + ".npz"), "cpu",
+                              frame_size=256, max_batch_size=2, score_threshold=0.1)
+    server = PoseServer(engine, host="127.0.0.1", port=0).start()
+    errors = []
+
+    def client(ids):
+        try:
+            with PoseClient(*server.address, timeout=60.0) as c:
+                for i in ids:
+                    c.infer(frames[i])
+        except Exception as exc:  # collected and re-raised on the main thread
+            errors.append(exc)
+
+    RECORDER.start()
+    try:
+        threads = [threading.Thread(target=client, args=(ids,)) for ids in ([0, 1, 2], [3, 4, 5])]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        spans = RECORDER.stop()
+        server.stop(timeout=10.0)
+    assert not errors, errors
+    handler = ("server.recv", "server.decode", "server.wait", "server.send")
+    rids = sorted({s.rid for s in spans if s.name == "server.recv"})
+    assert len(rids) == 6 and 0 not in rids
+    threads_of = set()
+    for rid in rids:
+        mine = {s.name: s for s in spans if s.rid == rid}
+        assert set(mine) == set(handler) | {"engine.queue"}, rid
+        threads_of.add(mine["server.recv"].thread)
+        assert {mine[n].thread for n in handler} == {mine["server.recv"].thread}
+        assert all(mine[a].end_ns <= mine[b].start_ns for a, b in zip(handler[:-1], handler[1:]))
+        queue = mine["engine.queue"]
+        assert (queue.thread, queue.parent) == ("queue", mine["server.wait"].span_id)
+        assert mine["server.wait"].start_ns <= queue.start_ns <= queue.end_ns <= mine["server.wait"].end_ns
+    assert sorted(threads_of) == ["pose-conn-1", "pose-conn-2"]
+    batches = [s for s in spans if s.name == "engine.batch"]
+    carried = sorted(f for b in batches for f in b.attrs["frames"])
+    assert carried == rids
+    for b in batches:
+        a = b.attrs
+        assert a["rows"] == len(a["frames"]) and a["batch"] in (1, 2) and a["batch"] >= a["rows"]
+        mine = {s.name: s for s in spans if s.rid == b.rid}
+        assert set(mine) == {"engine.batch", "engine.pack", "engine.upload", "engine.replay",
+                             "engine.device_wait", "engine.fetch", "engine.resolve"}
+        assert all(s.attrs is a for s in mine.values())
+        assert {mine[n].parent for n in ("engine.pack", "engine.upload", "engine.replay")} == {b.span_id}
+        assert {mine[n].thread for n in ("engine.pack", "engine.upload", "engine.replay")} == {"engine-dispatch"}
+        assert {mine[n].thread for n in ("engine.device_wait", "engine.fetch", "engine.resolve")} == {"engine-resolve"}
+    waits = sorted((s.end_ns - s.start_ns) / 1e6 for s in spans if s.name == "engine.queue")
+    assert waits == sorted(engine.queue_stats.samples)
 
 
 def test_protocol_round_trip_and_rgb8_only():
