@@ -52,6 +52,23 @@ Phases, each printing one JSON line of its own:
                ``torch.quantize_per_channel`` loops (the last with the
                kernel's scales, and the count of int8 values it gets wrong),
                beside the bytes bound.
+6b. kernel_batch_norm -- the training norm's kernels (``csrc/batch_norm.cu``)
+               at the 512 px training cell's largest site (16 x 96 x 256 x
+               256), with the swish: the output bit-equal to the plain version
+               given its mean and inv; y, dx, dweight, dbias and the running
+               statistics of the whole forward and backward within 4x the
+               plain version's own error against float64 plus 2**-20 of the
+               largest value (``max_abs_err``: each one's error); a bfloat16
+               training norm takes the plain version and launches nothing;
+               the forward, and the forward with the
+               backward, as calls and as launches alone, beside the bytes
+               bound, the plain version (``ops/batch_norm.py``'s reference,
+               then ``swish``, differentiated by autograd) and PyTorch's own
+               ``F.batch_norm`` + ``F.silu``, which the port never calls.
+               Every training phase below checks that its steps launch the
+               kernels, the same number of calls every step
+               (``norm_calls_per_step``); the serving, evaluation and export
+               paths launch none.
 7. predict  -- restore of ``trained/syn1000_phi0_576ep_handrel_int8.npz`` on the
                card, then ``predict`` (phi-0, 256 px, bf16, score threshold
                0.1) of the six committed golden frames, held to
@@ -321,7 +338,7 @@ Then the ``kernels`` JSON line (``target_assign``'s launches summed over the
 nine training runs, both data-parallel ranks, the probe mesh's steps, the
 iter-1 steps, the space probe's and both spatial ranks included, ``min_distances``' over the three evaluations,
 ``dequantize``'s over serve, cli_rest and the spatial ranks, ``quantize``'s
-over export and cli_rest), the nvidia-smi line,
+over export and cli_rest, ``batch_norm``'s over the training runs), the nvidia-smi line,
 and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 non-zero without that line.  It exits non-zero at once without a CUDA device
@@ -372,6 +389,8 @@ MULTI_REFERENCE = os.path.join(HERE, "hmd_ego_pose_tpu_torch", "train", "referen
 # the odd shapes the quantize kernel must also take: a single value, a single
 # row, C off 32, the largest leaf of the artifact, the smallest C (10)
 QUANT_SHAPES = ((1, 1), (1, 1280), (5, 33), (7, 1000), (1152, 320), (3, 10))
+# the largest training norm of the 512 px cell: block 1's expand, 96 channels at 256 x 256, batch 16
+BN_SITE = (16, 96, 256, 256)
 
 
 T0 = time.perf_counter()
@@ -856,6 +875,149 @@ def phase_target_assign(dev) -> dict:
         "library": "none (no single torch call assigns anchor targets)",
         **bounds.bound(*bounds.target_assign_work(anchors.shape[0], k, b, kw["num_classes"],
                                                   gt[2].shape[2], gt[3].shape[2])),
+    }
+
+
+def norm_calls_per_step(launches: dict, what: str, uniform: bool = True) -> float:
+    """The training norms' kernel calls a step of a path that launches
+    ``target_assign`` once a step: the same number every step where every
+    step is of one kind (``uniform``), some in any case."""
+    steps, calls = launches.get("target_assign", 0), launches.get("batch_norm", 0)
+    if not steps or not calls or (uniform and calls % steps):
+        raise AssertionError(f"{what}: {calls} batch_norm calls over {steps} steps: every step's training norms "
+                             "must take the kernels")
+    return calls / steps
+
+
+def no_norm_kernels(launches: dict, what: str) -> None:
+    if launches.get("batch_norm", 0):
+        raise AssertionError(f"{what} launched the training norm's kernels: {launches}")
+
+
+def phase_batch_norm(dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from hmd_ego_pose_tpu_torch.kernels import LAUNCHES, bounds, launch
+    from hmd_ego_pose_tpu_torch.nn.core import BatchNorm, swish
+    from hmd_ego_pose_tpu_torch.ops import batch_norm
+    from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    n, c, h, w = BN_SITE
+    x = torch.randn(BN_SITE, generator=g, device=dev) * 1.5 + torch.randn(c, 1, 1, generator=g, device=dev)
+    up = torch.randn(BN_SITE, generator=g, device=dev)
+    weight = torch.rand(c, generator=g, device=dev) + 0.5
+    bias = torch.randn(c, generator=g, device=dev)
+    running = (torch.zeros(c, device=dev), torch.ones(c, device=dev))
+    args = (1e-3, 0.01, True, LOCAL, "data")
+
+    # the output given the plain version's mean and inv
+    mean, mean_sq = x.mean(dim=(0, 2, 3)), (x * x).mean(dim=(0, 2, 3))
+    rstd = torch.rsqrt(mean_sq - mean * mean + 1e-3)
+    stats = torch.stack([mean, mean_sq, rstd, rstd * weight])
+    y = torch.empty_like(x)
+    LAUNCHES.reset()
+    launch("batch_norm", "hegp_bn_apply", dev, x.data_ptr(), y.data_ptr(), stats.data_ptr(), bias.data_ptr(),
+           n, c, h * w, 4, 1)
+    want = swish((x - mean[:, None, None]) * stats[3][:, None, None] + bias[:, None, None], torch.float32)
+    torch.cuda.synchronize()
+    if not same_bits(y, want):
+        raise AssertionError(f"the norm's output differs from the plain version's given its mean and inv: "
+                             f"{int((y != want).sum())} values, max |diff| {(y - want).abs().max().item()}")
+
+    def kernel(a, b, c_, stats=running):
+        return batch_norm.batch_norm_train(a, b, c_, *stats, *args, swish=True)
+
+    def plain(a, b, c_, stats=running):
+        return swish(batch_norm.batch_norm_train_reference(a, b, c_, *stats, *args, dtype=torch.float32),
+                     torch.float32)
+
+    def exact(a, b, c_, stats):
+        """The same formula in float64 (the reference of the comparison)."""
+        count = n * h * w
+        mean = a.mean(dim=(0, 2, 3))
+        var = (a * a).mean(dim=(0, 2, 3)) - mean * mean
+        with torch.no_grad():
+            stats[0].copy_(0.99 * stats[0] + 0.01 * mean)
+            stats[1].copy_(0.99 * stats[1] + 0.01 * var * count / (count - 1))
+        y_ = (a - mean[:, None, None]) * (torch.rsqrt(var + 1e-3) * b)[:, None, None] + c_[:, None, None]
+        return y_ * torch.sigmoid(y_)
+
+    def library(a, b, c_):
+        return F.silu(F.batch_norm(a, running[0], running[1], b, c_, training=True, momentum=0.01, eps=1e-3))
+
+    def forward(fn):
+        def run():
+            with torch.no_grad():
+                return fn(x, weight, bias)
+        return run
+
+    leaves = [t.clone().requires_grad_(True) for t in (x, weight, bias)]
+
+    def with_backward(fn):
+        def run():
+            for t in leaves:
+                t.grad = None
+            fn(*leaves).backward(up)
+        return run
+
+    def outputs(fn, dtype):
+        """y, dx, dweight, dbias and the moved running statistics of one
+        forward and backward from the same leaves and running statistics."""
+        stats = tuple(r.to(dtype, copy=True) for r in (running_start, var_start))
+        a, b, c_ = (t.detach().to(dtype).requires_grad_(True) for t in (x, weight, bias))
+        y_ = fn(a, b, c_, stats)
+        y_.backward(up.to(dtype))
+        return (y_.detach(), a.grad, b.grad, c_.grad) + stats
+
+    running_start = torch.randn(c, generator=g, device=dev)
+    var_start = torch.rand(c, generator=g, device=dev) + 0.5
+    LAUNCHES.reset()
+    got = outputs(kernel, torch.float32)
+    torch.cuda.synchronize()
+    calls = LAUNCHES.snapshot()
+    if calls != {"batch_norm": 4}:
+        raise AssertionError(f"a forward and backward of one norm must make 4 kernel calls, got {calls}")
+    # the statistics and the gradients are float32 sums of the same terms in
+    # another order than PyTorch's: each within 4x the plain version's own
+    # error against float64, plus 2**-20 of the largest value (the card
+    # tests' rule, tests/test_torch_cuda_batch_norm.py)
+    errors, faults = {}, []
+    for what, k, p, e in zip(("y", "dx", "dweight", "dbias", "running_mean", "running_var"), got,
+                             outputs(plain, torch.float32), outputs(exact, torch.float64)):
+        err, plain_err = (k.double() - e).abs().max().item(), (p.double() - e).abs().max().item()
+        limit = 4 * plain_err + 2 ** -20 * e.abs().max().item()
+        errors[what] = err
+        if not err <= limit:
+            faults.append(f"{what}: error {err:.3e} against float64, plain {plain_err:.3e}, limit {limit:.3e}")
+    if faults:
+        raise AssertionError("the norm's kernels differ from the plain version beyond float32 rounding: "
+                             + "; ".join(faults))
+    del got
+    # a bfloat16 compute dtype keeps the plain norm in training mode on the
+    # card (``ops/batch_norm.py::takes_kernels``): it launches nothing
+    half = BatchNorm(c, dtype=torch.bfloat16).to(dev).train()
+    LAUNCHES.reset()
+    with torch.no_grad():
+        half(x[:2], activate=True)
+    torch.cuda.synchronize()
+    if LAUNCHES.snapshot():
+        raise AssertionError(f"a bfloat16 training norm launched kernels: {LAUNCHES.snapshot()}")
+    fwd = bounds.bound(*bounds.batch_norm_work(x.numel(), c))
+    both = bounds.bound(*bounds.batch_norm_work(x.numel(), c, backward=True))
+    return {
+        "site": list(BN_SITE), "swish": True, "bit_equal_given_mean_and_inv": True, "max_abs_err": errors,
+        "calls_forward_backward": calls["batch_norm"], "bf16_training": "plain version, 0 kernel calls",
+        "kernel_ms": cuda_time_ms(forward(kernel)), "launch_ms": device_time_ms(forward(kernel)),
+        "plain_ms": cuda_time_ms(forward(plain)), "library_ms": cuda_time_ms(forward(library)),
+        "library": "F.batch_norm(training=True) + F.silu",
+        **fwd,
+        "backward": {"kernel_ms": cuda_time_ms(with_backward(kernel)),
+                     # autograd's host work a call: fewer calls behind a longer spin
+                     "launch_ms": device_time_ms(with_backward(kernel), reps=10, spin_cycles=400_000_000),
+                     "plain_ms": cuda_time_ms(with_backward(plain)),
+                     "library_ms": cuda_time_ms(with_backward(library)), **both},
     }
 
 
@@ -1579,6 +1741,7 @@ def phase_train(card: str, data: str, work: str) -> dict:
     timed.check_finite()
     if launches.get("target_assign", 0) != steps:
         raise AssertionError(f"target_assign must launch once per step ({steps}), got {launches}")
+    norm_calls = norm_calls_per_step(launches, "phase_train")
     if launches_restore.get("dequantize", 0) != 1 or launches.get("dequantize", 0) != 1:
         raise AssertionError(f"the restore must launch dequantize once, got {launches_restore}")
     if launches.get("min_distances", 0) != 1:
@@ -1612,7 +1775,7 @@ def phase_train(card: str, data: str, work: str) -> dict:
         "validate_s": run["val_s"][0] if run["val_s"] else None, "profile": profile,
         "epoch_means": {k: train_metrics[k] for k in METRIC_NAMES},
         "val_mixed_point_distance_mean_mm": result.scalars()["mixed_point_distance_mean_mm"],
-        "launches": launches, "backbone_stats_moved": len(stats_moved), **saved,
+        "launches": launches, "norm_calls_per_step": norm_calls, "backbone_stats_moved": len(stats_moved), **saved,
         "peak_mem_gb": peak_gb, "card": card,
     }
 
@@ -1848,6 +2011,7 @@ def phase_train_dp(card: str, data: str, work: str, train: dict, procs: list, go
         if r["launches"].get("target_assign", 0) != steps or r["restore_launches"].get("dequantize", 0) != 1:
             raise AssertionError(f"rank {r['rank']}: target_assign must launch once per step ({steps}) and "
                                  f"dequantize once at the restore: {r['launches']}")
+        norm_calls_per_step(r["launches"], f"train_dp rank {r['rank']}")
     if zero["launches"].get("min_distances", 0) != 1 or one["launches"].get("min_distances", 0) != 0:
         raise AssertionError(f"validation must run on rank 0 only: {[r['launches'] for r in ranks]}")
     if "eval_graph" not in zero or "eval_graph" in one:
@@ -1875,7 +2039,7 @@ def phase_train_dp(card: str, data: str, work: str, train: dict, procs: list, go
         "fit_s": zero["fit_s"], "startup_s": [r["startup_s"] for r in ranks], "ranks_s": run_s,
         "waited_s": [r["waited_s"] for r in ranks],
         "val_metric_broadcast": zero["plateau"]["best"],
-        "launches": {"target_assign": sum(r["launches"].get("target_assign", 0) for r in ranks)},
+        "launches": {k: sum(r["launches"].get(k, 0) for r in ranks) for k in ("target_assign", "batch_norm")},
         "launches_per_rank": [r["launches"] for r in ranks], "nccl": nccl, "card": card,
     }
 
@@ -2364,6 +2528,8 @@ def phase_mesh_graph(card: str, proc: subprocess.Popen, dp: dict, data_wall_s: f
     t0 = time.perf_counter()
     (rank,) = join_dp_ranks("mesh_graph", [proc], MESH_GRAPH_TIMEOUT_S)
     gloo = dp["collective_calls_per_step"]
+    # probe-mesh, single-process and space-probe steps: the norms' calls differ by kind of step
+    norm_calls_per_step(rank["launches"], "mesh_graph", uniform=False)
     if rank["collectives_per_replay"] != gloo:
         raise AssertionError(f"the graph's collectives {rank['collectives_per_replay']} a replay must be the "
                              f"two-rank gloo mesh's eager step's {gloo}")
@@ -2749,7 +2915,8 @@ def phase_spatial(card: str, procs: list, go: str, work: str) -> dict:
         if r["launches"].get("dequantize", 0) != 1 or r["launches"].get("target_assign", 0) != 1:
             raise AssertionError(f"rank {r['rank']}: dequantize must launch once (the restore) and "
                                  f"target_assign once (the step): {r['launches']}")
-    launches = {k: sum(r["launches"].get(k, 0) for r in ranks) for k in ("dequantize", "target_assign")}
+        norm_calls_per_step(r["launches"], f"spatial rank {r['rank']}")
+    launches = {k: sum(r["launches"].get(k, 0) for r in ranks) for k in ("dequantize", "target_assign", "batch_norm")}
     nccl = "not run: 1 card"
     if torch.cuda.device_count() >= 2:
         # the same mesh on NCCL, one card per rank: the engine's and the step's graphs, collectives inside
@@ -2864,6 +3031,7 @@ def phase_train_multi(card: str, work: str, generation: subprocess.Popen) -> dic
     timed.check_finite()
     if launches.get("target_assign", 0) != steps:
         raise AssertionError(f"target_assign must launch once per step ({steps}), got {launches}")
+    norm_calls = norm_calls_per_step(launches, "phase_train_multi")
     if launches.get("min_distances", 0) != 2:
         raise AssertionError(f"a two-class validation must launch min_distances twice, got {launches}")
     saved = check_checkpoints(trainer, run["best"], ckpt_dir, steps, work)
@@ -2881,7 +3049,7 @@ def phase_train_multi(card: str, work: str, generation: subprocess.Popen) -> dic
         "validate_s": run["val_s"][0] if run["val_s"] else None, "eval_graph": eval_graph,
         "val_per_class": {c: {k: r.scalars()[k] for k in ("num_matched", "mean_ap", "mixed_point_distance_mean_mm")}
                           for c, r in sorted(result.per_class.items())},
-        "launches": launches, **saved, "card": card,
+        "launches": launches, "norm_calls_per_step": norm_calls, **saved, "card": card,
     }
 
 
@@ -2961,6 +3129,7 @@ def phase_train_windowed(card: str, data: str, work: str, resident_peak_gb: floa
     timed.check_finite()
     if launches.get("target_assign", 0) != steps:
         raise AssertionError(f"target_assign must launch once per step ({steps}), got {launches}")
+    norm_calls = norm_calls_per_step(launches, "phase_train_windowed")
     # one window resident: the buffer holds one window, and after the first
     # window's steps (Adam's moments, the graph's memory) nothing grows but the
     # windows' means (bytes)
@@ -2981,7 +3150,8 @@ def phase_train_windowed(card: str, data: str, work: str, resident_peak_gb: floa
         "buffer_mb": buffer_bytes / 1e6, "split_mb": per_frame * len(trainer.train_dataset) / 1e6,
         "epoch_s": epoch_s, "held_mb_after_each_fill": [r / 1e6 for r in resident],
         "adam_moments_mb": adam_bytes / 1e6, "epoch_graph_pool_mb": pool_mb, "graph_against_eager": variant,
-        "peak_mem_gb": peak_gb, "resident_run_peak_mem_gb": resident_peak_gb, "launches": launches, "card": card,
+        "peak_mem_gb": peak_gb, "resident_run_peak_mem_gb": resident_peak_gb, "launches": launches,
+        "norm_calls_per_step": norm_calls, "card": card,
     }
 
 
@@ -3077,6 +3247,7 @@ def phase_train_host(card: str, data: str, work: str, resident: dict) -> dict:
     timed.check_finite()
     if launches.get("target_assign", 0) != steps:
         raise AssertionError(f"target_assign must launch once per step ({steps}), got {launches}")
+    norm_calls = norm_calls_per_step(launches, "phase_train_host")
     pool_mb = graph_pool_mb(timed, trainer.device)
 
     # the graph against the eager step on augmented batches made in this thread
@@ -3109,7 +3280,7 @@ def phase_train_host(card: str, data: str, work: str, resident: dict) -> dict:
         "workers": raw_trainer.config.data.num_workers, "epoch_graph_pool_mb": pool_mb,
         "graph_against_eager": variant, "raw_graph_against_eager": raw_variant,
         "resident_step_ms_p50": resident["step_ms_p50"], "resident_images_per_s": resident["images_per_s"],
-        "launches": launches, "card": card,
+        "launches": launches, "norm_calls_per_step": norm_calls, "card": card,
     }
 
 
@@ -3214,13 +3385,15 @@ def phase_train_remat(card: str, data: str, work: str) -> dict:
     launches = LAUNCHES.snapshot()
     if launches.get("target_assign", 0) != steps:
         raise AssertionError(f"target_assign must launch once per step ({steps}), got {launches}")
+    # remat, plain and fine-tune steps: unfrozen backbones, norms recomputed
+    norm_calls = norm_calls_per_step(launches, "phase_train_remat", uniform=False)
     graph_ms = {k: float(np.median(r["graph_against_eager"]["turns_step_ms"]["graph"])) for k, r in runs.items()}
     return {
         **runs, "losses_equal": True, "bn_stats_moved": len(moved), "bn_stat_max_rel_gap": stat_gap,
         "param_max_abs_gap": param_gap,
         "params_differing": sum(int((r_state[k] != p_state[k]).sum()) for k in params),
         "remat_over_plain_graph_step": graph_ms["remat"] / graph_ms["plain"], "sgd": sgd,
-        "launches": launches, "card": card,
+        "launches": launches, "norm_calls_per_step": norm_calls, "card": card,
     }
 
 
@@ -3293,6 +3466,7 @@ def phase_export(card: str, work: str) -> dict:
 
     if launches.get("dequantize", 0) != 1 or launches.get("quantize", 0) != 1:
         raise AssertionError(f"the export must launch dequantize and quantize once each, got {launches}")
+    no_norm_kernels(launches, "cli export")
     want_lines = [line.replace(" in D", f" in {out_dir}") for line in ref["port_printed"]]
     if lines != want_lines:
         raise AssertionError(f"cli export printed {lines}, expected {want_lines}")
@@ -3669,6 +3843,7 @@ def phase_serve(dev, golden, frames, outputs, cams, cfg, card: str) -> dict:
             sig.stop()
         server.stop(timeout=10.0)
     launches = LAUNCHES.snapshot()
+    no_norm_kernels(launches, "serving")
     return {
         "frames": len(reports), "startup_s": t_start, "restore_s": restore_s,
         "restore_uploads": restore_uploads,
@@ -3769,6 +3944,7 @@ def phase_evaluate(card: str, data: str, generation: subprocess.Popen) -> dict:
         raise AssertionError("the card's evaluation is off the JAX reference:\n" + "\n".join(off))
     if launches.get("min_distances", 0) != 1:
         raise AssertionError(f"one class must make exactly one min_distances launch, got {launches}")
+    no_norm_kernels(launches, "cli evaluate")
     return {
         "frames": frames, **generated, "read_s": t_read, "evaluate_s": t_evaluate, "eval_graph": eval_graph,
         "gt_0_yml_sha256": gt_hash, "launches": launches, "scalars": got,
@@ -4083,7 +4259,9 @@ def phase_cli_rest(card: str, data: str, work: str) -> dict:
     if names != want_names or not printed.getvalue().startswith("converted: 0 missing, 0 unused keys"):
         raise AssertionError(f"cli parity printed other rows than the JAX package's: {names}")
     launches = LAUNCHES.snapshot()
-    want_launches = {"dequantize": 3, "quantize": 1, "min_distances": 1, "target_assign": 4}
+    norm_calls = norm_calls_per_step(launches, "cli_rest's iter-1 training")
+    want_launches = {"dequantize": 3, "quantize": 1, "min_distances": 1, "target_assign": 4,
+                     "batch_norm": 4 * int(norm_calls)}
     if launches != want_launches:
         raise AssertionError(f"cli_rest launches {launches}, expected {want_launches} (dequantize: the artifact, the "
                              "evaluation's and the trainer's restores)")
@@ -4092,7 +4270,8 @@ def phase_cli_rest(card: str, data: str, work: str) -> dict:
         "tolerances": EVAL_TOLERANCES, "true_positives": result.num_matched, "image_files": len(written),
         "train_max_rel_gap": train_gaps, "train_tolerance_rel": reference["train"]["tolerance_rel"],
         "train_steps": steps, "format_labels_files": len(reference["format_labels_digests"]),
-        "debug_files": len(debug_digests), "parity": held, "launches": launches, "card": card,
+        "debug_files": len(debug_digests), "parity": held, "launches": launches,
+        "norm_calls_per_step": norm_calls, "card": card,
     }
 
 
@@ -4178,6 +4357,9 @@ def run_phases(dev, card: str, work: str, children: dict, t_all: float) -> int:
     quant = phase_quantize(dev)
     emit("kernel_quantize", card=card, **quant)
 
+    norm = phase_batch_norm(dev)
+    emit("kernel_batch_norm", card=card, **norm)
+
     golden, frames, cameras = read_golden()
     predict, outputs, cams, cfg = phase_predict(dev, golden, frames, cameras)
     emit("predict", card=card, **predict)
@@ -4236,7 +4418,8 @@ def run_phases(dev, card: str, work: str, children: dict, t_all: float) -> int:
     launches = {"dequantize": sum(p["launches"].get("dequantize", 0) for p in (serve, rest, spatial)),
                 "min_distances": sum(p["launches"].get("min_distances", 0) for p in (evaluate, multi, rest)),
                 "quantize": sum(p["launches"].get("quantize", 0) for p in (export, rest)),
-                "target_assign": sum(p["launches"].get("target_assign", 0) for p in trainings)}
+                "target_assign": sum(p["launches"].get("target_assign", 0) for p in trainings),
+                "batch_norm": sum(p["launches"].get("batch_norm", 0) for p in trainings)}
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"the main path never launched the {name} kernel")
@@ -4296,6 +4479,20 @@ def run_phases(dev, card: str, work: str, children: dict, t_all: float) -> int:
             "bound_ms": targets["bound_ms"],
             "bound_by": targets["bound_by"],
             "library_ms": targets["library_ms"],
+        },
+        {
+            "name": "batch_norm",
+            "route": "cuda",
+            "source": "hmd_ego_pose_tpu_torch/csrc/batch_norm.cu",
+            "replaces": "none (XLA fuses batch norm on the TPU)",
+            "launches": launches["batch_norm"],
+            "max_abs_err": norm["max_abs_err"],
+            "ms": norm["kernel_ms"],
+            "launch_ms": norm["launch_ms"],
+            "plain_ms": norm["plain_ms"],
+            "bound_ms": norm["bound_ms"],
+            "bound_by": norm["bound_by"],
+            "library_ms": norm["library_ms"],
         },
     ]}), flush=True)
     print(card, flush=True)

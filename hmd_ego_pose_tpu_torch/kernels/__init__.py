@@ -14,14 +14,16 @@ recorded into the graph, and every replay of that graph runs it.  So such a
 launch is not counted; it is added to the tally of the capture in progress
 (``recording``, which ``utils/graphs.py::capture`` opens), and each replay
 adds that tally to ``LAUNCHES``.  A capture without an open tally raises,
-so a replay never runs a kernel it does not count.
+so a replay never runs a kernel it does not count.  The tally is the
+process's, not the capturing thread's: autograd runs a captured backward,
+and so the batch norm's backward kernels, on a thread of its own.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Optional
 
 import torch
 
@@ -52,20 +54,25 @@ class LaunchCounts:
 
 LAUNCHES = LaunchCounts()
 
-_capture = threading.local()  # .tally: the launches of the capture this thread is making
+_capture_lock = threading.Lock()
+_capture_tally: Optional[List[str]] = None  # the launches of the capture in progress
 
 
 @contextlib.contextmanager
 def recording() -> Iterator[List[str]]:
-    """Open this thread's tally of the launches a CUDA graph capture records;
-    yields the list, which holds one name per recorded launch."""
-    if getattr(_capture, "tally", None) is not None:
-        raise RuntimeError("a launch tally is already open on this thread")
-    _capture.tally = tally = []
+    """Open the tally of the launches a CUDA graph capture records (one at a
+    time in a process); yields the list, which holds one name per recorded
+    launch."""
+    global _capture_tally
+    with _capture_lock:
+        if _capture_tally is not None:
+            raise RuntimeError("a launch tally is already open")
+        _capture_tally = tally = []
     try:
         yield tally
     finally:
-        _capture.tally = None
+        with _capture_lock:
+            _capture_tally = None
 
 
 def launch(name: str, function: str, device: torch.device, *args) -> None:
@@ -85,8 +92,8 @@ def launch(name: str, function: str, device: torch.device, *args) -> None:
     if not capturing:
         LAUNCHES.add(name)
         return
-    tally = getattr(_capture, "tally", None)
-    if tally is None:
-        raise RuntimeError(f"{name} launched into a CUDA graph capture without a launch tally "
-                           "(capture through utils/graphs.py::capture)")
-    tally.append(name)
+    with _capture_lock:
+        if _capture_tally is None:
+            raise RuntimeError(f"{name} launched into a CUDA graph capture without a launch tally "
+                               "(capture through utils/graphs.py::capture)")
+        _capture_tally.append(name)

@@ -64,3 +64,15 @@ def target_assign_work(n: int, k: int, batch: int, num_classes: int, dt: int = 8
     gt_bytes = batch * k * ((4 + 1 + dt + dc) * 4 + 1)
     out_bytes = batch * n * (num_classes + 4 + dt + dc + 1) * 4
     return n * 4 * 4 + gt_bytes + out_bytes, batch * n * (k * 17 + 20)
+
+
+def batch_norm_work(values: int, channels: int, backward: bool = False) -> Tuple[float, float]:
+    """A training-mode norm of ``values`` float32 elements over ``channels``
+    (``csrc/batch_norm.cu``) with the swish after it: the forward reads x and
+    writes y once each; with ``backward`` the backward too, which reads the
+    upstream gradient and x and writes dx; a few per-channel vectors besides.
+    Operations per element: the forward's statistics 3, output 3, swish 5;
+    the backward about 35."""
+    moved = values * 4 * (2 + (3 if backward else 0)) + channels * 4 * 8
+    ops = values * (11 + (35 if backward else 0))
+    return moved, ops

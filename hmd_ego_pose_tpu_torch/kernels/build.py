@@ -38,6 +38,14 @@ NVCC_FLAGS = (
 # c_float for float32 scalars
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {
+    "batch_norm": {
+        "hegp_bn_stats": (_P,) * 6 + (_I,) * 6 + (_F,) * 5 + (_I, _I, _P),
+        "hegp_bn_finalize": (_P,) * 6 + (_I,) + (_F,) * 4 + (_I, _P),
+        "hegp_bn_apply": (_P,) * 4 + (_I,) * 5 + (_P,),
+        "hegp_bn_grad_sums": (_P,) * 10 + (_I,) * 7 + (_F, _I, _P),
+        "hegp_bn_grad_coef": (_P,) * 7 + (_I, _F, _P),
+        "hegp_bn_grad_apply": (_P,) * 6 + (_I,) * 5 + (_P,),
+    },
     "dequantize": {"hegp_dequantize_group": (_P, _P, _P, _P, _I, _I, _P)},
     "min_distances": {"hegp_min_distances": (_P, _P, _P, _I, _I, _I, _P)},
     "quantize": {"hegp_quantize_group": (_P, _P, _P, _P, _I, _I, _P)},

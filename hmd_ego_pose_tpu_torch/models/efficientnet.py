@@ -131,8 +131,8 @@ class MBConv(nn.Module):
         dt, inputs = self.dtype, x
         out_h = out_height(full_h, self.spec["stride"])
         if self.spec["expand_ratio"] != 1:
-            x = swish(self._bn0(self._expand_conv(x), full_h), dt)
-        x = swish(self._bn1(self._depthwise_conv(x, full_h), out_h), dt)
+            x = self._bn0(self._expand_conv(x), full_h, activate=True)
+        x = self._bn1(self._depthwise_conv(x, full_h), out_h, activate=True)
         if self.spec["se_ratio"]:
             if out_h is not None and self.mesh.sharded(out_h):
                 se = (spatial.space_sum(x.sum(dim=(2, 3), keepdim=True), self.mesh)
@@ -190,7 +190,7 @@ class EfficientNet(nn.Module):
         rows under a space axis.  ``drop``: the drop-connect uniforms drawn
         ahead (``drop_connect_uniforms``), in place of ``generator``."""
         h = out_height(full_h, 2)
-        x = swish(self._bn0(self._conv_stem(x, full_h), h), self.dtype)
+        x = self._bn0(self._conv_stem(x, full_h), h, activate=True)
         n_blocks = len(self.specs)
         draws = None
         if self.training and (drop is not None or generator is not None):

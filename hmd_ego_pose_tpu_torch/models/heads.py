@@ -24,7 +24,7 @@ import torch
 import torch.nn as nn
 
 from hmd_ego_pose_tpu_torch.models.bifpn import SepConv
-from hmd_ego_pose_tpu_torch.nn.core import BatchNorm, swish
+from hmd_ego_pose_tpu_torch.nn.core import BatchNorm
 from hmd_ego_pose_tpu_torch.parallel import spatial
 from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL
 
@@ -75,7 +75,7 @@ class IterSubnet(nn.Module):
             for conv, bn in zip(self.conv_list, bns):
                 keep, bn.update_stats = bn.update_stats, bn.update_stats and update_stats
                 try:
-                    x = swish(bn(conv(x, full_h), full_h), self.dtype)
+                    x = bn(conv(x, full_h), full_h, activate=True)
                 finally:
                     bn.update_stats = keep
             for h, name in enumerate(self.header_names):
@@ -95,7 +95,7 @@ class _HeadCore(nn.Module):
 
     def core(self, feat: torch.Tensor, level: int, full_h: Optional[int] = None) -> torch.Tensor:
         for conv, bn in zip(self.conv_list, self.bn_list[level]):
-            feat = swish(bn(conv(feat, full_h), full_h), self.dtype)
+            feat = bn(conv(feat, full_h), full_h, activate=True)
         return feat
 
     def whole(self, x: torch.Tensor, full_h: Optional[int]) -> torch.Tensor:

@@ -10,7 +10,8 @@ Counterpart of ``hmd_ego_pose_tpu/nn/core.py`` (NHWC there):
   it normalises with the batch statistics, the variance taken as
   E[x^2] - E[x]^2 as the JAX package takes it, and moves the running
   statistics by momentum 0.01 with the n / (n - 1) correction of the
-  variance;
+  variance (``ops/batch_norm.py``: on the card in float32, hand-written
+  kernels that fuse the swish after the norm where one follows);
 * max-pool pads with zeros, not -inf (the reference's quirk, observable
   through trained weights).
 
@@ -48,11 +49,11 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from hmd_ego_pose_tpu_torch.ops import batch_norm
 from hmd_ego_pose_tpu_torch.parallel import spatial
 from hmd_ego_pose_tpu_torch.parallel.mesh import LOCAL, DataMesh
 
@@ -143,11 +144,16 @@ class Wrapped(nn.Module):
 
 
 class Skip(nn.Identity):
-    """An identity that takes the ops' ``full_h`` too: what BN folding leaves
-    in a BatchNorm's place (``models/folding.py``)."""
+    """An identity that takes the ops' ``full_h`` and ``activate`` too (then
+    it is the swish in ``dtype``): what BN folding leaves in a BatchNorm's
+    place (``models/folding.py``)."""
 
-    def forward(self, x: torch.Tensor, full_h: Optional[int] = None) -> torch.Tensor:
-        return x
+    def __init__(self, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor, full_h: Optional[int] = None, activate: bool = False) -> torch.Tensor:
+        return swish(x, self.dtype) if activate else x
 
 
 class BatchNorm(nn.Module):
@@ -177,6 +183,11 @@ class BatchNorm(nn.Module):
     (``forward(x, full_h)``) reduces over the D * S ranks of (data x space),
     n = D * S * N * (H / S) * W: every slab has as many elements, so the
     mean of the means is the mean.
+
+    Training mode runs ``ops/batch_norm.py``: on a CUDA tensor with a
+    float32 compute dtype the hand-written kernels (``batch_norm_train``, the
+    swish of ``activate`` fused in), elsewhere the plain version
+    (``batch_norm_train_reference``, then ``swish``).  Eval mode is plain.
     """
 
     def __init__(self, channels: int, eps: float = 1e-3, dtype: torch.dtype = torch.float32,
@@ -191,29 +202,22 @@ class BatchNorm(nn.Module):
         self.mesh = LOCAL
         self.eval()  # an inference module until training asks (``model.train()``)
 
-    def forward(self, x: torch.Tensor, full_h: Optional[int] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, full_h: Optional[int] = None, activate: bool = False) -> torch.Tensor:
+        """``activate``: the swish that follows the norm, applied here
+        (``swish(self(x), self.dtype)``), fused into the kernels in training
+        mode on the card."""
         if not self.training:
             inv = torch.rsqrt(self.running_var + self.eps) * self.weight
             y = (x.float() - self.running_mean[:, None, None]) * inv[:, None, None]
-            return (y + self.bias[:, None, None]).to(self.dtype)
-        xf = x.float()
-        mean = torch.mean(xf, dim=(0, 2, 3))
-        mean_sq = torch.mean(xf * xf, dim=(0, 2, 3))
-        n = x.shape[0] * x.shape[2] * x.shape[3]
+            y = (y + self.bias[:, None, None]).to(self.dtype)
+            return swish(y, self.dtype) if activate else y
         over = "batch" if _spatial(self.mesh, full_h, "a training BatchNorm") and self.mesh.sharded(full_h) else "data"
-        mean, mean_sq = self.mesh.all_reduce_mean([mean, mean_sq], "bn", over)
-        n *= self.mesh.world * (self.mesh.space if over == "batch" else 1)
-        var = mean_sq - mean * mean
-        # float32 n / max(n - 1, 1), as jnp computes it
-        correction = float(np.float32(n) / np.float32(max(n - 1.0, 1.0)))
-        m = self.momentum
-        if self.update_stats:
-            with torch.no_grad():
-                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
-                self.running_var.copy_((1 - m) * self.running_var + m * var * correction)
-        inv = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * inv[:, None, None]
-        return (y + self.bias[:, None, None]).to(self.dtype)
+        args = (self.weight, self.bias, self.running_mean, self.running_var, self.eps, self.momentum,
+                self.update_stats, self.mesh, over)
+        if batch_norm.takes_kernels(x.device, self.dtype):
+            return batch_norm.batch_norm_train(x, *args, swish=activate)
+        y = batch_norm.batch_norm_train_reference(x, *args, dtype=self.dtype)
+        return swish(y, self.dtype) if activate else y
 
 
 class _Sigmoid(torch.autograd.Function):

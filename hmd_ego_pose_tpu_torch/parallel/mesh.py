@@ -213,6 +213,10 @@ class DataMesh:
         ``chip_smoke.py`` captures a step's collectives on one NCCL rank)."""
         return size > 1
 
+    def reduces(self, over: str) -> bool:
+        """Whether a collective along axis ``over`` is made (``_live``)."""
+        return self._live(self._axis(over)[1])
+
     def _timed(self, kind: str, fn, *args, **kwargs):
         """Make the collective ``fn(*args, **kwargs)``: counted with its host
         seconds, or, while this thread's stream captures a CUDA graph (the
@@ -260,7 +264,7 @@ class DataMesh:
         """The mean over the ranks of axis ``over`` of each tensor, as new
         tensors, in one call of the tensors packed together; differentiable:
         the backward all-reduces the incoming gradient (kind ``<kind>_backward``)."""
-        if not self._live(self._axis(over)[1]):
+        if not self.reduces(over):
             return list(tensors)
         flat = _AllReduceMean.apply(torch.cat([t.reshape(-1) for t in tensors]), self, kind, over)
         return [piece.view_as(t) for t, piece in zip(tensors, flat.split([t.numel() for t in tensors]))]

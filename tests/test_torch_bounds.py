@@ -6,7 +6,10 @@ at the 200-frame evaluation is bound by its 6.5e8 float32 operations
 leaves by their 19.4 MB (~5.8 us), the IoU of a 16-image training batch
 at 256 px by its 3.9 MB (~1.2 us), and the fused target assignment of the
 same batch (one box, one class) by its 60.7 MB, nearly all the five outputs
-written (~18.1 us).
+written (~18.1 us).  The training norm of the 512 px cell's largest site
+(16 x 96 x 256 x 256, ``csrc/batch_norm.cu``) is bound by its bytes: x read
+and y written, 805 MB (~0.240 ms); with the backward's gradient and x read
+and dx written, 2.01 GB (~0.601 ms).
 """
 
 import json
@@ -28,6 +31,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     (bounds.iou_work(12_276, 1, 16), 0.001173, "bytes"),
     (bounds.iou_work(12_276, 1, 16, shared_anchors=True), 0.000293, "bytes"),  # the train step's layout
     (bounds.target_assign_work(12_276, 1, 16, 1), 0.018119, "bytes"),
+    (bounds.batch_norm_work(100_663_296, 96), 0.240391, "bytes"),  # the 512 px cell's largest training norm
+    (bounds.batch_norm_work(100_663_296, 96, backward=True), 0.600977, "bytes"),
 ])
 def test_bound_at_the_paths_shapes(work, bound_ms, bound_by):
     got = bounds.bound(*work)

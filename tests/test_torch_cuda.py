@@ -399,7 +399,7 @@ def test_resident_step_graph_equals_eager_and_launches_target_assign_per_replay(
     replays; the colour ops in fixed shapes inside the graph) against three
     eager steps (colour ops grouped by op) with the same draws and masks: the
     losses and every parameter and BN buffer bit-equal; ``target_assign``
-    launched once a step; Adam's count on the card.  With deterministic
+    and the training norms' kernels launched once a step; Adam's count on the card.  With deterministic
     cuDNN: some of its default weight-gradient algorithms accumulate with
     atomics, so an eager step need not repeat its own bits."""
     from hmd_ego_pose_tpu_torch import cli
@@ -432,7 +432,9 @@ def test_resident_step_graph_equals_eager_and_launches_target_assign_per_replay(
         torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.deterministic = False
-    assert LAUNCHES.snapshot() == {"target_assign": len(rows)}
+    # the training norms: 48 frozen backbone sites forward only (statistics,
+    # output), 105 BiFPN and head sites forward and backward (two more)
+    assert LAUNCHES.snapshot() == {"target_assign": len(rows), "batch_norm": (48 * 2 + 105 * 4) * len(rows)}
     assert graphed.graph.colour is not None  # the colour ops ran inside the graph
     assert torch.equal(graphed.graph.metrics, torch.stack(want))
     se, sg = eager.model.state_dict(), graphed.model.state_dict()

@@ -177,6 +177,7 @@ def test_spans_follow_each_frame_from_the_handler_to_its_batch():
     _, frames, _ = _golden("handrel")
     engine = cli.build_engine(os.path.join(REPO, "trained", CASES["handrel"][0] + ".npz"), "cpu",
                               frame_size=256, max_batch_size=2, score_threshold=0.1)
+    older = set(threading.enumerate())
     server = PoseServer(engine, host="127.0.0.1", port=0).start()
     errors = []
 
@@ -196,6 +197,12 @@ def test_spans_follow_each_frame_from_the_handler_to_its_batch():
         for t in threads:
             t.join(timeout=120)
         assert not any(t.is_alive() for t in threads)
+        # a client returns once its last packet arrives, which can be before
+        # the handler's thread closes that frame's server.send span: wait for
+        # the connections' threads to end (the clients closed their sockets)
+        for conn in [t for t in threading.enumerate() if t not in older and t.name.startswith("pose-conn-")]:
+            conn.join(timeout=30)
+            assert not conn.is_alive(), conn.name
     finally:
         spans = RECORDER.stop()
         server.stop(timeout=10.0)
