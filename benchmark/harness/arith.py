@@ -5,9 +5,10 @@ Peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense, at 700 W):
 3.35 TB/s of HBM.  A share of a peak is stated against these, with the
 card's power limit beside it.
 
-* ``model_flops``: the FLOPs of the reference network (``reference/model.py``),
-  its forward counted by ``torch.utils.flop_counter.FlopCounterMode`` on the
-  meta device (2 per multiply-add of every convolution and matrix product):
+* ``model_flops``: the FLOPs of the reference network (``reference/model.py``)
+  at a configuration's widths and image size, its forward counted by
+  ``torch.utils.flop_counter.FlopCounterMode`` on the meta device (2 per
+  multiply-add of every convolution and matrix product):
   one eval forward per served frame; per trained image the forward plus the
   backward the step needs.  With a frozen backbone no gradient reaches the
   backbone: the backward covers the BiFPN and the heads, their weight and
@@ -52,23 +53,24 @@ def spread(values: Sequence[float]) -> float:
 
 
 @functools.lru_cache(maxsize=None)
-def forward_flops(image_size: int, part: str = "network") -> float:
+def forward_flops(widths, image_size: int, part: str = "network") -> float:
     """FLOPs of one eval forward of one image through the reference network
-    (``part`` "network") or its backbone alone ("backbone"), counted by
-    ``FlopCounterMode`` on the meta device."""
+    of ``widths`` (``reference/model.py``'s ``Widths``; ``part`` "network")
+    or its backbone alone ("backbone"), counted by ``FlopCounterMode`` on
+    the meta device."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
     from reference import shapes
     from reference.model import Net
 
-    P = {name: torch.empty(shape, device="meta") for name, shape in shapes.param_shapes().items()}
+    P = {name: torch.empty(shape, device="meta") for name, shape in shapes.param_shapes(widths).items()}
     stats = {}
-    for prefix, c in shapes.stat_names().items():
+    for prefix, c in shapes.stat_names(widths).items():
         stats[prefix + "/mean"] = torch.zeros(c, device="meta")
         stats[prefix + "/var"] = torch.ones(c, device="meta")
     x = torch.zeros((1, image_size, image_size, 3), device="meta")
-    net = Net(P, stats)
+    net = Net(widths, P, stats)
     with torch.no_grad(), FlopCounterMode(display=False) as counter:
         if part == "backbone":
             net.backbone(x.permute(0, 3, 1, 2))
@@ -77,16 +79,16 @@ def forward_flops(image_size: int, part: str = "network") -> float:
     return float(counter.get_total_flops())
 
 
-def model_flops(image_size: int, training: bool, freeze_backbone: bool = True) -> float:
+def model_flops(widths, image_size: int, training: bool, freeze_backbone: bool = True) -> float:
     """FLOPs per image: an eval forward; or in training the forward plus the
     backward, two forwards' worth (the weight and the input gradients) of
     every trained layer: the BiFPN and the heads with a frozen backbone.
     ``FlopCounterMode`` is not asked for the backward: it counts a grouped
     (depthwise) convolution's backward about 32 times too high."""
-    total = forward_flops(image_size)
+    total = forward_flops(widths, image_size)
     if not training:
         return total
-    trained = total - forward_flops(image_size, "backbone") if freeze_backbone else total
+    trained = total - forward_flops(widths, image_size, "backbone") if freeze_backbone else total
     return total + 2.0 * trained
 
 

@@ -127,6 +127,7 @@ def run(cell: Dict, seed: int, seconds: int, trace: bool, device=None, fault: Op
 
     from harness import trace as tracing
     from hmd_ego_pose_tpu_torch.serving.engine import LatencyStats
+    from reference.model import Widths
 
     conf, traffic = cell["config"], cell["traffic"]
     device = torch.device(device or "cuda")
@@ -187,7 +188,8 @@ def run(cell: Dict, seed: int, seconds: int, trace: bool, device=None, fault: Op
     if answered < len(frames):
         correct = False
     ctx = {"client_p50_ms": e2e["serve_p50_ms"], "client_p95_ms": e2e["serve_p95_ms"], "engine": engine_view,
-           "trace": prof, "slice_frames": slice_frames, "image_size": conf["image_size"]}
+           "trace": prof, "slice_frames": slice_frames, "widths": Widths.of(conf),
+           "image_size": conf["image_size"]}
     return {"e2e": e2e, "ctx": ctx, "correct": correct, "attempted": len(frames), "failed": len(frames) - answered,
             "peak": peak, "trace": prof, "checks": checks,
             "extra": {"generator_late_ms": {"p50": percentile(late, 50), "max": max(late) if late else None},
@@ -200,7 +202,7 @@ def check(conf: Dict, traffic: Dict, seed: int, frames: List[List], device):
     from harness.loadgen import rgb_to_i420
     from harness.synthetic import serving_frame
     from reference import serve_check
-    from reference.model import load_artifact
+    from reference.model import Widths, load_artifact
 
     answered = [r for r in frames if r[3] is not None]
     rng = np.random.RandomState([seed % (2 ** 32), 0xC4EC])
@@ -213,7 +215,8 @@ def check(conf: Dict, traffic: Dict, seed: int, frames: List[List], device):
             cache[r[0]] = rgb_to_i420(serving_frame(seed, r[0], h, w, traffic["focal_scale"]))
         payloads.append(cache[r[0]])
     P, S = load_artifact(os.path.join(common.ROOT, conf["serving"]["weights"]))
-    cands = serve_check.candidates(P, S, payloads, h, w, camera(conf, traffic), conf["image_size"], device)
+    cands = serve_check.candidates(Widths.of(conf), P, S, payloads, h, w, camera(conf, traffic), conf["image_size"],
+                                   device)
     answers = []
     for r in sample:
         pose = r[4]

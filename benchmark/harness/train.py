@@ -1,10 +1,11 @@
 """Training cells: ``Trainer.train_epoch`` on the resident, graphed path.
 
 Set-up makes the split from the seed (``harness/synthetic.py``, under the
-run's ``TMPDIR``), draws the weights on the card from the seed
-(``reference/shapes.py``: one normal draw), and builds the program's
-``Trainer`` with ``cli train``'s defaults (batch 16, Adam 1e-4, frozen
-backbone, augmentation and drop-connect on the device, oversample 10).  Its
+run's ``TMPDIR``), draws the weights of the configuration's widths on the
+card from the seed (``reference/shapes.py``: one normal draw), and builds
+the program's ``Trainer`` with ``cli train``'s defaults (batch 16, Adam
+1e-4, frozen backbone, augmentation and drop-connect on the device,
+oversample 10).  Its
 first epoch is the warm-up: the first step captures the step's CUDA graph,
 and the first ``CHECKED_STEPS`` steps are recorded for the reference (their
 indices, augmentation draws, the generator's state for the drop-connect
@@ -25,6 +26,7 @@ closed; losses, first gradients and changes within their limits.
 
 from __future__ import annotations
 
+import gc
 import os
 import shutil
 import time
@@ -172,18 +174,19 @@ def _run(conf: Dict, traffic: Dict, root: str, seed: int, seconds: int, trace: b
     from harness import synthetic
     from harness import trace as tracing
     from reference import shapes, train_check
+    from reference.model import Widths
     from hmd_ego_pose_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
     from hmd_ego_pose_tpu_torch.data.colibri import ColibriDataset
     from hmd_ego_pose_tpu_torch.train.step import METRIC_NAMES
     from hmd_ego_pose_tpu_torch.train.trainer import Trainer
 
     tc_conf = conf["training"]
-    size = conf["image_size"]
+    size, widths = conf["image_size"], Widths.of(conf)
     data = synthetic.generate_dataset(root, conf["train_split_frames"], size, seed)
     data["points"] = read_ply_points(os.path.join(root, "models", "obj_01.ply"))
 
     gen = torch.Generator(device=device).manual_seed(seed)
-    params, stats = shapes.draw(gen, device)
+    params, stats = shapes.draw(gen, device, widths)
     keep_params = {k: v.clone() for k, v in params.items()}
     bn_tree = nest({k: v for k, v in stats.items()})
     cfg = Config(
@@ -231,27 +234,28 @@ def _run(conf: Dict, traffic: Dict, root: str, seed: int, seconds: int, trace: b
     for rec in recorder.records[:CHECKED_STEPS]:
         g = torch.Generator()
         g.set_state(rec["generator_state"])
-        drop = torch.rand((16, cfg.train.batch_size), generator=g).to(device)
+        drop = torch.rand((len(widths.blocks()), cfg.train.batch_size), generator=g).to(device)
         steps.append({"idx": rec["idx"].tolist(), "draws": draws_on(rec["draws"], device), "drop": drop})
     del trainer, recorder
+    gc.collect()  # the recorder and the trainer hold each other: free the step's graph and its pool now
     if device.type == "cuda":
         torch.cuda.empty_cache()
     tdata = {k: torch.as_tensor(np.asarray(data[k]), device=device) for k in ("frames", "masks")}
     tdata.update({k: torch.as_tensor(np.asarray(data[k], np.float32), device=device) for k in
                   ("boxes", "rotvecs", "translations", "hands", "cameras", "points")})
-    ref = train_check.follow(keep_params, tdata, steps, size, lr=tc_conf["learning_rate"],
+    ref = train_check.follow(widths, keep_params, tdata, steps, size, lr=tc_conf["learning_rate"],
                              hand_relative=tc_conf["hand_relative"])
     gaps = train_check.compare(prog, ref)
     limits = common.load_json(os.path.join(common.BENCH, "reference", "limits", conf["name"] + ".json"))["train"]
     checks = {k: {"value": gaps[k], "limit": limits[k]} for k in sorted(limits)}
     correct = finite and all(gaps[k] <= limits[k] for k in limits)
     e2e = {"train_images_per_s": images / elapsed, "setup_s": setup_s}
-    ctx = {"trace": prof, "slice_steps": slice_steps, "image_size": size, "batch_size": cfg.train.batch_size,
-           "window_images": images, "window_seconds": elapsed, "freeze_backbone": tc_conf["freeze_backbone"],
-           "window_peak_bytes": peak}
+    ctx = {"trace": prof, "slice_steps": slice_steps, "widths": widths, "image_size": size,
+           "batch_size": cfg.train.batch_size, "window_images": images, "window_seconds": elapsed,
+           "freeze_backbone": tc_conf["freeze_backbone"], "window_peak_bytes": peak}
     return {"e2e": e2e, "ctx": ctx, "correct": correct, "attempted": epochs, "failed": 0 if finite else 1,
             "peak": peak, "trace": prof, "checks": checks, "gaps": gaps,
-            "replay": {"params": keep_params, "data": tdata, "steps": steps, "size": size,
+            "replay": {"widths": widths, "params": keep_params, "data": tdata, "steps": steps, "size": size,
                        "lr": tc_conf["learning_rate"], "hand_relative": tc_conf["hand_relative"], "reference": ref},
             "extra": {"window": {"epochs": epochs, "images": images, "seconds": elapsed}, "epoch_edge": edge,
                       "readings": {"program": prog["losses"], "reference": ref["losses"]}}}

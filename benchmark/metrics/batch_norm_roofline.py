@@ -4,8 +4,8 @@ TB/s) times the steps, over the device time of the program's batch-norm
 kernels (``csrc/batch_norm.cu``, by name).
 
 The work is counted from the reference network (``reference/model.py``)
-in training mode at the cell's image size and batch: every batch norm's
-input read once and output written once, and, at the norms whose output
+in training mode at the cell's widths, image size and batch: every batch
+norm's input read once and output written once, and, at the norms whose output
 needs a gradient (the BiFPN's and the heads'; with a frozen backbone not
 the backbone's), the upstream gradient and the input read once and the
 input gradient written once.  The swish after a norm adds no bytes.
@@ -24,9 +24,9 @@ SOURCE, UNIT, LAYER, MOVES = "device_trace", "%", "Kernels", "train_images_per_s
 
 
 @functools.lru_cache(maxsize=None)
-def norm_sites(image_size: int):
+def norm_sites(widths, image_size: int):
     """(name, elements per image) of every batch norm of one training forward
-    of the reference network, counted on the meta device."""
+    of the reference network of ``widths``, counted on the meta device."""
     import torch
 
     from reference import shapes
@@ -39,16 +39,16 @@ def norm_sites(image_size: int):
             sites.append((name, x[0].numel()))
             return super().bn(x, name, stats)
 
-    P = {name: torch.empty(shape, device="meta") for name, shape in shapes.param_shapes().items()}
+    P = {name: torch.empty(shape, device="meta") for name, shape in shapes.param_shapes(widths).items()}
     with torch.no_grad():
-        Counting(P, training=True).forward(torch.zeros((1, image_size, image_size, 3), device="meta"))
+        Counting(widths, P, training=True).forward(torch.zeros((1, image_size, image_size, 3), device="meta"))
     return tuple(sites)
 
 
-def norm_bytes(image_size: int, batch: int, freeze_backbone: bool) -> float:
+def norm_bytes(widths, image_size: int, batch: int, freeze_backbone: bool) -> float:
     """Bytes a training step's norms must move at least (float32)."""
     total = 0
-    for name, values in norm_sites(image_size):
+    for name, values in norm_sites(widths, image_size):
         total += 2 * values
         if not (freeze_backbone and name.startswith("backbone/")):
             total += 3 * values
@@ -62,5 +62,5 @@ def read(ctx):
     took = trace.device_seconds(lambda name: bool(KERNELS.search(name)))
     if took <= 0:
         return None
-    moved = norm_bytes(ctx["image_size"], ctx["batch_size"], ctx["freeze_backbone"])
+    moved = norm_bytes(ctx["widths"], ctx["image_size"], ctx["batch_size"], ctx["freeze_backbone"])
     return arith.share_pct(steps * arith.bound_seconds(moved, 0.0), took)

@@ -11,4 +11,5 @@ def read(ctx):
     trace, frames = ctx.get("trace"), ctx.get("slice_frames")
     if trace is None or not frames or trace.busy_s <= 0:
         return None
-    return arith.share_pct(frames * arith.model_flops(ctx["image_size"], False) / arith.BF16_FLOPS, trace.busy_s)
+    flops = frames * arith.model_flops(ctx["widths"], ctx["image_size"], False)
+    return arith.share_pct(flops / arith.BF16_FLOPS, trace.busy_s)

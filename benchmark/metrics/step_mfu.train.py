@@ -12,5 +12,5 @@ def read(ctx):
     images, seconds = ctx.get("window_images"), ctx.get("window_seconds")
     if not images or not seconds:
         return None
-    flops = images * arith.model_flops(ctx["image_size"], True, ctx["freeze_backbone"])
+    flops = images * arith.model_flops(ctx["widths"], ctx["image_size"], True, ctx["freeze_backbone"])
     return 100.0 * flops / seconds / arith.F32_FLOPS

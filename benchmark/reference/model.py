@@ -1,13 +1,24 @@
-"""Plain float32 HMD-EgoPose: EfficientNet-B0, BiFPN, five heads, anchors.
+"""Plain float32 EfficientPose phi 0-5: EfficientNet-B0-B5, BiFPN, five heads, anchors.
 
-The benchmark's reference of the network (HMD-EgoPose, arXiv:2202.11891;
-EfficientPose phi = 0, arXiv:2011.04307), written from the published
-architecture in plain ``torch`` with TF32 off, over a flat dict of weights
+The benchmark's reference of the network (EfficientPose, arXiv:2011.04307;
+HMD-EgoPose, arXiv:2202.11891, is phi = 0), written from the published
+architecture in plain ``torch`` with TF32 off, at the widths a configuration
+file states (``Widths.of``), over a flat dict of weights
 named by the checkpoint's tree paths (``backbone/blocks/3/expand_conv/kernel``,
 HWIO kernels) and a dict of BN statistics (``.../mean``, ``.../var``).  It
 imports nothing of the program and takes nothing the program made: it reads
 the shipped artifact itself (``load_artifact``, int8 leaves dequantized
 here) or the weights the benchmark drew.
+
+The backbone is EfficientNet-B0's stage table scaled by the compound
+coefficients of B0-B5 (arXiv:1905.11946) as the published implementation
+rounds them: filters to a multiple of 8, never under 90 % of the scaled
+value; repeats rounded up.  A block's squeeze-excitation is 0.25 times its
+input filters; P3-P5 are the last blocks of stages 3, 5 and 7.  The BiFPN
+and the heads take the configuration's filters, cell repeats and head
+repeats, with fast-attention fusion.  Phi 6-8 (plain-sum fusion, inputs of
+1,280 px and up, P8 at phi 8) are not written here: ``Widths.of`` refuses
+them.
 
 Published choices kept: TensorFlow SAME padding (the extra pixel low/high
 as TF pads), max-pools that pad with zeros, BN eps 1e-3, fast-attention
@@ -22,6 +33,7 @@ precision below the bfloat16 the serving configuration states.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -34,20 +46,69 @@ Tree = Dict[str, torch.Tensor]
 # EfficientNet-B0 stages: (repeats, kernel, stride, expand, in, out); SE ratio 0.25
 B0_STAGES = ((1, 3, 1, 1, 32, 16), (2, 3, 2, 6, 16, 24), (2, 5, 2, 6, 24, 40), (3, 3, 2, 6, 40, 80),
              (3, 5, 1, 6, 80, 112), (4, 5, 2, 6, 112, 192), (1, 3, 1, 6, 192, 320))
+STEM_FILTERS = 32
+# compound coefficients (width, depth) of EfficientNet-B0-B5, the backbones of EfficientPose phi 0-5
+COMPOUND = {"efficientnet-b0": (1.0, 1.0), "efficientnet-b1": (1.0, 1.1), "efficientnet-b2": (1.1, 1.2),
+            "efficientnet-b3": (1.2, 1.4), "efficientnet-b4": (1.4, 1.8), "efficientnet-b5": (1.6, 2.2)}
 FEATURE_STAGES = (2, 4, 6)  # P3, P4, P5: the last blocks of stages 3, 5, 7
-FPN_FILTERS, FPN_REPEATS, HEAD_REPEATS = 64, 3, 3
 BN_EPS, FUSION_EPS, DROP_CONNECT = 1e-3, 1e-4, 0.2
-ANCHORS_PER_LOCATION = 9
-HEADS = {"regressor": 4, "classifier": 1, "rotation": 3, "hand": 63}
+PYRAMID_LEVELS, ANCHORS_PER_LOCATION = 5, 9
 
 
-def b0_blocks() -> List[Dict]:
-    blocks = []
-    for stage, (n, k, s, e, cin, cout) in enumerate(B0_STAGES):
-        for r in range(n):
-            blocks.append({"stage": stage, "kernel": k, "stride": s if r == 0 else 1, "expand": e,
-                           "in": cin if r == 0 else cout, "out": cout})
-    return blocks
+def round_filters(filters: int, width: float) -> int:
+    """``filters`` scaled by ``width`` to a multiple of 8, never under 90 % of the scaled value."""
+    scaled = filters * width
+    rounded = max(8, int(scaled + 4) // 8 * 8)
+    return rounded + 8 if rounded < 0.9 * scaled else rounded
+
+
+def round_repeats(repeats: int, depth: float) -> int:
+    return int(math.ceil(depth * repeats))
+
+
+@dataclasses.dataclass(frozen=True)
+class Widths:
+    """The network's widths: the backbone by name, the BiFPN's filters and
+    cells, the heads' repeats."""
+
+    backbone: str
+    fpn_filters: int
+    fpn_repeats: int
+    head_repeats: int
+
+    @classmethod
+    def of(cls, conf: Dict) -> "Widths":
+        """From a configuration file's ``backbone``, ``fpn_num_filters``,
+        ``fpn_cell_repeats``, ``head_repeats``, ``pyramid_levels`` and
+        ``anchors_per_location``; ``ValueError`` where the reference does
+        not hold the network."""
+        if conf["backbone"] not in COMPOUND:
+            raise ValueError(f"{conf['backbone']}: the reference holds EfficientPose phi 0-5 (EfficientNet-B0-B5); "
+                             "phi 6-8 fuse by a plain sum, take inputs of 1,280 px and up, and phi 8 adds P8")
+        if conf["pyramid_levels"] != PYRAMID_LEVELS or conf["anchors_per_location"] != ANCHORS_PER_LOCATION:
+            raise ValueError(f"the reference's anchors are P3-P7 with {ANCHORS_PER_LOCATION} a location, not "
+                             f"{conf['pyramid_levels']} levels with {conf['anchors_per_location']}")
+        return cls(conf["backbone"], conf["fpn_num_filters"], conf["fpn_cell_repeats"], conf["head_repeats"])
+
+    @property
+    def stem(self) -> int:
+        return round_filters(STEM_FILTERS, COMPOUND[self.backbone][0])
+
+    def blocks(self) -> List[Dict]:
+        """The backbone's MBConv blocks in order: stage, kernel, stride, expand, in, out."""
+        width, depth = COMPOUND[self.backbone]
+        blocks = []
+        for stage, (n, k, s, e, cin, cout) in enumerate(B0_STAGES):
+            cin, cout = round_filters(cin, width), round_filters(cout, width)
+            for r in range(round_repeats(n, depth)):
+                blocks.append({"stage": stage, "kernel": k, "stride": s if r == 0 else 1, "expand": e,
+                               "in": cin if r == 0 else cout, "out": cout})
+        return blocks
+
+    def features(self) -> Tuple[int, ...]:
+        """The filters of P3, P4, P5."""
+        width = COMPOUND[self.backbone][0]
+        return tuple(round_filters(B0_STAGES[stage][5], width) for stage in FEATURE_STAGES)
 
 
 def load_artifact(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
@@ -77,11 +138,12 @@ def _fp8(t: torch.Tensor) -> torch.Tensor:
 
 
 class Net:
-    """The network over weights ``P`` and BN statistics ``S``; ``training``
+    """The network of ``widths`` over weights ``P`` and BN statistics ``S``; ``training``
     normalises with batch statistics (variance E[x^2] - E[x]^2)."""
 
-    def __init__(self, P: Tree, S: Optional[Tree] = None, training: bool = False, fp8: bool = False):
-        self.P, self.S, self.training, self.fp8 = P, S or {}, training, fp8
+    def __init__(self, widths: Widths, P: Tree, S: Optional[Tree] = None, training: bool = False,
+                 fp8: bool = False):
+        self.widths, self.P, self.S, self.training, self.fp8 = widths, P, S or {}, training, fp8
 
     def conv(self, x: torch.Tensor, name: str, stride: int = 1, depthwise: bool = False,
              bias: bool = True) -> torch.Tensor:
@@ -119,12 +181,12 @@ class Net:
         x = self.conv(self.conv(x, name + "/depthwise", depthwise=True, bias=False), name + "/pointwise")
         return self.bn(x, name + "/bn") if norm else x
 
-    # -- EfficientNet-B0 -------------------------------------------------------
+    # -- EfficientNet ----------------------------------------------------------
     def backbone(self, x: torch.Tensor, drop: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
         """``drop``: (blocks, B) uniforms of drop-connect in training: block i
         keeps example b where ``drop[i, b] < 1 - 0.2 * i / blocks``."""
         x = self.swish(self.bn(self.conv(x, "backbone/stem_conv", stride=2, bias=False), "backbone/stem_bn"))
-        blocks, feats = b0_blocks(), []
+        blocks, feats = self.widths.blocks(), []
         for i, spec in enumerate(blocks):
             p, inputs = f"backbone/blocks/{i}", x
             if spec["expand"] != 1:
@@ -160,7 +222,7 @@ class Net:
 
     def bifpn(self, feats: List[torch.Tensor]) -> List[torch.Tensor]:
         up = lambda t: F.interpolate(t, scale_factor=2, mode="nearest")  # noqa: E731
-        for c in range(FPN_REPEATS):
+        for c in range(self.widths.fpn_repeats):
             p = f"bifpn/cells/{c}/"
             if c == 0:
                 p3, p4, p5 = feats
@@ -188,7 +250,7 @@ class Net:
     def head(self, pyramid: List[torch.Tensor], name: str, headers: Tuple[Tuple[str, int], ...]) -> torch.Tensor:
         outs = []
         for lv, feat in enumerate(pyramid):
-            for j in range(HEAD_REPEATS):
+            for j in range(self.widths.head_repeats):
                 feat = self.swish(self.bn(self.sep(feat, f"{name}/convs/{j}", norm=False), f"{name}/bns/{lv}/{j}"))
             parts = []
             for header, dim in headers:

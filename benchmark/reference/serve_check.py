@@ -40,7 +40,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from reference.model import Net, anchors, decode_poses, i420_to_rgb, preprocess
+from reference.model import Net, Widths, anchors, decode_poses, i420_to_rgb, preprocess
 
 TOP = 256
 SCORE_SLACK = 0.01
@@ -49,13 +49,14 @@ THRESHOLD = 0.5
 NUMBERS = ("detection_gap", "pose_gap_mm", "rotation_gap_rad", "translation_gap_mm")
 
 
-def candidates(P, S, payloads: Sequence[bytes], height: int, width: int, camera: np.ndarray, size: int,
-               device, fp8: bool = False, block: int = 16) -> List[Dict[str, np.ndarray]]:
-    """The reference's ``TOP`` candidates of each frame: score, rotation (rad),
-    translation (m), best first; in blocks of ``block`` frames."""
+def candidates(widths: Widths, P, S, payloads: Sequence[bytes], height: int, width: int, camera: np.ndarray,
+               size: int, device, fp8: bool = False, block: int = 16) -> List[Dict[str, np.ndarray]]:
+    """The reference's ``TOP`` candidates of each frame from the network of
+    ``widths``: score, rotation (rad), translation (m), best first; in
+    blocks of ``block`` frames."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    net = Net({k: torch.as_tensor(v, device=device) for k, v in P.items()},
+    net = Net(widths, {k: torch.as_tensor(v, device=device) for k, v in P.items()},
               {k: torch.as_tensor(v, device=device) for k, v in S.items()}, fp8=fp8)
     trans_anchors = torch.as_tensor(anchors(size)[1], device=device)
     out = []

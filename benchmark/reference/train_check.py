@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from reference import augment
-from reference.model import Net, anchors, preprocess
+from reference.model import Net, Widths, anchors, preprocess
 
 ADAM = (0.9, 0.999, 1e-8)
 LOSS_WEIGHTS = {"classification": 1.0, "regression": 50.0, "rotation": 100.0, "translation": 0.1, "hand": 1.0}
@@ -162,10 +162,11 @@ def augmented_batch(data: Dict[str, torch.Tensor], idx: Sequence[int], draws, im
     return images, cams, torch.stack(boxes).float() * scale, transformation, hand.reshape(b, 63)
 
 
-def follow(P0: Dict[str, torch.Tensor], data: Dict[str, torch.Tensor], steps: List[Dict], image_size: int,
-           lr: float = 1e-4, hand_relative: bool = False, tf32: bool = False, half: bool = False) -> Dict:
+def follow(widths: Widths, P0: Dict[str, torch.Tensor], data: Dict[str, torch.Tensor], steps: List[Dict],
+           image_size: int, lr: float = 1e-4, hand_relative: bool = False, tf32: bool = False,
+           half: bool = False) -> Dict:
     """The reference's run of ``steps`` (each: ``idx``, ``draws``, ``drop``)
-    from the weights ``P0``; returns per-step losses, the first gradient
+    from the weights ``P0`` of the network of ``widths``; returns per-step losses, the first gradient
     and the change of every trained leaf.  ``tf32``: the control, the
     reference in TF32; ``half``: a fault, each step's loss over the first
     half of its batch."""
@@ -190,7 +191,7 @@ def follow(P0: Dict[str, torch.Tensor], data: Dict[str, torch.Tensor], steps: Li
                                                                    hand[:n], drop[:, :n])
             for k in trained:
                 P[k].requires_grad_(True)
-            out = Net(P, training=True).forward(images, drop)
+            out = Net(widths, P, training=True).forward(images, drop)
             raw = out["translation_raw"]
             stride = trans_anchors[:, 2]
             x = (trans_anchors[:, 0] + raw[..., 0] * stride) / cams[:, 5:6] - cams[:, 2:3]

@@ -4,8 +4,11 @@ import statistics
 
 import pytest
 
-from harness import arith
+from harness import arith, common
 from harness.trace import Trace
+from reference.model import Widths
+
+PHI0 = Widths.of(common.cell("train-phi0-256-b16")["config"])
 
 
 def _trace():
@@ -65,27 +68,26 @@ def test_eval_flops_match_the_programs_counter_on_its_own_model():
     from hmd_ego_pose_tpu_torch.utils.model_stats import forward_flops
 
     program = forward_flops(HMDEgoPose(ModelConfig(image_size=128)).to("meta"), 128)
-    assert arith.model_flops(128, False) == pytest.approx(program, rel=1e-6)
+    assert arith.model_flops(PHI0, 128, False) == pytest.approx(program, rel=1e-6)
     # a frozen backbone's backward adds the BiFPN's and the heads' gradients only
-    backbone = arith.forward_flops(128, "backbone")
+    backbone = arith.forward_flops(PHI0, 128, "backbone")
     assert 0 < backbone < program
-    assert arith.model_flops(128, True) == pytest.approx(3 * program - 2 * backbone)
-    assert arith.model_flops(128, True, freeze_backbone=False) == pytest.approx(3 * program)
+    assert arith.model_flops(PHI0, 128, True) == pytest.approx(3 * program - 2 * backbone)
+    assert arith.model_flops(PHI0, 128, True, freeze_backbone=False) == pytest.approx(3 * program)
 
 
 def test_shares_and_mfu_readers():
-    from harness import common
-
-    ctx = {"trace": _trace(), "slice_steps": 2, "image_size": 128, "batch_size": 16, "window_images": 320,
-           "window_seconds": 2.0, "freeze_backbone": True, "window_peak_bytes": 2e9, "slice_frames": 4}
+    ctx = {"trace": _trace(), "slice_steps": 2, "widths": PHI0, "image_size": 128, "batch_size": 16,
+           "window_images": 320, "window_seconds": 2.0, "freeze_backbone": True, "window_peak_bytes": 2e9,
+           "slice_frames": 4}
     assert common.metric_reader("launch_calls_per_step.train").read(ctx) == pytest.approx(1.5)
     assert common.metric_reader("device_idle_pct.train").read(ctx) == pytest.approx(50.0)
     assert common.metric_reader("peak_mem_gb.train").read(ctx) == pytest.approx(2.0)
     mfu = common.metric_reader("step_mfu.train").read(ctx)
-    assert mfu == pytest.approx(100 * 320 * arith.model_flops(128, True) / 2.0 / 67e12)
+    assert mfu == pytest.approx(100 * 320 * arith.model_flops(PHI0, 128, True) / 2.0 / 67e12)
     moved, ops = arith.target_assign_work(arith.num_anchors(128), 1, 16, 1)
     roof = common.metric_reader("target_assign_roofline").read(ctx)
     assert roof == pytest.approx(100 * 2 * arith.bound_seconds(moved, ops) / 0.001)
     serve = common.metric_reader("step_mfu.serve").read(ctx)
-    assert serve == pytest.approx(100 * 4 * arith.model_flops(128, False) / 989e12 / 0.005)
+    assert serve == pytest.approx(100 * 4 * arith.model_flops(PHI0, 128, False) / 989e12 / 0.005)
     assert common.metric_reader("step_mfu.serve").read({"trace": None}) is None

@@ -1,13 +1,16 @@
-"""The plain reference against the program at phi 0 and 128 px, on the CPU."""
+"""The plain reference against the program at phi 0 and 128 px, on the CPU
+(phi 3: ``test_harness_widths.py``)."""
 
 import numpy as np
 import pytest
 import torch
 
+from harness import common
 from reference import shapes
-from reference.model import Net, anchors, load_artifact, preprocess
+from reference.model import Net, Widths, anchors, load_artifact, preprocess
 
 ARTIFACT = "trained/syn1000_phi0_576ep_handrel_int8.npz"
+PHI0 = Widths.of(common.cell("serve-phi0-256-hmd")["config"])
 
 
 def _program(image_size, P, S, dtype="float32"):
@@ -33,8 +36,8 @@ def artifact():
 
 def test_the_tree_is_the_artifacts(artifact):
     P, S = artifact
-    assert {k: tuple(v.shape) for k, v in P.items()} == dict(shapes.param_shapes())
-    assert set(S) == {f"{p}/{m}" for p in shapes.stat_names() for m in ("mean", "var")}
+    assert {k: tuple(v.shape) for k, v in P.items()} == dict(shapes.param_shapes(PHI0))
+    assert set(S) == {f"{p}/{m}" for p in shapes.stat_names(PHI0) for m in ("mean", "var")}
 
 
 def test_anchors_are_the_programs():
@@ -61,7 +64,8 @@ def test_the_eval_forward_is_the_programs_in_float32(artifact):
     model, cfg = _program(128, P, S)
     x = torch.randn((2, 128, 128, 3), generator=torch.Generator().manual_seed(1))
     theirs = hmd_ego_pose.apply(model, x, cfg)
-    ours = Net({k: torch.as_tensor(v) for k, v in P.items()}, {k: torch.as_tensor(v) for k, v in S.items()}).forward(x)
+    ours = Net(PHI0, {k: torch.as_tensor(v) for k, v in P.items()},
+               {k: torch.as_tensor(v) for k, v in S.items()}).forward(x)
     for name in ("regression", "classification", "rotation", "translation_raw", "hand"):
         a, b = ours[name], getattr(theirs, name)
         assert a.shape == b.shape, name
@@ -74,8 +78,8 @@ def test_the_float8_control_departs_further_than_bfloat16(artifact):
     P, S = artifact
     x = torch.randn((2, 128, 128, 3), generator=torch.Generator().manual_seed(2))
     tensors = ({k: torch.as_tensor(v) for k, v in P.items()}, {k: torch.as_tensor(v) for k, v in S.items()})
-    exact = Net(*tensors).forward(x)["rotation"]
-    fp8 = Net(*tensors, fp8=True).forward(x)["rotation"]
+    exact = Net(PHI0, *tensors).forward(x)["rotation"]
+    fp8 = Net(PHI0, *tensors, fp8=True).forward(x)["rotation"]
     model, cfg = _program(128, P, S, "bfloat16")
     bf16 = hmd_ego_pose.apply(model, x, cfg).rotation
     assert (fp8 - exact).abs().mean() > 3 * (bf16 - exact).abs().mean()

@@ -32,12 +32,13 @@ def serve_readings(cell, seeds, seconds):
     from harness.loadgen import rgb_to_i420
     from harness.synthetic import serving_frame
     from reference import serve_check
-    from reference.model import load_artifact
+    from reference.model import Widths, load_artifact
 
     conf, traffic = cell["config"], cell["traffic"]
     device = torch.device("cuda")
     engine, server = serve.build_server(conf, traffic, device)
     P, S = load_artifact(os.path.join(common.ROOT, conf["serving"]["weights"]))
+    widths, cam = Widths.of(conf), serve.camera(conf, traffic)
     h, w = traffic["frame_height"], traffic["frame_width"]
     rows = []
     try:
@@ -55,9 +56,8 @@ def serve_readings(cell, seeds, seconds):
             n = min(traffic["check_frames"], len(answered))
             sample = [answered[i] for i in sorted(rng.choice(len(answered), n, replace=False))]
             payloads = [rgb_to_i420(serving_frame(seed, r[0], h, w, traffic["focal_scale"])) for r in sample]
-            ref = serve_check.candidates(P, S, payloads, h, w, serve.camera(conf, traffic), conf["image_size"], device)
-            ctl = serve_check.candidates(P, S, payloads, h, w, serve.camera(conf, traffic), conf["image_size"], device,
-                                         fp8=True)
+            ref = serve_check.candidates(widths, P, S, payloads, h, w, cam, conf["image_size"], device)
+            ctl = serve_check.candidates(widths, P, S, payloads, h, w, cam, conf["image_size"], device, fp8=True)
             answers = [None if r[4] is None or None in r[4] else (np.array(r[4][:3]), np.array(r[4][3:]))
                        for r in sample]
             rows.append({"seed": seed, "frames": len(frames), "answered": len(answered), "sampled": n,
@@ -82,9 +82,9 @@ def train_readings(cell, seeds, seconds):
     for seed in seeds:
         out = train.run(cell, seed, seconds, False)
         r = out["replay"]
-        ctl = train_check.follow(r["params"], r["data"], r["steps"], r["size"], lr=r["lr"],
+        ctl = train_check.follow(r["widths"], r["params"], r["data"], r["steps"], r["size"], lr=r["lr"],
                                  hand_relative=r["hand_relative"], tf32=True)
-        half = train_check.follow(r["params"], r["data"], r["steps"], r["size"], lr=r["lr"],
+        half = train_check.follow(r["widths"], r["params"], r["data"], r["steps"], r["size"], lr=r["lr"],
                                   hand_relative=r["hand_relative"], half=True)
         rows.append({"seed": seed, "program": out["gaps"], "control": train_check.compare(ctl, r["reference"]),
                      "fault_half": train_check.compare(half, r["reference"]),
